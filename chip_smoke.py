@@ -5,27 +5,48 @@
 
 Phases, each printed as one JSON line with its seconds:
   device     the card's name, count and power limit; no card is an error.
-  build      one nvcc call builds the CUDA kernels (K1, flash attention);
-             prints its time and nvcc's register / spill report.
+  build      one nvcc call builds the CUDA kernels (K1 flash attention, K2
+             fused GroupNorm -> SiLU -> conv3x3); prints its time and nvcc's
+             register / spill report, K2's on a line of its own.
   reference  a small pipeline (head dims 40/80/512, fp32) on the card against
              the same pipeline on the CPU with the same weights and noise:
-             uint8 frames within 1 LSB.
-  window     the main path: the native-LCM window at full SD1.5 width through
-             the facade (512x512, 16 frames, 4 LCM steps, no CFG, strength
-             0.9), random bf16 weights made on the card from a seed. One
-             warm-up window, WINDOWS windows without overlap (frames/s as
-             bench.py counts it: 16 frames a window), then WINDOWS windows of
-             the overlap-8 stream (8 new frames a window, overlap latents
-             reused). K1's launches are counted per shape over the whole run
-             and must equal what the UNet and VAE imply.
+             uint8 frames within 1 LSB; then the same with
+             `use_pallas_conv` and 128-channel VAE levels, so that K2 runs
+             on the card (its launches are counted and must be nonzero).
+  window     the native-LCM window at full SD1.5 width through the facade
+             (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
+             bf16 weights made on the card from a seed. One warm-up window,
+             WINDOWS windows without overlap (frames/s as bench.py counts it:
+             16 frames a window), then WINDOWS windows of the overlap-8 stream
+             (8 new frames a window, overlap latents reused). K1's launches
+             are counted per shape over the phase and must equal what the
+             UNet and VAE imply.
   window_plain_attention
              the overlap-8 windows again with the plain attention on the
              same inputs (time and uint8 difference reported, not gated).
-  kernels    K1 against its plain PyTorch version on the card at every shape
-             the window launched it with, plus odd lengths, in bf16 and fp32
-             (`k1_mismatch` states the gates); then its time, the plain
-             version's, one PyTorch SDPA call's (a yardstick the port never
-             calls) and the bound.
+  vid2vid    the main path: the port's `vid2vid` loop at full width, the
+             same models, 512x512, 16-frame windows with overlap 8, 4 LCM
+             steps, strength 0.9, bf16, `use_pallas_conv` on: seeded
+             synthetic frames with motion for one whole window and
+             V2V_OVERLAP_WINDOWS overlap windows, from an ArrayFrameSource to
+             an ArrayFrameSink. Checks the frames written, their shape and
+             dtype, that the stitch's color match changed window 2 onwards,
+             and K1's and K2's launches by shape against what the UNet and
+             the VAE imply. Prints new frames/s (frames written / loop
+             seconds, the first window included), the loop's phase timers
+             and peak memory.
+  vid2vid_plain_conv
+             the same loop with `use_pallas_conv` off (time and uint8
+             difference reported, not gated).
+  kernels    K1 against its plain version at every shape the window phase
+             launched it with, plus odd lengths, in bf16 and fp32
+             (`k1_mismatch` states the gates); K2 against its plain version
+             at every shape the vid2vid phase launched it with, plus odd
+             H and W, each with and without the affine + SiLU + residual, in
+             bf16 and fp32 (`k2_mismatch`). Then each kernel's time, its
+             plain version's, one PyTorch call's (SDPA for K1, `F.conv2d` on
+             the activated input for K2: yardsticks the port never calls)
+             and the bound.
 Then the kernels line, the `nvidia-smi` name/power-limit line, and last the
 `{"ok": true, "device": ...}` line. Any failure ends the run non-zero.
 """
@@ -57,7 +78,11 @@ UNET_SHAPES = {
 }
 ODD_SHAPES = [(2, 77, 77, 8, 40), (3, 333, 333, 2, 80), (1, 129, 129, 8, 160),
               (2, 77, 77, 1, 512)]
+# odd K2 shapes (B, H, W, Cin, Cout): W not a multiple of the 16-pixel tile,
+# H = 7, and H = 1 with W = 16
+K2_ODD_SHAPES = [(2, 9, 37, 128, 128), (1, 7, 21, 256, 128), (2, 1, 16, 128, 256)]
 WINDOWS = 4  # timed windows of each kind
+V2V_OVERLAP_WINDOWS = 3  # overlap windows after the vid2vid phase's first window
 SEED = 7
 
 
@@ -158,6 +183,134 @@ def check_kernel(torch, fa, shape, dtype, gen) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
 
+def conv_bound_ms(shape, itemsize: int, residual: bool) -> tuple[float, float]:
+    """(operations, bytes) times of one K2 call in ms: 2*9*B*H*W*Cin*Cout
+    FLOPs at the bf16 tensor rate; x, the weights and the residual read once
+    and the output written once at the memory rate."""
+    B, H, W, Cin, Cout = shape
+    flops = 2.0 * 9 * B * H * W * Cin * Cout
+    nbytes = (B * H * W * (Cin + Cout + (Cout if residual else 0)) + 9 * Cin * Cout) * itemsize
+    return 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES
+
+
+def k2_mismatch(torch, out, ref) -> str | None:
+    """K2's gates on `out` against the plain version's `ref` (same dtype);
+    None when it passes. fp32: atol = rtol = 1e-4 (TF32 off in the plain
+    version). bf16: |out - ref| <= 1e-2 * (|ref| + rms(ref)). Both sides
+    convolve the same bf16-rounded operands in fp32 and round once, so a
+    right kernel differs by the summation order and then at most one bf16
+    ulp (< 2**-7 |ref|)."""
+    bf16 = out.dtype == torch.bfloat16
+    out, ref = out.float(), ref.float()
+    if out.shape != ref.shape:
+        return f"shape {tuple(out.shape)} against {tuple(ref.shape)}"
+    if not bool(torch.isfinite(out).all()):
+        return "non-finite output"
+    if not bf16:
+        if not torch.allclose(out, ref, atol=1e-4, rtol=1e-4):
+            return f"max abs err {(out - ref).abs().max().item()} over atol = rtol = 1e-4"
+        return None
+    rms = ref.square().mean().sqrt()
+    excess = ((out - ref).abs() - 1e-2 * (ref.abs() + rms)).max().item()
+    if excess > 0:
+        return f"bf16 error exceeds 1e-2 * (|ref| + rms(ref) = {rms.item()}) by {excess}"
+    return None
+
+
+def k2_inputs(torch, shape, dtype, gen):
+    """Seeded K2 operands at (B, H, W, Cin, Cout): x, HWIO weights, bias,
+    the folded affine (a, b) and a residual."""
+    B, H, W, Cin, Cout = shape
+    x = torch.randn((B, H, W, Cin), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((3, 3, Cin, Cout), generator=gen, device="cuda")
+         / math.sqrt(9 * Cin)).to(dtype)
+    bias = 0.1 * torch.randn((Cout,), generator=gen, device="cuda")
+    a = (1.0 + 0.1 * torch.randn((B, Cin), generator=gen, device="cuda")).to(dtype)
+    b = (0.1 * torch.randn((B, Cin), generator=gen, device="cuda")).to(dtype)
+    res = torch.randn((B, H, W, Cout), generator=gen, device="cuda").to(dtype)
+    return x, w, bias, (a, b), res
+
+
+def check_k2(torch, ck, shape, dtype, gen) -> float:
+    """K2 at (B, H, W, Cin, Cout) against its plain version, plain and with
+    affine + SiLU + residual; max abs error."""
+    x, w, bias, affine, res = k2_inputs(torch, shape, dtype, gen)
+    err = 0.0
+    for kw in ({}, {"affine": affine, "act": "silu", "residual": res}):
+        out = ck.conv3x3_fused(x, w, bias, **kw)
+        ref = ck.conv3x3_fused_plain(x, w, bias, **kw)
+        bad = k2_mismatch(torch, out, ref)
+        if bad:
+            raise AssertionError(f"K2 {shape} {dtype} {sorted(kw)}: {bad}")
+        err = max(err, (out.float() - ref.float()).abs().max().item())
+    return err
+
+
+def vae_k2_calls(vae, size: int) -> tuple:
+    """The K2 calls of one VAE encode and one decode of a size x size image,
+    read off the module tree: Counters of (H, W, Cin, Cout, affine, residual),
+    each resnet giving conv1 (affine + SiLU) and conv2 (affine + SiLU +
+    residual), each Upsample2D one call on the 2x map (no affine, no SiLU)."""
+    from collections import Counter
+
+    from controlanimate_tpu_torch.ops import conv_kernel as ck
+
+    def resnets(blocks_and_hw):
+        calls = Counter()
+        for resnet, hw in blocks_and_hw:
+            for conv, res in ((resnet.conv1, False), (resnet.conv2, True)):
+                if ck.supported(hw, hw, conv.in_channels, conv.out_channels):
+                    calls[(hw, hw, conv.in_channels, conv.out_channels, True, res)] += 1
+        return calls
+
+    enc, hw, seen = vae.encoder, size, []
+    for blk in enc.down_blocks:
+        seen += [(r, hw) for r in blk.resnets]
+        if hasattr(blk, "downsamplers"):
+            hw //= 2
+    seen += [(r, hw) for r in enc.mid_block.resnets]
+    encode = resnets(seen)
+
+    dec, hw = vae.decoder, size // 8
+    seen, ups = [(r, hw) for r in dec.mid_block.resnets], Counter()
+    for blk in dec.up_blocks:
+        seen += [(r, hw) for r in blk.resnets]
+        if hasattr(blk, "upsamplers"):
+            hw *= 2
+            c = blk.upsamplers[0].conv
+            ups[(hw, hw, c.in_channels, c.out_channels, False, False)] += 1
+    return encode, resnets(seen) + ups
+
+
+def expected_k2_launches(vae, size, frames_n, overlap, full_windows, overlap_windows) -> dict:
+    """K2 launches by (B, H, W, Cin, Cout, affine, residual) for windows of
+    `frames_n` frames: every window decodes all frames; a whole window
+    encodes all, an overlap window only its new frames."""
+    from collections import Counter
+
+    encode, decode = vae_k2_calls(vae, size)
+    out = Counter()
+    for key, n in decode.items():
+        out[(frames_n,) + key] += n * (full_windows + overlap_windows)
+    for key, n in encode.items():
+        out[(frames_n,) + key] += n * full_windows
+        if overlap_windows:
+            out[(frames_n - overlap,) + key] += n * overlap_windows
+    return dict(out)
+
+
+def synthetic_video(np, n: int, size: int, seed: int):
+    """n seeded (size, size, 3) uint8 frames of moving gradients and noise."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    frames = np.empty((n, size, size, 3), np.uint8)
+    for i in range(n):
+        base = np.stack([128 + 90 * np.sin((xx + 6 * i) / 37.0), 40 + 0.3 * yy + 2 * i,
+                         128 + 80 * np.cos((xx + yy - 4 * i) / 53.0)], axis=-1)
+        frames[i] = np.clip(base + rng.randn(size, size, 3) * 8, 0, 255)
+    return frames
+
+
 def init_weights_(torch, module, gen) -> None:
     """Seeded lecun-normal weights, zero biases, unit norm scales, in place on
     the module's device."""
@@ -213,10 +366,12 @@ def build_models(torch, unet_cfg, vae_channels, clip_cfg, device, seed, vae_grou
     return EngineModels(unet=unet, vae=vae), TextStack(CLIPTokenizer.tiny(), clip)
 
 
-def small_reference(torch) -> dict:
+def small_reference(torch, conv_kernel: bool = False) -> dict:
     """The same small pipeline (fp32, same weights and noise) on the CPU and
     on the card: uint8 frames must agree within 1 LSB. Head dims 40/80 (UNet)
-    and 512 (VAE) put K1 on the card's path."""
+    and 512 (VAE) put K1 on the card's path; with `conv_kernel` the VAE's
+    levels are 128 channels wide and `use_pallas_conv` is on, which puts K2
+    on it too."""
     import copy
 
     from controlanimate_tpu_torch.config import MotionModuleConfig, RunConfig
@@ -226,7 +381,7 @@ def small_reference(torch) -> dict:
 
     cfg = RunConfig(width=64, height=64, frame_count=4, overlap_length=2, use_lcm=True,
                     steps=2, strength=0.9, lcm_origin_steps=8, prompt="a (red fox)+",
-                    dtype="float32")
+                    dtype="float32", use_pallas_conv=conv_kernel)
     ucfg = UNet3DConfig(
         block_out_channels=(80, 160), layers_per_block=1,
         down_block_types=("CrossAttnDownBlock3D", "DownBlock3D"),
@@ -236,7 +391,8 @@ def small_reference(torch) -> dict:
     )
     ccfg = CLIPTextConfig(vocab_size=514, hidden_size=32, num_layers=2, num_heads=2,
                           intermediate_size=64, eos_token_id=513)
-    models, text = build_models(torch, ucfg, (32, 64, 64, 512), ccfg, "cpu", SEED, vae_groups=8)
+    vae_channels = (128, 128, 128, 512) if conv_kernel else (32, 64, 64, 512)
+    models, text = build_models(torch, ucfg, vae_channels, ccfg, "cpu", SEED, vae_groups=8)
     cpu = ControlAnimatePipeline(cfg, models=models, text_stack=text, device="cpu")
     gpu = ControlAnimatePipeline(cfg, models=copy.deepcopy(models),
                                  text_stack=copy.deepcopy(text), device="cuda")
@@ -288,6 +444,7 @@ def main() -> int:
     from controlanimate_tpu_torch.models.unet3d import UNet3DConfig
     from controlanimate_tpu_torch.models.vae import VaeAttnBlock
     from controlanimate_tpu_torch.ops import attention as attention_module
+    from controlanimate_tpu_torch.ops import conv_kernel as ck
     from controlanimate_tpu_torch.ops import flash_attention as fa
     from controlanimate_tpu_torch.pipelines.facade import ControlAnimatePipeline
 
@@ -299,16 +456,25 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = _build.load_library()
+    ptxas = ptxas_report(lib.log)
     phase("build", t0, nvcc_seconds=round(lib.build_seconds, 3), library=lib.path.name,
-          ptxas=ptxas_report(lib.log))
+          ptxas=ptxas)
+    print(json.dumps({"k2_ptxas": [r for r in ptxas if "conv3x3" in r["function"]]}), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     ref = small_reference(torch)
-    phase("reference", t0, **ref)
-    if ref["max_lsb"] > 1:
-        raise AssertionError(f"card and CPU pipelines differ by {ref['max_lsb']} LSB")
+    ck.reset_launch_counts()
+    ref_k2 = small_reference(torch, conv_kernel=True)
+    k2_ref_launches = ck.conv3x3_fused.launches
+    phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
+          k2_launches=k2_ref_launches)
+    for r in (ref, ref_k2):
+        if r["max_lsb"] > 1:
+            raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB")
+    if k2_ref_launches == 0:
+        raise AssertionError("the reference with use_pallas_conv launched no K2")
 
     # -- the main path ----------------------------------------------------
     t0 = time.perf_counter()
@@ -345,6 +511,7 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    ck.reset_launch_counts()
     epoch = 0
     frames = new_frames(frames_n)
     out = pipe.animate(frames, None, overlaps=0, seed=SEED, epoch=epoch)  # warm-up
@@ -385,6 +552,8 @@ def main() -> int:
     expected = expected_k1_launches(1 + WINDOWS, WINDOWS, steps, frames_n, overlap)
     if by_shape != expected:
         raise AssertionError(f"K1 launches by shape {by_shape}, expected {expected}")
+    if ck.conv3x3_fused.launches:
+        raise AssertionError("K2 launched in the window phase, where use_pallas_conv is off")
     phase("window", t0, warmup_seconds=round(t_warm, 4), windows=WINDOWS,
           full_windows_seconds=round(t_full, 4),
           seconds_per_full_window=round(t_full / WINDOWS, 4),
@@ -408,7 +577,105 @@ def main() -> int:
           new_frames_per_second=round((frames_n - overlap) * WINDOWS / t_plain, 4),
           uint8_diff_mean=float(diff.float().mean()), uint8_diff_max=int(diff.max()))
 
-    # -- K1 at every shape the main path launched it with -----------------
+    # -- the main path: the vid2vid loop with K2 on ------------------------
+    import numpy as np
+
+    from controlanimate_tpu_torch import vid2vid as v2v
+    from controlanimate_tpu_torch.io.media import ArrayFrameSink, ArrayFrameSource
+    from controlanimate_tpu_torch.ops.blending import blend_overlap_u8
+    from controlanimate_tpu_torch.ops.color_match import match_colors_u8
+
+    video = synthetic_video(np, frames_n + V2V_OVERLAP_WINDOWS * (frames_n - overlap), size, SEED)
+
+    class Recording:
+        """The facade, keeping the first two windows' raw frames."""
+
+        def __init__(self, pipe):
+            self.pipe, self.device, self.raw = pipe, pipe.device, []
+
+        def animate(self, *args, **kw):
+            out = self.pipe.animate(*args, **kw)
+            if len(self.raw) < 2:
+                self.raw.append(out.clone())
+            return out
+
+    def run_vid2vid(conv_kernel: bool, tag: str):
+        vcfg = cfg.replace(use_pallas_conv=conv_kernel, seed=SEED, overlap_strength=cfg.strength,
+                           output_video_dir=str(ROOT / "build" / "chip_smoke_vid2vid" / tag))
+        rec = Recording(ControlAnimatePipeline(vcfg, models=models, text_stack=text,
+                                               device="cuda"))
+        sink = ArrayFrameSink()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        ck.reset_launch_counts()
+        t1 = time.perf_counter()
+        summary = v2v.vid2vid(config=vcfg, pipeline=rec, frame_source=ArrayFrameSource(video),
+                              frame_sink=sink)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        counts = {"k1": fa.flash_attention.launches,
+                  "k1_by_shape": dict(fa.flash_attention.launches_by_shape),
+                  "k2": ck.conv3x3_fused.launches,
+                  "k2_by_shape": dict(ck.conv3x3_fused.launches_by_shape)}
+        return summary, sink.frames, seconds, rec.raw, counts, torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    v2v_windows = 1 + V2V_OVERLAP_WINDOWS
+    summary, v2v_frames, v2v_seconds, raw, counts, v2v_peak = run_vid2vid(True, "k2")
+    if summary["frames_written"] != len(video) or len(v2v_frames) != len(video):
+        raise AssertionError(f"vid2vid wrote {summary['frames_written']} frames "
+                             f"({len(v2v_frames)} in the sink) of {len(video)}")
+    if summary["windows"] != v2v_windows:
+        raise AssertionError(f"vid2vid ran {summary['windows']} windows, expected {v2v_windows}")
+    if any(f.shape != (size, size, 3) or f.dtype != np.uint8 for f in v2v_frames):
+        raise AssertionError("vid2vid frames are not (512, 512, 3) uint8")
+    # window 2's emitted head is window 1's tail blended with window 2's frames
+    # color-matched to window 1's anchor (its frame overlap - 1)
+    matched = match_colors_u8(raw[1], raw[0][overlap - 1])
+    color_change = float((matched.int() - raw[1].int()).abs().float().mean())
+    expect = blend_overlap_u8(matched[:overlap], raw[0][-overlap:]).cpu().numpy()
+    got = np.stack(v2v_frames[frames_n - overlap:frames_n])
+    if color_change == 0.0 or not np.array_equal(got, expect):
+        raise AssertionError(f"the stitch did not run as expected on window 2 "
+                             f"(color match change {color_change}, "
+                             f"max diff {np.abs(got.astype(int) - expect).max()})")
+    k1_expected = expected_k1_launches(1, V2V_OVERLAP_WINDOWS, steps, frames_n, overlap)
+    if counts["k1_by_shape"] != k1_expected:
+        raise AssertionError(f"vid2vid K1 launches {counts['k1_by_shape']}, "
+                             f"expected {k1_expected}")
+    k2_expected = expected_k2_launches(models.vae, size, frames_n, overlap, 1,
+                                       V2V_OVERLAP_WINDOWS)
+    if counts["k2_by_shape"] != k2_expected:
+        raise AssertionError(f"vid2vid K2 launches {counts['k2_by_shape']}, "
+                             f"expected {k2_expected}")
+    phase("vid2vid", t0, windows=summary["windows"], frames_written=summary["frames_written"],
+          loop_seconds=round(v2v_seconds, 4),
+          new_frames_per_second_first_window_included=round(
+              summary["frames_written"] / v2v_seconds, 4),
+          color_match_mean_change_window2=color_change, max_memory_allocated=v2v_peak,
+          k1_launches=counts["k1"], k2_launches=counts["k2"],
+          k2_launches_per_full_window=sum(
+              expected_k2_launches(models.vae, size, frames_n, overlap, 1, 0).values()),
+          k2_launches_per_overlap_window=sum(
+              expected_k2_launches(models.vae, size, frames_n, overlap, 0, 1).values()),
+          timers=summary["timers"])
+    v2v_counts = counts
+
+    t0 = time.perf_counter()
+    summary_plain, plain_frames, plain_seconds, _, counts, plain_peak = run_vid2vid(False,
+                                                                                     "plain")
+    if counts["k2"] or summary_plain["frames_written"] != len(video):
+        raise AssertionError("the plain-conv vid2vid rerun launched K2 or lost frames")
+    diff = np.abs(np.stack(plain_frames).astype(np.int16) - np.stack(v2v_frames).astype(np.int16))
+    phase("vid2vid_plain_conv", t0, loop_seconds=round(plain_seconds, 4),
+          new_frames_per_second_first_window_included=round(
+              summary_plain["frames_written"] / plain_seconds, 4),
+          uint8_diff_mean=float(diff.mean()), uint8_diff_max=int(diff.max()),
+          max_memory_allocated=plain_peak, timers=summary_plain["timers"])
+    del diff, raw, matched
+
+    # -- K1 at every shape the window phase launched it with --------------
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -448,25 +715,80 @@ def main() -> int:
     phase("kernels", t0, shapes=len(rows), per_full_window=window_sums(1, 0),
           per_overlap_window=window_sums(0, 1))
 
-    def main_path_sum(key):
-        """`key` summed over the main path's K1 launches (launches x per-launch
-        time at each shape)."""
-        return sum(r[key] * r["launches"] for r in rows)
+    # -- K2 at every shape the vid2vid phase launched it with -------------
+    t0 = time.perf_counter()
+    k2_by_shape = v2v_counts["k2_by_shape"]
+    k2_rows = []
+    for shape in sorted({key[:5] for key in k2_by_shape}) + K2_ODD_SHAPES:
+        err_bf16 = check_k2(torch, ck, shape, torch.bfloat16, gen)
+        err_fp32 = check_k2(torch, ck, shape, torch.float32, gen)
+        x, w, bias, affine, res = k2_inputs(torch, shape, torch.bfloat16, gen)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        variants = sorted({key[5:] for key in k2_by_shape if key[:5] == shape}) or [(True, True)]
+        B, H, W, Cin, Cout = shape
+        iters = 3 if 2 * 9 * B * H * W * Cin * Cout > 2e11 else 10
+        for has_affine, has_res in variants:
+            kw = {"affine": affine, "act": "silu"} if has_affine else {}
+            if has_res:
+                kw["residual"] = res
+            z = ck.activate(x, kw.get("affine"), kw.get("act")).permute(0, 3, 1, 2)
+            row = {
+                "shape": list(shape), "affine_silu": has_affine, "residual": has_res,
+                "launches": k2_by_shape.get(shape + (has_affine, has_res), 0),
+                "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
+                "ms": cuda_ms(torch, lambda: ck.conv3x3_fused(x, w, bias, **kw), iters),
+                "plain_ms": cuda_ms(torch, lambda: ck.conv3x3_fused_plain(x, w, bias, **kw),
+                                    iters),
+                "library_ms": cuda_ms(
+                    torch, lambda: torch.nn.functional.conv2d(z, w_oihw, bias.to(z.dtype),
+                                                              padding=1), iters),
+            }
+            row["ops_ms"], row["bytes_ms"] = conv_bound_ms(shape, 2, has_res)
+            row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+            row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+            k2_rows.append(row)
+            print(json.dumps({"k2": row}), flush=True)
+            del z
+        del x, w, w_oihw, bias, affine, res
+        torch.cuda.empty_cache()
+    k2_by_row = {tuple(r["shape"]) + (r["affine_silu"], r["residual"]): r for r in k2_rows}
 
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "controlanimate_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "controlanimate_tpu/ops/flash_attention.py:40",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err_bf16"] for r in rows),
-        "ms": main_path_sum("ms"),
-        "plain_ms": main_path_sum("plain_ms"),
-        "bound_ms": main_path_sum("bound_ms"),
-        "bound_by": ("operations" if main_path_sum("ops_ms") >= main_path_sum("bytes_ms")
-                     else "bytes"),
-        "library_ms": main_path_sum("library_ms"),
-    }]
+    def k2_window_sums(full, overlapped):
+        """K2's per-launch times summed over one window's launches."""
+        weights = expected_k2_launches(models.vae, size, frames_n, overlap, full, overlapped)
+        return {key: sum(n * k2_by_row[k][key] for k, n in weights.items())
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+    phase("kernels_k2", t0, shapes=len(k2_rows), per_full_window=k2_window_sums(1, 0),
+          per_overlap_window=k2_window_sums(0, 1))
+
+    def path_sum(by_row, by_shape, key):
+        """`key` summed over one path's launches (launches x per-launch value
+        at each shape)."""
+        return sum(by_row[shape][key] * n for shape, n in by_shape.items())
+
+    def kernel_entry(name, source, replaces, by_row, by_shape, errs):
+        ops, nbytes = (path_sum(by_row, by_shape, k) for k in ("ops_ms", "bytes_ms"))
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_shape.values()),
+            "max_abs_err": max(errs),
+            "ms": path_sum(by_row, by_shape, "ms"),
+            "plain_ms": path_sum(by_row, by_shape, "plain_ms"),
+            "bound_ms": path_sum(by_row, by_shape, "bound_ms"),
+            "bound_by": "operations" if ops >= nbytes else "bytes",
+            "library_ms": path_sum(by_row, by_shape, "library_ms"),
+        }
+
+    # launches and sums over the main path: the vid2vid phase's run
+    kernels = [
+        kernel_entry("flash_attention", "controlanimate_tpu_torch/csrc/flash_attention.cu",
+                     "controlanimate_tpu/ops/flash_attention.py:40", by_row,
+                     v2v_counts["k1_by_shape"], [r["max_abs_err_bf16"] for r in rows]),
+        kernel_entry("conv3x3_fused", "controlanimate_tpu_torch/csrc/conv3x3_fused.cu",
+                     "controlanimate_tpu/ops/conv_kernel.py:79", k2_by_row,
+                     k2_by_shape, [r["max_abs_err_bf16"] for r in k2_rows]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)
     print(smi, flush=True)

@@ -1,17 +1,18 @@
-"""Configuration for the port: the architecture and run settings it reads.
+"""Configuration for the port: architecture, run settings and stitch state.
 
-A copy of the parts of `controlanimate_tpu/config.py` that the native-LCM
-window uses (`MotionModuleConfig`, `ArchConfig` and the `RunConfig` fields
-below), kept here so the port never imports the JAX package. `yaml` is
-imported only inside the loaders.
+A copy of `controlanimate_tpu/config.py` (`MotionModuleConfig`, `ArchConfig`,
+every `RunConfig` field, `StitchState`), kept here so the port never imports
+the JAX package, plus `require_ported`, which rejects the settings the port
+cannot run yet. `yaml` is imported only inside the loaders.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -20,6 +21,14 @@ def _as_bool(v: Any) -> bool:
     if isinstance(v, str):
         return v.strip().lower() in ("1", "true", "yes", "y")
     return bool(v)
+
+
+def _parse_hms(s: Optional[str]) -> Optional[float]:
+    """'HH:MM:SS' -> seconds."""
+    if not s:
+        return None
+    t = time.strptime(str(s), "%H:%M:%S")
+    return t.tm_hour * 3600 + t.tm_min * 60 + t.tm_sec
 
 
 def _load_yaml(path: str | Path) -> dict:
@@ -111,31 +120,115 @@ class ArchConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """The run settings the port reads, under the YAML key names of
-    `configs/prompts/*.yaml`. Keys it does not know land in `extras`."""
+    """The run settings, one field per key of `configs/prompts/*.yaml`, with
+    the JAX package's names, defaults and `from_dict` coercions (a copy of
+    `controlanimate_tpu/config.py` `RunConfig`). Keys the JAX package does not
+    know land in `extras`. Settings whose behaviour the port lacks raise in
+    `require_ported`."""
 
+    # inputs / outputs
+    input_video_path: str = ""
+    output_video_dir: str = "output"
+    save_frames: bool = False
     width: int = 512
     height: int = 512
     prompt: str = ""
     n_prompt: str = ""
+    start_time: Optional[str] = None
+    end_time: Optional[str] = None
+
+    # generation modes
+    overlap_strength: float = 0.92
     use_lcm: bool = False
+    use_img2img: bool = False
     reuse_overlap_latents: bool = True
+
+    # models
+    pretrained_model_path: str = ""
+    vae_path: Optional[str] = None
+    dreambooth_path: Optional[str] = None
+    lora_model_paths: tuple[str, ...] = ()
+    lora_weights: tuple[float, ...] = ()
+    inference_config_path: str = "configs/inference/inference-v2.yaml"
+    motion_module: Optional[str] = None
+    motion_lora_paths: tuple[str, ...] = ()
+    motion_lora_alphas: tuple[float, ...] = ()
+    pretrained_lcm_model_path: str = "models/LCM_Dreamshaper_v7"
+
+    # controlnets
     controlnets: tuple[str, ...] = ()
+    cond_scale: tuple[float, ...] = ()
+    guess_mode: bool = False
     loop_back_frames: bool = False
+
+    # ip-adapter
     use_ipadapter: bool = False
+    ipa_scale: float = 0.65
+    do_initial_generation: bool = False
+    ipadapter_image_encoder_path: Optional[str] = None
+    ipadapter_ckpt_path: Optional[str] = None
+
+    # upscaler
+    upscale: float = 1.0
+    use_face_enhancer: bool = False
+    upscale_first: bool = False
+    upscaler_model_path: Optional[str] = None
+    face_enhancer_model_path: Optional[str] = None
+    face_detector_model_path: Optional[str] = None
+
+    # window geometry; total_frames is the txt2vid length (0 = one window)
     frame_count: int = 16
     overlap_length: int = 8
+    total_frames: int = 0
+
+    # sampling
+    seed: int = -1
     steps: int = 30
     guidance_scale: float = 7.5
     strength: float = 1.0
+    scheduler: str = "EulerDiscreteScheduler"
     lcm_origin_steps: int = 50
     clip_skip: int = 0
     encoder_reuse_every: int = 0
     temporal_band: int = 0
     token_merge_ratio: float = 0.0
+    token_merge_motion: bool = False
+    token_merge_min_tokens: int = 4096
+
+    # media
+    fps: int = 15
+    fps_ffmpeg: int = 30
+    crf: int = 23
+    ffmpeg_path: str = "ffmpeg"
+
+    # textual inversion
+    textual_inversion_paths: tuple[str, ...] = ("models/TI/easynegative.safetensors",)
+
+    # job checkpoint / resume, profiling
+    checkpoint_interval: int = 4
+    resume: bool = False
+    trace_dir: Optional[str] = None
+
+    # execution policy
     dtype: str = "bfloat16"
     mesh_shape: tuple[int, ...] = ()
+    mesh_axes: tuple[str, ...] = ("data", "context")
+    parallel_segments: int = 0
+    use_pallas_attention: bool = False
+    # K2 (ops/conv_kernel.py) on the VAE's GroupNorm -> SiLU -> conv3x3
+    use_pallas_conv: bool = False
+    overlap_host_work: bool = True
+    use_native_framepipe: bool = True
+
     extras: dict = field(default_factory=dict, hash=False, compare=False)
+
+    @property
+    def start_seconds(self) -> Optional[float]:
+        return _parse_hms(self.start_time)
+
+    @property
+    def end_seconds(self) -> Optional[float]:
+        return _parse_hms(self.end_time)
 
     @staticmethod
     def from_yaml(path: str | Path) -> "RunConfig":
@@ -150,15 +243,80 @@ class RunConfig:
             if k not in known:
                 extras[k] = v
                 continue
-            default = known[k].default
-            if isinstance(default, bool):
+            if k in _BOOL_KEYS:
                 v = _as_bool(v)
-            elif isinstance(default, tuple):
+            elif k in _TUPLE_KEYS:
                 v = tuple(v) if v is not None else ()
-            elif isinstance(default, int) and v is not None:
+            elif v is not None and known[k].type in ("int", int):
                 v = int(v)
             kwargs[k] = v
-        return RunConfig(**kwargs, extras=extras)
+        kwargs["extras"] = extras
+        return RunConfig(**kwargs)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_BOOL_KEYS = frozenset({
+    "save_frames", "use_lcm", "use_img2img", "guess_mode", "loop_back_frames",
+    "use_ipadapter", "do_initial_generation", "use_face_enhancer", "upscale_first",
+    "use_pallas_attention", "use_pallas_conv", "overlap_host_work",
+    "use_native_framepipe", "resume", "reuse_overlap_latents",
+})
+_TUPLE_KEYS = frozenset({
+    "lora_model_paths", "lora_weights", "controlnets", "cond_scale", "motion_lora_paths",
+    "motion_lora_alphas", "textual_inversion_paths", "mesh_shape", "mesh_axes",
+})
+
+
+def require_ported(cfg: RunConfig, *, disk_build: bool = False) -> None:
+    """Raise NotImplementedError, naming the key, for any setting whose
+    behaviour the port lacks (the facade and the vid2vid loop both call this).
+    `textual_inversion_paths` is read only by a disk build, so it is checked
+    only when `disk_build` is set."""
+    unported = {
+        "upscale": (cfg.upscale > 1.0, "upscaling (M12)"),
+        "use_face_enhancer": (cfg.use_face_enhancer, "face restoration (M12)"),
+        "parallel_segments": (cfg.parallel_segments > 1, "segment-parallel runs (M15)"),
+        "mesh_shape": (bool(cfg.mesh_shape), "device meshes (M15)"),
+        "use_ipadapter": (cfg.use_ipadapter, "IP-Adapter (M11)"),
+        "do_initial_generation": (cfg.do_initial_generation, "IP-Adapter (M11)"),
+        "controlnets": (bool(cfg.controlnets), "ControlNets (M9)"),
+        "loop_back_frames": (cfg.loop_back_frames, "ControlNet loop-back (M9)"),
+        "textual_inversion_paths": (disk_build and bool(cfg.textual_inversion_paths),
+                                    "textual inversion (M8b)"),
+        "temporal_band": (bool(cfg.temporal_band), "banded motion attention (M14)"),
+        "token_merge_ratio": (bool(cfg.token_merge_ratio), "token merging (M14)"),
+        "encoder_reuse_every": (bool(cfg.encoder_reuse_every), "encoder reuse (M14)"),
+    }
+    for key, (bad, what) in unported.items():
+        if bad:
+            raise NotImplementedError(
+                f"RunConfig.{key}={getattr(cfg, key)!r}: {what} is not ported yet")
+
+
+@dataclass
+class StitchState:
+    """Per-window generation state of the vid2vid loop (a copy of the JAX
+    package's `StitchState`). The output-side frames are stacked uint8:
+    CUDA (or CPU) tensors during a run, numpy arrays after a resume. Nothing
+    writes into a tensor this state holds: the stitch returns fresh tensors,
+    so a checkpoint snapshot may keep references."""
+
+    epoch: int = 0
+    seed: int = 0
+    # previous window's output frames for the overlap slots: (K, H, W, 3)
+    overlap_frames: Optional[Any] = None
+    # previous window's input frames re-presented in the overlap slots
+    overlap_input_frames: list = field(default_factory=list)
+    # the previous window's last outputs, fed to the next window's prepare
+    last_output_frames: Optional[Any] = None
+    # color-match reference frame: (H, W, 3)
+    last_output_frame: Optional[Any] = None
+
+    @property
+    def overlap_length(self) -> int:
+        return 0 if self.overlap_frames is None else int(self.overlap_frames.shape[0])
 
 
 # "float16"/"fp16" run as bf16, as in the JAX package's facade

@@ -3,10 +3,17 @@
 Counterpart of `controlanimate_tpu/models/vae.py`: block_out (128, 256, 512,
 512), 2 encoder and 3 decoder resnets per level, single-head attention at the
 512-channel mid block (K1 at head dim 512), latent_channels 4, scaling factor
-0.18215. The resnet branches are GroupNorm -> SiLU -> conv3x3 in plain
-PyTorch, as on the JAX package's default path (its fused Pallas conv K2 is
-opt-in and not in this slice). Encode takes the posterior noise as an
-argument. Module names follow the diffusers checkpoint keys.
+0.18215. Encode takes the posterior noise as an argument. Module names follow
+the diffusers checkpoint keys.
+
+The resnet branches are GroupNorm -> SiLU -> conv3x3 in plain PyTorch unless
+K2 is on (`AutoencoderKL.set_conv_kernel(True)`, which the facade calls with
+`RunConfig.use_pallas_conv`). Then, as in the JAX package's dispatch, each
+branch folds its norm (`groupnorm_fold`) and launches K2 with the SiLU and,
+on the second conv, the residual; each `Upsample2D` resizes nearest 2x and
+launches K2 with no norm and no activation. A conv whose shape K2's
+`supported` rule rejects takes the plain path; the shortcut 1x1 convs,
+conv_in, conv_out and the stride-2 downsample stay plain.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv_kernel as ck
 from ..ops.attention import dot_product_attention
 from ..ops.upsample import upsample2x_conv3x3
 from .layers import GroupNorm, conv1x1_nhwc, conv_nhwc, linear
@@ -24,8 +32,18 @@ from .layers import GroupNorm, conv1x1_nhwc, conv_nhwc, linear
 _EPS = 1e-6  # diffusers' VAE norms
 
 
-def _gn_silu_conv(x, norm: GroupNorm, conv: nn.Conv2d, residual=None):
-    """GroupNorm -> SiLU -> conv3x3 [+ residual], channels-last."""
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    """The conv's (Cout, Cin, 3, 3) weight as an HWIO view, K2's layout."""
+    return conv.weight.permute(2, 3, 1, 0)
+
+
+def _gn_silu_conv(x, norm: GroupNorm, conv: nn.Conv2d, residual=None, fused: bool = False):
+    """GroupNorm -> SiLU -> conv3x3 [+ residual], channels-last; one K2
+    launch when `fused` and K2 takes the shape."""
+    if fused and ck.supported(x.shape[1], x.shape[2], x.shape[3], conv.out_channels):
+        affine = ck.groupnorm_fold(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
+        return ck.conv3x3_fused(x, _hwio(conv), conv.bias, affine=affine, act="silu",
+                                residual=residual)
     out = conv_nhwc(F.silu(norm(x)), conv)
     return out if residual is None else out + residual
 
@@ -45,12 +63,14 @@ class VaeResnetBlock(nn.Module):
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
         else:
             self.conv_shortcut = None
+        self.use_conv_kernel = False  # K2 for both branches
 
     def forward(self, x):
         x = x.to(self.conv1.weight.dtype)
         shortcut = x if self.conv_shortcut is None else conv1x1_nhwc(x, self.conv_shortcut)
-        h = _gn_silu_conv(x, self.norm1, self.conv1)
-        return _gn_silu_conv(h, self.norm2, self.conv2, residual=shortcut)
+        fused = self.use_conv_kernel
+        h = _gn_silu_conv(x, self.norm1, self.conv1, fused=fused)
+        return _gn_silu_conv(h, self.norm2, self.conv2, residual=shortcut, fused=fused)
 
 
 class VaeAttnBlock(nn.Module):
@@ -91,8 +111,14 @@ class Upsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.use_conv_kernel = False  # K2 on the resized map
 
     def forward(self, x):
+        B, H, W, C = x.shape
+        if self.use_conv_kernel and ck.supported(2 * H, 2 * W, C, self.conv.out_channels):
+            x = x.to(self.conv.weight.dtype)
+            up = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
+            return ck.conv3x3_fused(up, _hwio(self.conv), self.conv.bias)
         return upsample2x_conv3x3(x, self.conv.weight, self.conv.bias)
 
 
@@ -183,6 +209,15 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(block_out_channels, latent_channels=latent_channels, groups=groups)
         self.quant_conv = nn.Conv2d(2 * latent_channels, 2 * latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
+        self.use_conv_kernel = False
+
+    def set_conv_kernel(self, enabled: bool) -> None:
+        """Route every resnet branch and upsample conv through K2 (or back to
+        the plain path)."""
+        self.use_conv_kernel = bool(enabled)
+        for m in self.modules():
+            if isinstance(m, (VaeResnetBlock, Upsample2D)):
+                m.use_conv_kernel = self.use_conv_kernel
 
     def encode_moments(self, x):
         """x: (B, H, W, 3) in [-1, 1] -> (mean, logvar), each (B, H/8, W/8, 4)."""

@@ -9,9 +9,10 @@ With `reuse_overlap_latents` the clean latents of a window's last
 `overlaps` = that length) encodes only its new frames.
 
 The run dtype comes from `RunConfig.dtype` ("float16"/"fp16" mean bf16, as
-in the JAX package); models are moved to `device` in that dtype. Building
-models from disk, ControlNets, IP-Adapter and a device mesh are not in this
-slice and raise.
+in the JAX package); models are moved to `device` in that dtype.
+`RunConfig.use_pallas_conv` turns K2 on or off on the VAE. Building models
+from disk and every setting `config.require_ported` rejects (ControlNets,
+IP-Adapter, meshes, upscaling, ...) raise.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from ..config import ArchConfig, RunConfig, torch_dtype
+from ..config import ArchConfig, RunConfig, require_ported, torch_dtype
 from ..models.clip import CLIPTextModel
 from ..models.tokenizer import CLIPTokenizer
 from ..schedulers import make_schedule
@@ -63,21 +64,14 @@ class ControlAnimatePipeline:
             )
         if not config.use_lcm:
             raise NotImplementedError("only the native-LCM window (use_lcm) is ported")
-        unported = {
-            "controlnets": config.controlnets, "use_ipadapter": config.use_ipadapter,
-            "mesh_shape": config.mesh_shape, "temporal_band": config.temporal_band,
-            "token_merge_ratio": config.token_merge_ratio,
-            "encoder_reuse_every": config.encoder_reuse_every,
-        }
-        for name, value in unported.items():
-            if value:
-                raise NotImplementedError(f"RunConfig.{name}={value!r} is not ported yet")
+        require_ported(config)
         self.config = config
         self.arch = arch if arch is not None else ArchConfig()
         self.device = torch.device(device)
         self.dtype = torch_dtype(config.dtype)
         models.unet.to(device=self.device, dtype=self.dtype).eval()
         models.vae.to(device=self.device, dtype=self.dtype).eval()
+        models.vae.set_conv_kernel(config.use_pallas_conv)
         text_stack.model.to(device=self.device, dtype=self.dtype).eval()
         self.models = models
         self.text = text_stack

@@ -1,0 +1,507 @@
+"""The vid2vid loop: a video stream through overlapping windows, stitched on
+the device, to a frame sink.
+
+Counterpart of `scripts/vid2vid.py` `vid2vid` in its sequential form: frame
+source -> 16-frame windows with 8-frame overlap -> `pipeline.animate` ->
+device stitch (color match, overlap blend, I420) -> deferred emit to the
+sink, with checkpoint / resume, cooperative cancel and txt2vid up to
+`total_frames`. Frames stay on the device from the decode to the emit; each
+window is read back once, into pinned host memory, while the next window
+computes.
+
+Host / device overlap, as in the JAX loop: with `overlap_host_work` a worker
+thread reads window N+1 and uploads it on a side CUDA stream while window N
+runs; the main stream waits on that upload's event. The checkpoint worker
+reads the stitch state back on its own thread; the stitch returns new tensors
+and nothing writes into them, so a snapshot may hold references.
+
+Not ported yet, and rejected by `config.require_ported`: the upscaler and
+face enhancer, segment-parallel runs, ControlNets, IP-Adapter. The C++ ring
+buffer frame pipe (`use_native_framepipe`) is not ported: the loop takes the
+Python ffmpeg pipe, as the JAX loop does where that pipe cannot be built.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .config import RunConfig, StitchState, require_ported
+from .io import media
+from .ops.stitch import stitch_window
+from .ops.yuv import rgb_to_yuv420
+from .utils.profiling import PhaseTimers, maybe_trace
+
+STATE_FILE = "stitch_state.npz"
+
+
+def _host(x) -> Optional[np.ndarray]:
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def _snapshot_state(state: StitchState, consumed: int, frames_written: int,
+                    segment: int) -> dict:
+    """Checkpoint values at a consistent point, without a device readback:
+    the state's tensors are never written after the stitch made them, so
+    holding references is safe; the checkpoint worker reads them back."""
+    return dict(
+        epoch=state.epoch,
+        seed=state.seed,
+        consumed=consumed,
+        frames_written=frames_written,
+        segment=segment,
+        overlap_frames=state.overlap_frames,
+        overlap_input_frames=list(state.overlap_input_frames),
+        last_output_frames=state.last_output_frames,
+        last_output_frame=state.last_output_frame,
+    )
+
+
+def _save_state(out_dir: Path, snap: dict) -> None:
+    """Write `stitch_state.npz` atomically (a temporary file, then a rename),
+    with the JAX loop's keys, so a crash mid-save keeps the previous one."""
+
+    def host(x, fallback_shape=(0,)):
+        return _host(x) if x is not None else np.zeros(fallback_shape)
+
+    tmp = out_dir / "stitch_state.tmp.npz"
+    np.savez(
+        tmp,
+        epoch=snap["epoch"],
+        seed=snap["seed"],
+        consumed=snap["consumed"],
+        frames_written=snap["frames_written"],
+        segment=snap["segment"],
+        overlap_frames=host(snap["overlap_frames"]),
+        overlap_input_frames=(
+            np.stack(snap["overlap_input_frames"])
+            if snap["overlap_input_frames"] else np.zeros((0,))
+        ),
+        last_output_frames=host(snap["last_output_frames"]),
+        last_output_frame=host(snap["last_output_frame"]),
+    )
+    os.replace(tmp, out_dir / STATE_FILE)
+
+
+def _load_state(out_dir: Path) -> tuple[StitchState, int, int, int] | None:
+    path = out_dir / STATE_FILE
+    if not path.exists():
+        return None
+    z = np.load(path)
+    state = StitchState(epoch=int(z["epoch"]), seed=int(z["seed"]))
+    if z["overlap_frames"].ndim == 4:
+        state.overlap_frames = z["overlap_frames"]
+    if z["overlap_input_frames"].ndim == 4:
+        state.overlap_input_frames = list(z["overlap_input_frames"])
+    if z["last_output_frames"].ndim == 4:
+        state.last_output_frames = z["last_output_frames"]
+    if z["last_output_frame"].ndim == 3:
+        state.last_output_frame = z["last_output_frame"]
+    return state, int(z["consumed"]), int(z["frames_written"]), int(z["segment"])
+
+
+def _round64(x: int) -> int:
+    return max((int(x) // 64) * 64, 64)
+
+
+class _Stager:
+    """Uploads a prefetched window to the device. On CUDA the copy runs on a
+    side stream from pinned memory, and the main stream waits on its event
+    before it uses the frames; on the CPU the frames are used as they are."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def upload(self, batch: np.ndarray):
+        host = torch.from_numpy(batch)
+        if self.stream is None:
+            return host, None
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            staged = host.pin_memory().to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        return staged, ready
+
+    def claim(self, staged: torch.Tensor, ready) -> torch.Tensor:
+        """Make the main stream wait for the upload and own the tensor."""
+        if ready is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(ready)
+            staged.record_stream(main)
+        return staged
+
+
+class _Readback:
+    """A device tensor copied into pinned host memory without blocking; the
+    host reads it once the copy's event has completed."""
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host, self.done = t, None
+
+    def numpy(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()
+
+
+def vid2vid(
+    config_path: Optional[str] = None,
+    config: Optional[RunConfig] = None,
+    pipeline=None,
+    frame_source: Optional[media.FrameSource] = None,
+    frame_sink: Optional[media.FrameSink] = None,
+    upscaler=None,
+    max_windows: Optional[int] = None,
+    progress=None,
+    should_stop=None,
+) -> dict:
+    """Run the vid2vid loop; returns a summary dict (frames written, seed,
+    output path, windows, canceled, phase timers).
+
+    `pipeline` needs `animate(input_frames, last_output_frames, *, overlaps,
+    strength, seed, epoch)` returning a window's (F, H, W, 3) uint8 frames on
+    its device, and a `device` attribute; None builds
+    `ControlAnimatePipeline(config)`, which needs the disk build (not ported
+    yet). `progress`, if given, is called after every window with
+    {"windows", "frames_written", "frames_generated"}. `should_stop`, if
+    given, is polled at every window boundary; a truthy return stops the run
+    as a `max_windows` interruption does (pending emits flush, a resumable
+    checkpoint is saved) and the summary says `canceled`."""
+    cfg = config or RunConfig.from_yaml(config_path)
+    require_ported(cfg)
+    if upscaler is not None:
+        raise NotImplementedError("upscaler: upscaling (M12) is not ported yet")
+
+    # geometry: multiples of 64, probed from the input video when unset
+    has_input = bool(cfg.input_video_path) and Path(cfg.input_video_path).exists()
+    width, height = cfg.width, cfg.height
+    if has_input and (not width or not height):
+        _, _, width, height = media.probe_video(cfg.input_video_path)
+    width, height = _round64(width or 512), _round64(height or 512)
+    cfg = cfg.replace(width=width, height=height)
+
+    seed = cfg.seed if cfg.seed != -1 else int(np.random.randint(1, 2**16))
+
+    out_dir = Path(cfg.output_video_dir)
+    resumed = _load_state(out_dir) if cfg.resume else None
+
+    # frame source and sink
+    own_source = frame_source is None
+    if frame_source is None and has_input:
+        if media.ffmpeg_available(cfg.ffmpeg_path):
+            frame_source = media.FFMPEGFrameSource(
+                cfg.input_video_path, width, height, cfg.fps,
+                start_time=cfg.start_time, end_time=cfg.end_time,
+                ffmpeg_path=cfg.ffmpeg_path,
+            )
+        elif Path(cfg.input_video_path).is_dir():
+            frame_source = media.DirectoryFrameSource(cfg.input_video_path, width, height)
+        else:
+            raise RuntimeError(
+                "input video given but ffmpeg is unavailable; provide a frame "
+                "directory or an explicit frame_source"
+            )
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    segment = resumed[3] + 1 if resumed else 0
+    raw_video_path = out_dir / f"output_raw_{segment:03d}.mp4"
+    own_sink = frame_sink is None
+    if frame_sink is None:
+        if media.ffmpeg_available(cfg.ffmpeg_path):
+            frame_sink = media.FFMPEGFrameSink(
+                str(raw_video_path), width, height, cfg.fps,
+                crf=cfg.crf, ffmpeg_path=cfg.ffmpeg_path, pix_fmt="yuv420p",
+            )
+        else:
+            # on resume, number after the previous segment's frames
+            frame_sink = media.DirectoryFrameSink(
+                str(out_dir / "frames"), start_index=resumed[2] if resumed else 0)
+    sink_pix_fmt = getattr(frame_sink, "pix_fmt", "rgb24")
+
+    if pipeline is None:
+        from .pipelines.facade import ControlAnimatePipeline
+
+        pipeline = ControlAnimatePipeline(cfg)
+    device = torch.device(getattr(pipeline, "device", "cuda"))
+
+    timers = PhaseTimers()
+    with contextlib.ExitStack() as cleanup:
+        if own_source and frame_source is not None:
+            cleanup.callback(frame_source.close)
+        if own_sink:
+            cleanup.callback(frame_sink.close)
+        summary = _run(cfg, pipeline, device, frame_source, frame_sink, sink_pix_fmt,
+                       resumed, seed, segment, out_dir, timers, cleanup,
+                       max_windows, progress, should_stop)
+
+    # audio mux and frame interpolation of the encoded video
+    final_path = out_dir / "output.mp4"
+    if (own_sink and isinstance(frame_sink, media.FFMPEGFrameSink)
+            and media.ffmpeg_available(cfg.ffmpeg_path)):
+        segments = sorted(out_dir.glob("output_raw_*.mp4"))
+        src = raw_video_path
+        if len(segments) > 1:
+            src = out_dir / "output_raw_joined.mp4"
+            media.concat_videos([str(s) for s in segments], str(src), cfg.ffmpeg_path)
+        media.video_to_high_fps(
+            str(final_path), str(src),
+            cfg.input_video_path if has_input else None,
+            cfg.fps_ffmpeg, crf=cfg.crf, ffmpeg_path=cfg.ffmpeg_path,
+            start_time=cfg.start_time, end_time=cfg.end_time,
+        )
+    timers.dump(out_dir / "phase_timers.json")
+    if own_sink and isinstance(frame_sink, media.DirectoryFrameSink):
+        output_path = frame_sink.dir
+    else:
+        output_path = final_path if final_path.exists() else raw_video_path
+    return {**summary, "output": str(output_path), "timers": timers.summary()}
+
+
+def _run(cfg, pipeline, device, frame_source, frame_sink, sink_pix_fmt, resumed, seed,
+         segment, out_dir, timers, cleanup, max_windows, progress, should_stop) -> dict:
+    """The epoch loop of `vid2vid` (a resumed run takes the checkpoint's
+    seed); threads it starts are shut down through `cleanup`."""
+    if resumed:
+        state, consumed, frames_written, _ = resumed
+        seed = state.seed
+        # the overlap inputs live in the checkpoint: resume at the first unread frame
+        for _ in range(consumed):
+            if frame_source is not None:
+                frame_source.read()
+    else:
+        state = StitchState(seed=seed)
+        consumed = frames_written = 0
+    window = cfg.frame_count
+    overlap_length = cfg.overlap_length
+
+    def read_n(n: int) -> list[np.ndarray]:
+        out = []
+        for _ in range(n):
+            if frame_source is None:
+                break
+            f = frame_source.read()
+            if f is None:
+                break
+            out.append(f)
+        return out
+
+    # one worker reads and uploads window N+1 while window N runs
+    executor = stager = None
+    pending_prefetch = None
+    if cfg.overlap_host_work and frame_source is not None:
+        executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="prefetch")
+        cleanup.callback(executor.shutdown, wait=True)
+        stager = _Stager(device)
+
+    # checkpoint saves read the state back on their own worker
+    ckpt_executor = None
+    ckpt_futures: list = []
+    if cfg.checkpoint_interval > 0:
+        ckpt_executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
+        cleanup.callback(ckpt_executor.shutdown, wait=True)
+
+    def submit_checkpoint(snap: dict):
+        def run():
+            with timers.phase("checkpoint"):
+                _save_state(out_dir, snap)
+
+        ckpt_futures.append(ckpt_executor.submit(run))
+
+    def prefetch(tail: list):
+        new = read_n(window - len(tail))
+        return (new, stager.upload(np.stack(tail + new)) if new else None)
+
+    def write_frames(frames) -> None:
+        """Write (N, H, W, 3) uint8 frames (device or host) to the sink, as
+        I420 rows when the sink takes yuv420p."""
+        t = torch.as_tensor(frames)
+        if sink_pix_fmt == "yuv420p":
+            t = rgb_to_yuv420(t.to(device))
+        for fr in _host(t):
+            frame_sink.write(fr)
+
+    windows_run = 0
+    source_exhausted = stop_requested = False
+    pending_emit = None  # (readback, was_yuv, start_idx, input frames for the dump)
+
+    def flush_emit():
+        nonlocal pending_emit
+        if pending_emit is None:
+            return
+        readback, was_yuv, start_idx, dump_inputs = pending_emit
+        pending_emit = None
+        with timers.phase("emit"):
+            packed = readback.numpy()
+            if was_yuv:
+                for fr in packed:
+                    frame_sink.write(fr)
+            else:
+                write_frames(packed)
+        if cfg.save_frames:
+            _dump_frames(cfg, seed, out_dir, start_idx, packed, dump_inputs)
+
+    with maybe_trace(cfg.trace_dir):
+        while True:
+            if max_windows is not None and windows_run >= max_windows:
+                break
+            overlap_inputs = list(state.overlap_input_frames)
+            staged_input = None
+            if pending_prefetch is not None:
+                new_frames, upload = pending_prefetch.result()
+                pending_prefetch = None
+                if upload is not None:
+                    staged_input = stager.claim(*upload)
+            elif frame_source is not None:
+                new_frames = read_n(window - len(overlap_inputs))
+            else:
+                new_frames = []
+            if frame_source is not None and not new_frames:
+                source_exhausted = True
+                break
+            if frame_source is None and max_windows is None and windows_run >= 1:
+                # txt2vid: overlap-stitched windows up to total_frames; the
+                # pending tail overlap flushes after the loop and counts
+                if frames_written + state.overlap_length >= max(
+                        int(cfg.total_frames), cfg.frame_count):
+                    break
+            # after the natural-completion breaks: a stop landing during the
+            # last window is a completed run
+            if should_stop is not None and should_stop():
+                stop_requested = True
+                break
+            consumed += len(new_frames)
+
+            batch = overlap_inputs + new_frames
+            overlaps = state.overlap_length
+            input_frames = staged_input if staged_input is not None else (
+                np.stack(batch) if batch else None)
+            strength = cfg.overlap_strength if overlaps else cfg.strength
+            last_out = state.last_output_frames
+
+            # start the next window's read and upload before this window runs
+            if executor is not None:
+                tail = list(batch[-overlap_length:]) if overlap_length > 0 else []
+                pending_prefetch = executor.submit(prefetch, tail)
+
+            with timers.phase("animate_window"):
+                frames_dev = pipeline.animate(
+                    input_frames, last_out, overlaps=overlaps, strength=strength,
+                    seed=seed, epoch=state.epoch,
+                )
+
+            # the previous window's emit, while this window computes
+            flush_emit()
+
+            # checkpoint after the flush and before this window's state
+            # updates: it covers exactly the frames on the sink
+            if (ckpt_executor is not None and state.epoch > 0
+                    and state.epoch % cfg.checkpoint_interval == 0):
+                submit_checkpoint(_snapshot_state(
+                    state, consumed - len(new_frames), frames_written, segment))
+
+            F_cur = int(frames_dev.shape[0])
+            emit = F_cur - min(overlap_length, F_cur) if overlap_length > 0 else F_cur
+            to_yuv = sink_pix_fmt == "yuv420p" and not cfg.save_frames
+            with timers.phase("stitch"):
+                anchor = (torch.as_tensor(state.last_output_frame).to(frames_dev.device)
+                          if state.last_output_frame is not None else None)
+                prev_overlap = (torch.as_tensor(state.overlap_frames).to(frames_dev.device)
+                                if overlaps else None)
+                packed, new_anchor, last_out_dev, tail_dev = stitch_window(
+                    frames_dev, anchor, prev_overlap,
+                    overlap_length=overlap_length, to_yuv=to_yuv, emit=emit,
+                )
+                # the readback starts now and is read at the next flush
+                readback = _Readback(packed)
+            state.last_output_frame = new_anchor
+            if overlap_length > 0:
+                state.last_output_frames = last_out_dev
+                state.overlap_frames = tail_dev
+                state.overlap_input_frames = batch[-overlap_length:]
+
+            frames_written += emit
+            pending_emit = (readback, to_yuv, frames_written - emit, list(batch[:emit]))
+            state.epoch += 1
+            windows_run += 1
+            if progress is not None:
+                # this window's emit is still pending: report the sink's count
+                progress({
+                    "windows": windows_run,
+                    "frames_written": frames_written - emit,
+                    "frames_generated": frames_written,
+                })
+
+        flush_emit()
+        interrupted = stop_requested or (
+            max_windows is not None and windows_run >= max_windows and not source_exhausted)
+        # resumable only if a checkpoint records where to restart; otherwise
+        # an interrupted run emits its tail
+        resumable = interrupted and ckpt_executor is not None
+        if resumable:
+            submit_checkpoint(_snapshot_state(state, consumed, frames_written, segment))
+        # the tail overlap, except on a resumable run: the resumed first window
+        # re-emits those positions blended
+        if not resumable and state.overlap_frames is not None and state.overlap_length:
+            write_frames(state.overlap_frames)
+            frames_written += state.overlap_length
+        if progress is not None and windows_run:
+            progress({"windows": windows_run, "frames_written": frames_written,
+                      "frames_generated": frames_written})
+
+    if executor is not None:
+        executor.shutdown(wait=True)
+    if ckpt_executor is not None:
+        ckpt_executor.shutdown(wait=True)
+        errs = [f.exception() for f in ckpt_futures if f.exception() is not None]
+        if errs and resumable and ckpt_futures[-1].exception() is not None:
+            raise RuntimeError(
+                "final resume checkpoint failed to save; the interrupted run "
+                "cannot be resumed"
+            ) from ckpt_futures[-1].exception()
+        for e in errs:
+            print(f"WARNING: checkpoint save failed: {e!r}", file=sys.stderr)
+    if not interrupted:
+        # a completed run leaves nothing to resume: clear a stale state file
+        (out_dir / STATE_FILE).unlink(missing_ok=True)
+    return {"frames_written": frames_written, "seed": seed, "windows": windows_run,
+            "canceled": stop_requested}
+
+
+def _dump_frames(cfg: RunConfig, seed: int, out_dir: Path, start_idx: int, out_frames,
+                 in_frames) -> None:
+    """save_frames: output and input PNGs, numbered from 1, and info.json
+    (the config with the seed)."""
+    from PIL import Image
+
+    fdir, fdir_in = out_dir / "vid2vid_frames", out_dir / "vid2vid_input_frames"
+    fdir.mkdir(exist_ok=True)
+    fdir_in.mkdir(exist_ok=True)
+    info = out_dir / "info.json"
+    if not info.exists():
+        snap = dataclasses.asdict(cfg)
+        snap["seed"] = seed
+        info.write_text(json.dumps(snap, indent=2, default=str))
+    for i, frame in enumerate(out_frames):
+        Image.fromarray(np.asarray(frame, np.uint8)).save(fdir / f"{start_idx + i + 1:04d}.png")
+    for i, frame in enumerate(in_frames):
+        Image.fromarray(np.asarray(frame, np.uint8)).save(fdir_in / f"{start_idx + i + 1:04d}.png")

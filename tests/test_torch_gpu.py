@@ -1,5 +1,6 @@
-"""The port on a CUDA card: K1 against its plain version, and a small
-pipeline on the card against the same pipeline on the CPU.
+"""The port on a CUDA card: K1 and K2 against their plain versions, and a
+small pipeline on the card against the same pipeline on the CPU (with and
+without K2).
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -11,6 +12,7 @@ no jax) it runs alone:
 import pytest
 import torch
 
+from controlanimate_tpu_torch.ops import conv_kernel as ck
 from controlanimate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
 pytestmark = pytest.mark.gpu
@@ -75,3 +77,41 @@ def test_small_pipeline_card_matches_cpu(cuda):
 
     ref = chip_smoke.small_reference(torch)
     assert ref["max_lsb"] <= 1, ref
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 64, 64, 128, 128), (2, 32, 32, 256, 512), (1, 16, 16, 512, 256),  # VAE-like
+    (2, 9, 37, 128, 128), (1, 7, 21, 256, 128), (2, 1, 16, 128, 256),  # ragged tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernel_matches_plain(cuda, shape, dtype):
+    """The gates of `chip_smoke.k2_mismatch` (fp32 at 1e-4 with TF32 off,
+    bf16 within one output ulp and the rms), with and without the affine,
+    SiLU and residual; each call is one launch."""
+    import chip_smoke
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    before = ck.conv3x3_fused.launches
+    chip_smoke.check_k2(torch, ck, shape, dtype, g)
+    torch.cuda.synchronize()
+    assert ck.conv3x3_fused.launches == before + 2
+
+
+def test_conv_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 8, 24, device=cuda)  # Cin not a multiple of 16
+    with pytest.raises(ValueError, match="not supported"):
+        ck.conv3x3_fused(x, torch.zeros(3, 3, 24, 128, device=cuda), torch.zeros(128, device=cuda))
+    x = torch.zeros(1, 8, 8, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ck.conv3x3_fused(x, torch.zeros(3, 3, 16, 128, device=cuda, dtype=torch.float16),
+                         torch.zeros(128, device=cuda))
+
+
+def test_small_pipeline_with_conv_kernel_card_matches_cpu(cuda):
+    import chip_smoke
+
+    ck.reset_launch_counts()
+    ref = chip_smoke.small_reference(torch, conv_kernel=True)
+    assert ref["max_lsb"] <= 1, ref
+    assert ck.conv3x3_fused.launches > 0
