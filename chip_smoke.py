@@ -6,13 +6,16 @@
 Phases, each printed as one JSON line with its seconds:
   device     the card's name, count and power limit; no card is an error.
   build      one nvcc call builds the CUDA kernels (K1 flash attention, K2
-             fused GroupNorm -> SiLU -> conv3x3); prints its time and nvcc's
-             register / spill report, K2's on a line of its own.
+             fused GroupNorm -> SiLU -> conv3x3, K3 fused motion module);
+             prints its time and nvcc's register / spill report, K2's and
+             K3's each on a line of its own.
   reference  a small pipeline (head dims 40/80/512, fp32) on the card against
              the same pipeline on the CPU with the same weights and noise:
              uint8 frames within 1 LSB; then the same with
              `use_pallas_conv` and 128-channel VAE levels, so that K2 runs
-             on the card (its launches are counted and must be nonzero).
+             on the card, and once more with CONTROLANIMATE_PALLAS_MOTION=1,
+             so that K3 runs on the card (K2's and K3's launches are counted
+             and must be nonzero).
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -24,6 +27,14 @@ Phases, each printed as one JSON line with its seconds:
   window_plain_attention
              the overlap-8 windows again with the plain attention on the
              same inputs (time and uint8 difference reported, not gated).
+  window_motion_kernel
+             the overlap-8 windows again on the same models and inputs, from
+             a pipeline built with CONTROLANIMATE_PALLAS_MOTION=1, so that
+             the UNet's 21 motion modules run on K3 (after one warm-up
+             window): seconds, new frames/s, peak memory, and the uint8
+             difference against the K3-off windows (reported, not gated).
+             K3's launches by shape must equal what the UNet implies (84 a
+             window).
   vid2vid    the main path: the port's `vid2vid` loop at full width, the
              same models, 512x512, 16-frame windows with overlap 8, 4 LCM
              steps, strength 0.9, bf16, `use_pallas_conv` on: seeded
@@ -47,6 +58,13 @@ Phases, each printed as one JSON line with its seconds:
              plain version's, one PyTorch call's (SDPA for K1, `F.conv2d` on
              the activated input for K2: yardsticks the port never calls)
              and the bound.
+  kernels_k3 K3 against its plain version at every shape the
+             window_motion_kernel phase launched it with, plus odd shapes
+             (N = 37, F = 8 and 24, PE off, C = 64), in bf16 and fp32
+             (`k3_mismatch` states the gates); then K3's time, its plain
+             version's, the port's dense `TemporalTransformer3D`'s in bf16
+             (the stock PyTorch path K3 replaces, as the yardstick) and the
+             bound.
 Then the kernels line, the `nvidia-smi` name/power-limit line, and last the
 `{"ok": true, "device": ...}` line. Any failure ends the run non-zero.
 """
@@ -55,6 +73,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -81,6 +100,10 @@ ODD_SHAPES = [(2, 77, 77, 8, 40), (3, 333, 333, 2, 80), (1, 129, 129, 8, 160),
 # odd K2 shapes (B, H, W, Cin, Cout): W not a multiple of the 16-pixel tile,
 # H = 7, and H = 1 with W = 16
 K2_ODD_SHAPES = [(2, 9, 37, 128, 128), (1, 7, 21, 256, 128), (2, 1, 16, 128, 256)]
+# odd K3 shapes (B, F, N, C, heads, positional encoding): N not a multiple of
+# the 128-row tile, 8 and 24 frames, PE off, and C = 64 (head dim 8)
+K3_ODD_SHAPES = [(1, 16, 37, 320, 8, True), (1, 8, 64, 640, 8, True), (1, 24, 64, 320, 8, True),
+                 (1, 16, 64, 1280, 8, False), (2, 16, 50, 64, 8, True)]
 WINDOWS = 4  # timed windows of each kind
 V2V_OVERLAP_WINDOWS = 3  # overlap windows after the vid2vid phase's first window
 SEED = 7
@@ -246,6 +269,152 @@ def check_k2(torch, ck, shape, dtype, gen) -> float:
     return err
 
 
+def motion_bound_ms(shape, itemsize: int) -> tuple[float, float]:
+    """(operations, bytes) times of one K3 call in ms, T = B*F*N tokens:
+    T*(44 C^2 + 8 F C) FLOPs (the seven GEMMs and the frame attention) at the
+    bf16 tensor rate; x read and the delta written once, and the 22 C^2
+    weights read once, at the memory rate."""
+    B, F, N, C = shape[:4]
+    T = B * F * N
+    flops = T * (44.0 * C * C + 8.0 * F * C)
+    nbytes = (2.0 * T * C + 22.0 * C * C) * itemsize
+    return 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES
+
+
+def k3_mismatch(torch, out, ref) -> str | None:
+    """K3's gates on `out` against the plain version's `ref` (same dtype);
+    None when it passes. fp32: atol = rtol = 1e-4 (TF32 off in the plain
+    version). bf16: |out - ref| <= 5e-2 * (|ref| + rms(ref)). Both sides round
+    the same fp32 values to bf16 at the same dozen places but sum in other
+    orders, so intermediates (h, q, k, a LayerNorm term, a probability) round
+    one bf16 ulp the other way here and there, and the seven GEMMs carry that
+    on. The bound is set by the function, not by the kernel: the plain
+    version against itself with fp64 sums reaches 1.9-2.5e-2 (|ref| +
+    rms(ref)) at the main-path widths (tests/test_torch_motion_kernel.py
+    `test_bf16_gate_admits_another_summation_order`); 5e-2 is twice that. A
+    wrong index, head, bias, PE row or residual moves outputs by O(rms)."""
+    bf16 = out.dtype == torch.bfloat16
+    out, ref = out.float(), ref.float()
+    if out.shape != ref.shape:
+        return f"shape {tuple(out.shape)} against {tuple(ref.shape)}"
+    if not bool(torch.isfinite(out).all()):
+        return "non-finite output"
+    if not bf16:
+        if not torch.allclose(out, ref, atol=1e-4, rtol=1e-4):
+            return f"max abs err {(out - ref).abs().max().item()} over atol = rtol = 1e-4"
+        return None
+    rms = ref.square().mean().sqrt()
+    excess = ((out - ref).abs() - 5e-2 * (ref.abs() + rms)).max().item()
+    if excess > 0:
+        return f"bf16 error exceeds 5e-2 * (|ref| + rms(ref) = {rms.item()}) by {excess}"
+    return None
+
+
+def k3_module(torch, C: int, heads: int, use_pe: bool, gen):
+    """A port `TemporalTransformer3D` of width C on the card in fp32, with
+    seeded weights rounded to bf16 values (so that its bf16 copy holds the
+    same weights): lecun-normal matrices (proj_out too, so the delta is not
+    0), biases and norm shifts N(0, 0.1^2), norm scales 1 + N(0, 0.1^2); 32
+    GroupNorm groups, or as many as divide C."""
+    from controlanimate_tpu_torch.models.motion_module import TemporalTransformer3D
+
+    mod = TemporalTransformer3D(C, heads, 1, ("Temporal_Self", "Temporal_Self"), 32, use_pe,
+                                math.gcd(C, 32)).to("cuda")
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            if p.ndim >= 2:
+                p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+            elif name.endswith("bias"):
+                p.normal_(0.0, 0.1, generator=gen)
+            else:
+                p.normal_(1.0, 0.1, generator=gen)
+            p.copy_(p.to(torch.bfloat16))
+    return mod.eval()
+
+
+def k3_inputs(torch, shape, gen):
+    """(fp32 module, fp32 x) for K3 at (B, F, N, C, heads, use_pe), x ~ N(0, 1)
+    rounded to bf16 values like the weights."""
+    B, F, N, C, heads, use_pe = shape
+    mod = k3_module(torch, C, heads, use_pe, gen)
+    x = torch.randn((B, F, N, C), generator=gen, device="cuda").to(torch.bfloat16).float()
+    return mod, x
+
+
+def check_k3(torch, mk, shape, gen) -> dict:
+    """K3 at (B, F, N, C, heads, use_pe) against its plain version, in fp32
+    and in bf16 on the same weights and input; the max abs errors, and the
+    bf16 kernel's and the bf16 plain version's max abs error against the fp32
+    plain version (how far each is from the function in fp32)."""
+    import copy
+
+    mod32, x32 = k3_inputs(torch, shape, gen)
+    heads = shape[4]
+    outs = {}
+    with torch.no_grad():
+        for mod, x in ((mod32, x32), (copy.deepcopy(mod32).to(torch.bfloat16), x32.bfloat16())):
+            p, pe = mod.fused_operands(x)
+            out = mk.motion_module_fused(x, p, heads=heads, pe=pe)
+            ref = mk.motion_module_plain(x, p, heads=heads, pe=pe)
+            bad = k3_mismatch(torch, out, ref)
+            if bad:
+                raise AssertionError(f"K3 {shape} {x.dtype}: {bad}")
+            outs[x.dtype] = (out.float(), ref.float())
+    (out32, ref32), (out16, ref16) = outs[torch.float32], outs[torch.bfloat16]
+    return {"max_abs_err_bf16": (out16 - ref16).abs().max().item(),
+            "max_abs_err_fp32": (out32 - ref32).abs().max().item(),
+            "bf16_kernel_vs_fp32": (out16 - ref32).abs().max().item(),
+            "bf16_plain_vs_fp32": (ref16 - ref32).abs().max().item()}
+
+
+def unet_k3_calls(unet, latent: int):
+    """The K3 calls of one UNet forward on latent x latent maps, read off the
+    module tree: a Counter of (N, C, heads) over the motion modules K3 takes."""
+    from collections import Counter
+
+    calls, hw = Counter(), latent
+
+    def add(blk):
+        for m in getattr(blk, "motion_modules", ()):
+            if m.fusable:
+                calls[(hw * hw, m.channels, m.heads)] += 1
+
+    for blk in unet.down_blocks:
+        add(blk)
+        if hasattr(blk, "downsamplers"):
+            hw //= 2
+    add(unet.mid_block)
+    for blk in unet.up_blocks:
+        add(blk)
+        if hasattr(blk, "upsamplers"):
+            hw *= 2
+    return calls
+
+
+def expected_k3_launches(unet, latent: int, frames_n: int, steps: int, windows: int) -> dict:
+    """K3 launches by (B, F, N, C, heads) over `windows` windows of `steps`
+    UNet forwards each (batch 1: no CFG)."""
+    return {(1, frames_n, n, c, h): k * steps * windows
+            for (n, c, h), k in unet_k3_calls(unet, latent).items()}
+
+
+@contextmanager
+def motion_env(on: bool):
+    """CONTROLANIMATE_PALLAS_MOTION, which the facade reads when a pipeline
+    is built, set to 1 or 0 for the pipelines built inside, restored after."""
+    from controlanimate_tpu_torch.pipelines.facade import MOTION_ENV
+
+    old = os.environ.get(MOTION_ENV)
+    os.environ[MOTION_ENV] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(MOTION_ENV)
+        else:
+            os.environ[MOTION_ENV] = old
+
+
 def vae_k2_calls(vae, size: int) -> tuple:
     """The K2 calls of one VAE encode and one decode of a size x size image,
     read off the module tree: Counters of (H, W, Cin, Cout, affine, residual),
@@ -366,12 +535,14 @@ def build_models(torch, unet_cfg, vae_channels, clip_cfg, device, seed, vae_grou
     return EngineModels(unet=unet, vae=vae), TextStack(CLIPTokenizer.tiny(), clip)
 
 
-def small_reference(torch, conv_kernel: bool = False) -> dict:
+def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = False) -> dict:
     """The same small pipeline (fp32, same weights and noise) on the CPU and
     on the card: uint8 frames must agree within 1 LSB. Head dims 40/80 (UNet)
     and 512 (VAE) put K1 on the card's path; with `conv_kernel` the VAE's
     levels are 128 channels wide and `use_pallas_conv` is on, which puts K2
-    on it too."""
+    on it too; with `motion_kernel` both pipelines are built with
+    CONTROLANIMATE_PALLAS_MOTION=1, which puts the motion modules (80 and 160
+    channels, 2 heads) on K3."""
     import copy
 
     from controlanimate_tpu_torch.config import MotionModuleConfig, RunConfig
@@ -393,9 +564,10 @@ def small_reference(torch, conv_kernel: bool = False) -> dict:
                           intermediate_size=64, eos_token_id=513)
     vae_channels = (128, 128, 128, 512) if conv_kernel else (32, 64, 64, 512)
     models, text = build_models(torch, ucfg, vae_channels, ccfg, "cpu", SEED, vae_groups=8)
-    cpu = ControlAnimatePipeline(cfg, models=models, text_stack=text, device="cpu")
-    gpu = ControlAnimatePipeline(cfg, models=copy.deepcopy(models),
-                                 text_stack=copy.deepcopy(text), device="cuda")
+    with motion_env(motion_kernel):
+        cpu = ControlAnimatePipeline(cfg, models=models, text_stack=text, device="cpu")
+        gpu = ControlAnimatePipeline(cfg, models=copy.deepcopy(models),
+                                     text_stack=copy.deepcopy(text), device="cuda")
     frames = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(SEED))
     out_cpu = cpu.animate(frames, None, seed=SEED, noise=HostNoise(SEED, "cpu"))
@@ -446,7 +618,11 @@ def main() -> int:
     from controlanimate_tpu_torch.ops import attention as attention_module
     from controlanimate_tpu_torch.ops import conv_kernel as ck
     from controlanimate_tpu_torch.ops import flash_attention as fa
-    from controlanimate_tpu_torch.pipelines.facade import ControlAnimatePipeline
+    from controlanimate_tpu_torch.ops import motion_kernel as mk
+    from controlanimate_tpu_torch.pipelines.facade import MOTION_ENV, ControlAnimatePipeline
+
+    # the phases without K3 build their pipelines with the motion switch off
+    os.environ[MOTION_ENV] = "0"
 
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -460,6 +636,7 @@ def main() -> int:
     phase("build", t0, nvcc_seconds=round(lib.build_seconds, 3), library=lib.path.name,
           ptxas=ptxas)
     print(json.dumps({"k2_ptxas": [r for r in ptxas if "conv3x3" in r["function"]]}), flush=True)
+    print(json.dumps({"k3_ptxas": [r for r in ptxas if "motion" in r["function"]]}), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -468,13 +645,19 @@ def main() -> int:
     ck.reset_launch_counts()
     ref_k2 = small_reference(torch, conv_kernel=True)
     k2_ref_launches = ck.conv3x3_fused.launches
+    mk.reset_launch_counts()
+    ref_k3 = small_reference(torch, motion_kernel=True)
+    k3_ref_launches = mk.motion_module_fused.launches
     phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
-          k2_launches=k2_ref_launches)
-    for r in (ref, ref_k2):
+          k2_launches=k2_ref_launches, k3_max_lsb=ref_k3["max_lsb"],
+          k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches)
+    for r in (ref, ref_k2, ref_k3):
         if r["max_lsb"] > 1:
             raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB")
     if k2_ref_launches == 0:
         raise AssertionError("the reference with use_pallas_conv launched no K2")
+    if k3_ref_launches == 0:
+        raise AssertionError(f"the reference with {MOTION_ENV}=1 launched no K3")
 
     # -- the main path ----------------------------------------------------
     t0 = time.perf_counter()
@@ -576,6 +759,42 @@ def main() -> int:
     phase("window_plain_attention", t0, overlap_windows_seconds=round(t_plain, 4),
           new_frames_per_second=round((frames_n - overlap) * WINDOWS / t_plain, 4),
           uint8_diff_mean=float(diff.float().mean()), uint8_diff_max=int(diff.max()))
+
+    # -- this slice's path: the overlap windows with the motion modules on K3
+    t0 = time.perf_counter()
+    with motion_env(True):
+        pipe_k3 = ControlAnimatePipeline(cfg, models=models, text_stack=text, device="cuda")
+    frames, last, epoch = stream[0]
+    pipe_k3._overlap_latent_cache = cache_before
+    pipe_k3.animate(frames, last, overlaps=overlap, seed=SEED, epoch=epoch)  # warm-up
+    pipe_k3._overlap_latent_cache = cache_before
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    t1 = time.perf_counter()
+    for frames, last, epoch in stream:
+        out_k3 = pipe_k3.animate(frames, last, overlaps=overlap, seed=SEED, epoch=epoch)
+        check_window(out_k3)
+    torch.cuda.synchronize()
+    t_k3 = time.perf_counter() - t1
+    k3_by_shape = dict(mk.motion_module_fused.launches_by_shape)
+    k3_peak = torch.cuda.max_memory_allocated()
+    models.unet.set_motion_kernel(False)
+    del pipe_k3
+    k3_expected = expected_k3_launches(models.unet, size // 8, frames_n, steps, WINDOWS)
+    if k3_by_shape != k3_expected:
+        raise AssertionError(f"K3 launches by shape {k3_by_shape}, expected {k3_expected}")
+    if float(out_k3.float().std()) == 0.0:
+        raise AssertionError("window output with K3 is constant")
+    diff = (out.int() - out_k3.int()).abs()
+    phase("window_motion_kernel", t0, overlap_windows_seconds=round(t_k3, 4),
+          seconds_per_overlap_window=round(t_k3 / WINDOWS, 4),
+          new_frames_per_second=round((frames_n - overlap) * WINDOWS / t_k3, 4),
+          uint8_diff_mean=float(diff.float().mean()), uint8_diff_max=int(diff.max()),
+          max_memory_allocated=k3_peak, k3_launches=sum(k3_by_shape.values()),
+          k3_launches_per_window=sum(k3_by_shape.values()) // WINDOWS,
+          k3_launches_by_shape={str(k): n for k, n in sorted(k3_by_shape.items())})
+    del diff, out_k3
 
     # -- the main path: the vid2vid loop with K2 on ------------------------
     import numpy as np
@@ -762,6 +981,40 @@ def main() -> int:
     phase("kernels_k2", t0, shapes=len(k2_rows), per_full_window=k2_window_sums(1, 0),
           per_overlap_window=k2_window_sums(0, 1))
 
+    # -- K3 at every shape the window_motion_kernel phase launched it with --
+    t0 = time.perf_counter()
+    k3_rows = []
+    k3_shapes = [key + (True,) for key in sorted(k3_by_shape)] + K3_ODD_SHAPES
+    for shape in k3_shapes:
+        errs = check_k3(torch, mk, shape, gen)
+        torch.cuda.empty_cache()
+        mod, x = k3_inputs(torch, shape, gen)
+        mod, x = mod.to(torch.bfloat16), x.bfloat16()
+        p, pe = mod.fused_operands(x)
+        heads = shape[4]
+        packed = mk.pack_weights(p, x.dtype)
+        iters = 5 if shape[2] * shape[1] * shape[3] >= 16 * 1024 * 320 else 20
+        with torch.no_grad():
+            row = {
+                "shape": list(shape), "launches": k3_by_shape.get(shape[:5], 0), **errs,
+                "ms": cuda_ms(torch, lambda: mk.motion_module_fused(
+                    x, p, heads=heads, pe=pe, packed=packed), iters),
+                "plain_ms": cuda_ms(torch, lambda: mk.motion_module_plain(
+                    x, p, heads=heads, pe=pe), iters),
+                "library_ms": cuda_ms(torch, lambda: mod(x), iters),
+            }
+        row["ops_ms"], row["bytes_ms"] = motion_bound_ms(shape, 2)
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+        k3_rows.append(row)
+        print(json.dumps({"k3": row}), flush=True)
+        del mod, x, p, pe, packed
+        torch.cuda.empty_cache()
+    k3_by_row = {tuple(r["shape"][:5]): r for r in k3_rows if r["shape"][5]}
+    per_window = {key: sum(n * k3_by_row[k][key] for k, n in k3_by_shape.items()) / WINDOWS
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    phase("kernels_k3", t0, shapes=len(k3_rows), per_window=per_window)
+
     def path_sum(by_row, by_shape, key):
         """`key` summed over one path's launches (launches x per-launch value
         at each shape)."""
@@ -788,6 +1041,10 @@ def main() -> int:
         kernel_entry("conv3x3_fused", "controlanimate_tpu_torch/csrc/conv3x3_fused.cu",
                      "controlanimate_tpu/ops/conv_kernel.py:79", k2_by_row,
                      k2_by_shape, [r["max_abs_err_bf16"] for r in k2_rows]),
+        # K3's path is the window_motion_kernel phase's run
+        kernel_entry("motion_module_fused", "controlanimate_tpu_torch/csrc/motion_module.cu",
+                     "controlanimate_tpu/ops/motion_kernel.py:94", k3_by_row, k3_by_shape,
+                     [r["max_abs_err_bf16"] for r in k3_rows]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with one nvcc call and load them with ctypes.
 
-Every `csrc/*.cu` source (K1 `flash_attention.cu`, K2 `conv3x3_fused.cu`)
-exports plain C functions and includes no PyTorch
+Every `csrc/*.cu` source (K1 `flash_attention.cu`, K2 `conv3x3_fused.cu`,
+K3 `motion_module.cu`) exports plain C functions and includes no PyTorch
 header, so one `nvcc -shared` call builds them all in seconds. The library
 lands in `build/torch_kernels/` at the root of the checkout (listed in
 `.gitignore`), named by a hash of the sources and flags, so an unchanged tree
@@ -73,6 +73,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.conv3x3_fused_fwd.restype = i
     lib.conv3x3_fused_error_string.argtypes = [i]
     lib.conv3x3_fused_error_string.restype = ctypes.c_char_p
+    lib.motion_module_fwd.argtypes = [ctypes.POINTER(p)] + [i] * 6 + [p]
+    lib.motion_module_fwd.restype = i
+    lib.motion_module_error_string.argtypes = [i]
+    lib.motion_module_error_string.restype = ctypes.c_char_p
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,10 +1,14 @@
-"""AnimateDiff temporal motion module, dense einsum path.
+"""AnimateDiff temporal motion module.
 
 Counterpart of `controlanimate_tpu/models/motion_module.py`: a temporal
 transformer whose attention runs across the frames at each spatial location,
 (B, F, H, W, C) -> (B, F, N, C) with attention over F, with a sinusoidal
-positional encoding over the frame axis. The fused kernel path (K3), banded
-attention and ToMe are not in this slice and raise.
+positional encoding over the frame axis. Two paths compute it: the dense
+path of PyTorch ops, and K3 (`ops/motion_kernel.py`), the whole transformer
+as one fused call, taken when `MotionModule.use_motion_kernel` is set
+(`UNet3DConditionModel.set_motion_kernel`) and the module has the shape K3
+computes, as the JAX package's `MotionModule` dispatches. Banded attention
+and ToMe are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import motion_kernel as mk
+from ..ops.conv_kernel import groupnorm_fold
 from .layers import FeedForward, GroupNorm, LayerNorm32, linear
 
 
@@ -86,6 +92,7 @@ class TemporalTransformer3D(nn.Module):
                  attention_block_types: Sequence[str], max_len: int,
                  use_pos_encoding: bool, groups: int):
         super().__init__()
+        self.heads = heads
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList(
@@ -94,6 +101,7 @@ class TemporalTransformer3D(nn.Module):
             for _ in range(num_transformer_block)
         )
         self.proj_out = nn.Linear(channels, channels)
+        self._packing = None  # (parameter key, K3's packed weights)
 
     def forward(self, h4):
         """h4: (B, F, N, C) -> the module's delta, (B, F, N, C)."""
@@ -103,6 +111,53 @@ class TemporalTransformer3D(nn.Module):
         for block in self.transformer_blocks:
             h = block(h)
         return self.proj_out(h)
+
+    def motion_params(self) -> dict:
+        """The flat parameter dict of K3 under the JAX caller's keys, without
+        the GroupNorm terms (they depend on the input): Dense kernels as
+        (in, out) views of the nn.Linear weights, no copy. Needs one
+        transformer block of two attention blocks."""
+        blk = self.transformer_blocks[0]
+        p = {
+            "win": self.proj_in.weight.t(), "bin": self.proj_in.bias,
+            "wout": self.proj_out.weight.t(), "bout": self.proj_out.bias,
+            "lsf": blk.ff_norm.weight, "lbf": blk.ff_norm.bias,
+            "w1": blk.ff.net[0].proj.weight.t(), "b1": blk.ff.net[0].proj.bias,
+            "w2": blk.ff.net[2].weight.t(), "b2": blk.ff.net[2].bias,
+        }
+        for i, (attn, norm) in enumerate(zip(blk.attention_blocks, blk.norms)):
+            p[f"ls{i}"], p[f"lb{i}"] = norm.weight, norm.bias
+            p[f"wq{i}"], p[f"wk{i}"] = attn.to_q.weight.t(), attn.to_k.weight.t()
+            p[f"wv{i}"], p[f"wo{i}"] = attn.to_v.weight.t(), attn.to_out[0].weight.t()
+            p[f"ob{i}"] = attn.to_out[0].bias
+        return p
+
+    def _packed(self, p: dict, dtype) -> dict:
+        """K3's weight layouts, packed once and kept until a parameter is
+        replaced, moved or changed in place."""
+        key = tuple((t.data_ptr(), t._version) for t in self.parameters()) + (dtype,)
+        if self._packing is None or self._packing[0] != key:
+            self._packing = (key, mk.pack_weights(p, dtype))
+        return self._packing[1]
+
+    def fused_operands(self, h4) -> tuple[dict, torch.Tensor | None]:
+        """K3's (p, pe) for the input h4 (B, F, N, C) in the weights' dtype:
+        `motion_params` with the GroupNorm statistics folded into gn_a, gn_b
+        (fp32 statistics, eps 1e-6), and the PE rows of the F frames or None."""
+        B, F_, N, C = h4.shape
+        a, b = groupnorm_fold(h4.reshape(B * F_, N, C), self.norm.weight, self.norm.bias,
+                              self.norm.num_groups, eps=self.norm.eps)
+        p = self.motion_params()
+        p["gn_a"], p["gn_b"] = a.reshape(B, F_, C), b.reshape(B, F_, C)
+        blk = self.transformer_blocks[0]
+        return p, (blk.pe[:F_] if blk.use_pos_encoding else None)
+
+    def forward_fused(self, h4):
+        """The same delta as `forward`, through one `motion_module_fused`."""
+        h4 = h4.to(self.proj_in.weight.dtype)
+        p, pe = self.fused_operands(h4)
+        packed = self._packed(p, h4.dtype) if h4.is_cuda else None
+        return mk.motion_module_fused(h4, p, heads=self.heads, pe=pe, packed=packed)
 
 
 class MotionModule(nn.Module):
@@ -115,8 +170,14 @@ class MotionModule(nn.Module):
         super().__init__()
         if band or tome_ratio:
             raise NotImplementedError("banded temporal attention and ToMe are not ported yet")
+        self.channels = channels
+        self.heads = heads
         self.max_len = max_len
         self.use_pos_encoding = use_pos_encoding
+        # K3 takes the module when switched on and of the shape it computes
+        self.use_motion_kernel = False
+        self.fusable = (num_transformer_block == 1 and len(attention_block_types) == 2
+                        and channels % heads == 0)
         self.temporal_transformer = TemporalTransformer3D(
             channels, heads, num_transformer_block, attention_block_types, max_len,
             use_pos_encoding, groups,
@@ -129,5 +190,9 @@ class MotionModule(nn.Module):
                 f"window of {F_} frames exceeds the motion module's positional "
                 f"table (max_len={self.max_len})"
             )
-        delta = self.temporal_transformer(x.reshape(B, F_, H * W, C))
+        h4 = x.reshape(B, F_, H * W, C)
+        if self.use_motion_kernel and self.fusable:
+            delta = self.temporal_transformer.forward_fused(h4)
+        else:
+            delta = self.temporal_transformer(h4)
         return x + delta.reshape(B, F_, H, W, C)

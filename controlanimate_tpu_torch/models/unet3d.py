@@ -5,7 +5,9 @@ Counterpart of `controlanimate_tpu/models/unet3d.py`. Per layer the order is
 ResnetBlock3D -> SpatialTransformer -> MotionModule; the LCM guidance
 embedding enters through the time embedding's `cond_proj`. Module names follow
 the diffusers checkpoint keys (`down_blocks.0.resnets.0.conv1.weight`, ...).
-ControlNet residuals and encoder reuse are not in this slice and raise.
+`set_motion_kernel(True)` puts the motion modules on K3 (the facade does so
+under CONTROLANIMATE_PALLAS_MOTION=1). ControlNet residuals and encoder reuse
+are not in this slice and raise.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ class UNet3DConditionModel(nn.Module):
         if config.ip_tokens:
             raise NotImplementedError("IP-Adapter tokens are not ported yet")
         self.config = cfg = config
+        self.use_motion_kernel = False
         ch0 = cfg.block_out_channels[0]
         temb_ch = ch0 * 4
         self.time_embedding = TimestepEmbedding(ch0, temb_ch, cfg.time_cond_proj_dim)
@@ -163,6 +166,16 @@ class UNet3DConditionModel(nn.Module):
             temporal_attention=cfg.temporal_attention,
             tome_ratio=cfg.token_merge_ratio,
         )
+
+    def set_motion_kernel(self, enabled: bool) -> None:
+        """Route every motion module of K3's shape through K3 (or back to the
+        dense path, dropping K3's packed weights: 14 C^2 values a module)."""
+        self.use_motion_kernel = bool(enabled)
+        for m in self.modules():
+            if isinstance(m, MotionModule):
+                m.use_motion_kernel = self.use_motion_kernel
+                if not enabled:
+                    m.temporal_transformer._packing = None
 
     def _motion(self, ch: int) -> MotionModule:
         cfg = self.config

@@ -10,13 +10,19 @@ With `reuse_overlap_latents` the clean latents of a window's last
 
 The run dtype comes from `RunConfig.dtype` ("float16"/"fp16" mean bf16, as
 in the JAX package); models are moved to `device` in that dtype.
-`RunConfig.use_pallas_conv` turns K2 on or off on the VAE. Building models
+`RunConfig.use_pallas_conv` turns K2 on or off on the VAE, and
+CONTROLANIMATE_PALLAS_MOTION=1 (the JAX package's opt-in, read when the
+pipeline is built) puts the UNet's motion modules on K3.
+`RunConfig.use_pallas_attention` has no effect: K1 runs every unmasked
+self-attention whatever it says, and the build warns so. Building models
 from disk and every setting `config.require_ported` rejects (ControlNets,
 IP-Adapter, meshes, upscaling, ...) raise.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -28,6 +34,9 @@ from ..models.tokenizer import CLIPTokenizer
 from ..schedulers import make_schedule
 from .engine import AnimationEngine, EngineModels, NoiseSource, TorchNoise, WindowStatic
 from .prompt_weighting import encode_weighted_prompt
+
+# the JAX package's opt-in for the fused motion module (K3)
+MOTION_ENV = "CONTROLANIMATE_PALLAS_MOTION"
 
 
 @dataclass
@@ -72,6 +81,11 @@ class ControlAnimatePipeline:
         models.unet.to(device=self.device, dtype=self.dtype).eval()
         models.vae.to(device=self.device, dtype=self.dtype).eval()
         models.vae.set_conv_kernel(config.use_pallas_conv)
+        models.unet.set_motion_kernel(os.environ.get(MOTION_ENV, "0") == "1")
+        warnings.warn(
+            f"RunConfig.use_pallas_attention={config.use_pallas_attention!r} has no effect in "
+            "the PyTorch port: the flash-attention kernel (K1) runs every unmasked "
+            "self-attention", stacklevel=2)
         text_stack.model.to(device=self.device, dtype=self.dtype).eval()
         self.models = models
         self.text = text_stack

@@ -126,3 +126,33 @@ def test_run_dtype_names():
     assert torch_dtype("FP32") is torch.float32 and torch_dtype("bf16") is torch.bfloat16
     with pytest.raises(ValueError):
         torch_dtype("int8")
+
+
+def test_use_pallas_attention_has_no_effect(monkeypatch):
+    """The port runs K1 for every unmasked self-attention whatever
+    `use_pallas_attention` says: the build warns so, and one window with each
+    value makes the same attention calls and the same frames."""
+    from controlanimate_tpu_torch.ops import attention as attention_module
+
+    _, _, tunet = unet_pair(seed=31)
+    _, _, tvae = vae_pair(seed=32)
+    _, _, tclip = clip_pair(seed=33)
+    kernel = attention_module.flash_attention
+    runs = []
+    for value in (False, True):
+        calls = []
+
+        def spy(q, k, v, calls=calls):
+            calls.append(tuple(q.shape))
+            return kernel(q, k, v)
+
+        monkeypatch.setattr(attention_module, "flash_attention", spy)
+        with pytest.warns(UserWarning, match=f"use_pallas_attention={value}"):
+            tpipe = tfacade.ControlAnimatePipeline(
+                RunConfig(**CFG, use_pallas_attention=value),
+                models=tengine.EngineModels(unet=tunet, vae=tvae),
+                text_stack=tfacade.TextStack(CLIPTokenizer.tiny(), tclip), device="cpu")
+        runs.append((tpipe.animate(_frames(4, 4), None, seed=SEED), calls))
+    (frames_off, calls_off), (frames_on, calls_on) = runs
+    assert calls_off and calls_off == calls_on
+    assert torch.equal(frames_off, frames_on)

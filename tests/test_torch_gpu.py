@@ -1,6 +1,6 @@
-"""The port on a CUDA card: K1 and K2 against their plain versions, and a
-small pipeline on the card against the same pipeline on the CPU (with and
-without K2).
+"""The port on a CUDA card: K1, K2 and K3 against their plain versions, and a
+small pipeline on the card against the same pipeline on the CPU (without
+the optional kernels, with K2, and with K3).
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from controlanimate_tpu_torch.ops import conv_kernel as ck
+from controlanimate_tpu_torch.ops import motion_kernel as mk
 from controlanimate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
 pytestmark = pytest.mark.gpu
@@ -115,3 +116,61 @@ def test_small_pipeline_with_conv_kernel_card_matches_cpu(cuda):
     ref = chip_smoke.small_reference(torch, conv_kernel=True)
     assert ref["max_lsb"] <= 1, ref
     assert ck.conv3x3_fused.launches > 0
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 4, 32, 64, 8, True), (1, 4, 32, 64, 8, False),  # the CPU parity tests' shape
+    (2, 16, 37, 80, 2, True), (1, 8, 130, 160, 2, True),  # the small pipeline's widths
+    (1, 24, 9, 320, 8, True), (1, 32, 5, 40, 1, False),  # 24 and 32 frames; one head of 40
+])
+def test_motion_kernel_matches_plain(cuda, shape):
+    """The gates of `chip_smoke.k3_mismatch` (fp32 at 1e-4, bf16 within
+    5e-2 of |ref| + rms(ref)) at small and ragged shapes, fp32 and bf16; one
+    launch a call."""
+    import chip_smoke
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    before = mk.motion_module_fused.launches
+    chip_smoke.check_k3(torch, mk, shape, g)
+    torch.cuda.synchronize()
+    assert mk.motion_module_fused.launches == before + 2
+
+
+def test_motion_kernel_never_takes_the_plain_version(cuda, monkeypatch):
+    import chip_smoke
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    mod, x = chip_smoke.k3_inputs(torch, (1, 4, 32, 64, 8, True), g)
+    p, pe = mod.fused_operands(x)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(mk, "motion_module_plain", refuse)
+    with torch.no_grad():
+        out = mk.motion_module_fused(x, p, heads=8, pe=pe)
+    torch.cuda.synchronize()
+    assert out.is_cuda and out.shape == x.shape and bool(torch.isfinite(out).all())
+
+
+def test_motion_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="C % 8"):
+        mk.check_kernel_args(torch.zeros(1, 4, 8, 36, device=cuda), 4)
+    with pytest.raises(ValueError, match="frames"):
+        mk.check_kernel_args(torch.zeros(1, 33, 8, 64, device=cuda), 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        mk.check_kernel_args(torch.zeros(1, 32, 8, 4096, device=cuda), 1)
+    with pytest.raises(TypeError):
+        mk.motion_module_fused(torch.zeros(1, 4, 8, 64, device=cuda, dtype=torch.float16), {},
+                               heads=8)
+
+
+def test_small_pipeline_with_motion_kernel_card_matches_cpu(cuda):
+    import chip_smoke
+
+    mk.reset_launch_counts()
+    ref = chip_smoke.small_reference(torch, motion_kernel=True)
+    assert ref["max_lsb"] <= 1, ref
+    assert mk.motion_module_fused.launches > 0
