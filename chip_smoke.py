@@ -6,16 +6,20 @@
 Phases, each printed as one JSON line with its seconds:
   device     the card's name, count and power limit; no card is an error.
   build      one nvcc call builds the CUDA kernels (K1 flash attention, K2
-             fused GroupNorm -> SiLU -> conv3x3, K3 fused motion module);
-             prints its time and nvcc's register / spill report, K2's and
-             K3's each on a line of its own.
+             fused GroupNorm -> SiLU -> conv3x3, K3 fused motion module, K4
+             nearest-2x + conv3x3 + leaky ReLU); prints its time and nvcc's
+             register / spill report, K2's, K3's and K4's each on a line of
+             its own.
   reference  a small pipeline (head dims 40/80/512, fp32) on the card against
              the same pipeline on the CPU with the same weights and noise:
              uint8 frames within 1 LSB; then the same with
              `use_pallas_conv` and 128-channel VAE levels, so that K2 runs
              on the card, and once more with CONTROLANIMATE_PALLAS_MOTION=1,
              so that K3 runs on the card (K2's and K3's launches are counted
-             and must be nonzero).
+             and must be nonzero); then a small fp32 RealESRGAN `Upscaler`
+             (64 features, 1 block, 2 frames of 64x64) on the card against
+             the same on the CPU, at scale 4 and at scale 2 (the x4 network
+             then Lanczos4): uint8 within 1 LSB, K4's launches nonzero.
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -49,6 +53,18 @@ Phases, each printed as one JSON line with its seconds:
   vid2vid_plain_conv
              the same loop with `use_pallas_conv` off (time and uint8
              difference reported, not gated).
+  vid2vid_upscale
+             this slice's path: the same loop (K2 off) with `upscale` 4 and
+             a full-width RealESRGAN x4 RRDBNet (64 features, 6 blocks,
+             random weights seeded on the card, run in bf16), its tail on K4.
+             Checks 40 frames of (2048, 2048, 3) uint8 written and K4's
+             launches by shape against what the upscaler's chunking implies
+             (3 a chunk); prints new frames/s, peak memory, the loop's
+             timers, the device time of one emit's upscale and of its RRDB
+             body (CUDA events), the share of output values at 0 or 255,
+             and the uint8
+             difference against the same upscaler applied on the card to the
+             vid2vid_plain_conv phase's frames (reported, not gated).
   kernels    K1 against its plain version at every shape the window phase
              launched it with, plus odd lengths, in bf16 and fp32
              (`k1_mismatch` states the gates); K2 against its plain version
@@ -65,6 +81,14 @@ Phases, each printed as one JSON line with its seconds:
              version's, the port's dense `TemporalTransformer3D`'s in bf16
              (the stock PyTorch path K3 replaces, as the yardstick) and the
              bound.
+  kernels_k4 K4 against its plain version at every shape vid2vid_upscale
+             launched it with (bf16 as launched, fp32 at batch 1), plus odd
+             shapes in both modes (H and W off the 8 x 16 tile, H = 1,
+             Ci = Co = 32, B = 3), in bf16 and fp32 (`k4_mismatch` states the
+             gates); then K4's time, its plain version's, one PyTorch call's
+             (nearest-2x + `F.conv2d` + leaky ReLU in bf16, channels_last; a
+             yardstick the port never calls), the bound over the useful work
+             and the folded GEMM's work beside it.
 Then the kernels line, the `nvidia-smi` name/power-limit line, and last the
 `{"ok": true, "device": ...}` line. Any failure ends the run non-zero.
 """
@@ -104,6 +128,12 @@ K2_ODD_SHAPES = [(2, 9, 37, 128, 128), (1, 7, 21, 256, 128), (2, 1, 16, 128, 256
 # the 128-row tile, 8 and 24 frames, PE off, and C = 64 (head dim 8)
 K3_ODD_SHAPES = [(1, 16, 37, 320, 8, True), (1, 8, 64, 640, 8, True), (1, 24, 64, 320, 8, True),
                  (1, 16, 64, 1280, 8, False), (2, 16, 50, 64, 8, True)]
+# odd K4 shapes (B, H, W, Ci, Co), each in both modes: H and W not multiples
+# of the 8 x 16 tile, H = 1, Ci = Co = 32 (the 32-channel block), and B = 3
+K4_ODD_SHAPES = [(2, 9, 37, 64, 64), (1, 1, 16, 64, 64), (1, 13, 21, 32, 32), (3, 8, 16, 64, 64)]
+# conv_last's weight scale in the seeded RRDBNet (its bias is 0.5): keeps most
+# uint8 outputs of the 6-block network off 0 and 255
+RRDB_LAST_GAIN = 0.3
 WINDOWS = 4  # timed windows of each kind
 V2V_OVERLAP_WINDOWS = 3  # overlap windows after the vid2vid phase's first window
 SEED = 7
@@ -367,6 +397,101 @@ def check_k3(torch, mk, shape, gen) -> dict:
             "bf16_plain_vs_fp32": (ref16 - ref32).abs().max().item()}
 
 
+def upconv_bound_ms(shape, upsample: bool, itemsize: int) -> tuple[float, float, float]:
+    """(operations, bytes) times of one K4 call in ms, and the folded GEMM's
+    GFLOP: the useful work, 2*4*Ci*Co FLOPs a fine output pixel (upsample)
+    or 2*9*Ci*Co an output pixel (conv), at the bf16 tensor rate; x and the
+    HWIO weights read once and the output written once at the memory rate.
+    The TPU kernel's dense fold multiplies 2*9*Ci*4*Co a coarse pixel."""
+    B, H, W, Ci, Co = shape
+    px = B * H * W
+    out_px = 4 * px if upsample else px
+    flops = 2.0 * (4 if upsample else 9) * Ci * Co * out_px
+    folded = 2.0 * 9 * Ci * (4 if upsample else 1) * Co * px
+    nbytes = (B * H * W * Ci + out_px * Co + 9 * Ci * Co) * itemsize
+    return 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES, folded / 1e9
+
+
+def k4_mismatch(torch, out, ref) -> str | None:
+    """K4's gates, K2's (`k2_mismatch`): fp32 at atol = rtol = 1e-4 (TF32 off
+    in the plain version); bf16 within 1e-2 (|ref| + rms(ref)). Both sides
+    fold the weights in fp32 and round them once, sum the same bf16 products
+    in fp32 and round the result once, so a right kernel differs by the
+    summation order and then at most one bf16 ulp (< 2**-7 |ref|)."""
+    return k2_mismatch(torch, out, ref)
+
+
+def k4_inputs(torch, shape, dtype, gen):
+    """Seeded K4 operands at (B, H, W, Ci, Co): x in `dtype`, fp32 HWIO
+    weights (the wrapper rounds them, folded or not) and bias."""
+    B, H, W, Ci, Co = shape
+    x = torch.randn((B, H, W, Ci), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((3, 3, Ci, Co), generator=gen, device="cuda") / math.sqrt(9 * Ci)
+    bias = 0.1 * torch.randn((Co,), generator=gen, device="cuda")
+    return x, w, bias
+
+
+def check_k4(torch, uk, shape, upsample: bool, dtype, gen) -> float:
+    """K4 at (B, H, W, Ci, Co) in one mode, with leaky ReLU, against its
+    plain version; max abs error."""
+    x, w, bias = k4_inputs(torch, shape, dtype, gen)
+    out = uk.upconv3x3(x, w, bias, upsample=upsample, act="lrelu")
+    ref = uk.upconv3x3_plain(x, w, bias, upsample=upsample, act="lrelu")
+    bad = k4_mismatch(torch, out, ref)
+    if bad:
+        raise AssertionError(f"K4 {shape} upsample={upsample} {dtype}: {bad}")
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def init_rrdbnet_(torch, net, gen, last_gain: float) -> None:
+    """Seeded weights for an RRDBNet on its device: `init_weights_`, then
+    conv_last's weight times `last_gain` and its bias 0.5, so the [0, 1]
+    output sits mostly inside the uint8 range."""
+    init_weights_(torch, net, gen)
+    with torch.no_grad():
+        net.conv_last.weight.mul_(last_gain)
+        net.conv_last.bias.fill_(0.5)
+
+
+def small_upscaler_reference(torch, scale: float) -> dict:
+    """A small fp32 Upscaler (64 features, 1 block; 2 frames of 64x64) on
+    the CPU and on the card with the same weights: uint8 frames must agree
+    within 1 LSB. Its x4 tail runs on K4 on the card; at a scale other than
+    4 the Lanczos4 resize follows."""
+    import copy
+
+    import numpy as np
+
+    from controlanimate_tpu_torch.models.upscaler import RRDBNet, Upscaler
+
+    net = RRDBNet(num_feat=64, num_block=1)
+    init_rrdbnet_(torch, net, torch.Generator().manual_seed(SEED), 1.0)
+    frames = synthetic_video(np, 2, 64, SEED)
+    out_cpu = Upscaler(scale, model=net, dtype=torch.float32, device="cpu").upscale_batch(frames)
+    gpu = Upscaler(scale, model=copy.deepcopy(net), dtype=torch.float32, device="cuda")
+    out_gpu = gpu.upscale_batch(frames)
+    if out_gpu.shape != out_cpu.shape or out_gpu.shape[1] != int(64 * scale):
+        raise AssertionError(f"upscaler output {out_gpu.shape} against {out_cpu.shape}")
+    diff = np.abs(out_cpu.astype(np.int16) - out_gpu.astype(np.int16))
+    return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.mean())}
+
+
+def expected_k4_launches(upscaler, emits: list[int], size: int) -> dict:
+    """K4 launches by (B, H, W, Ci, Co, upsample) for emits of `emits`
+    frames of size x size: each chunk of the upscaler's runs up1 and up2
+    (upsample) and conv_hr (conv)."""
+    from collections import Counter
+
+    nf = upscaler.model.conv_hr.out_channels
+    out = Counter()
+    for n in emits:
+        for c in upscaler.chunk_sizes(n, size, size):
+            out[(c, size, size, nf, nf, True)] += 1
+            out[(c, 2 * size, 2 * size, nf, nf, True)] += 1
+            out[(c, 4 * size, 4 * size, nf, nf, False)] += 1
+    return dict(out)
+
+
 def unet_k3_calls(unet, latent: int):
     """The K3 calls of one UNet forward on latent x latent maps, read off the
     module tree: a Counter of (N, C, heads) over the motion modules K3 takes."""
@@ -619,6 +744,7 @@ def main() -> int:
     from controlanimate_tpu_torch.ops import conv_kernel as ck
     from controlanimate_tpu_torch.ops import flash_attention as fa
     from controlanimate_tpu_torch.ops import motion_kernel as mk
+    from controlanimate_tpu_torch.ops import upconv_kernel as uk
     from controlanimate_tpu_torch.pipelines.facade import MOTION_ENV, ControlAnimatePipeline
 
     # the phases without K3 build their pipelines with the motion switch off
@@ -637,6 +763,7 @@ def main() -> int:
           ptxas=ptxas)
     print(json.dumps({"k2_ptxas": [r for r in ptxas if "conv3x3" in r["function"]]}), flush=True)
     print(json.dumps({"k3_ptxas": [r for r in ptxas if "motion" in r["function"]]}), flush=True)
+    print(json.dumps({"k4_ptxas": [r for r in ptxas if "upconv" in r["function"]]}), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -648,16 +775,28 @@ def main() -> int:
     mk.reset_launch_counts()
     ref_k3 = small_reference(torch, motion_kernel=True)
     k3_ref_launches = mk.motion_module_fused.launches
+    uk.reset_launch_counts()
+    ref_up4 = small_upscaler_reference(torch, 4.0)
+    ref_up2 = small_upscaler_reference(torch, 2.0)
+    k4_ref_launches = uk.upconv3x3.launches
     phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
           k2_launches=k2_ref_launches, k3_max_lsb=ref_k3["max_lsb"],
-          k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches)
+          k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches,
+          upscale4_max_lsb=ref_up4["max_lsb"], upscale4_mean_lsb=ref_up4["mean_lsb"],
+          upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
+          k4_launches=k4_ref_launches)
     for r in (ref, ref_k2, ref_k3):
         if r["max_lsb"] > 1:
             raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB")
+    for r in (ref_up4, ref_up2):
+        if r["max_lsb"] > 1:
+            raise AssertionError(f"card and CPU upscalers differ by {r['max_lsb']} LSB")
     if k2_ref_launches == 0:
         raise AssertionError("the reference with use_pallas_conv launched no K2")
     if k3_ref_launches == 0:
         raise AssertionError(f"the reference with {MOTION_ENV}=1 launched no K3")
+    if k4_ref_launches == 0:
+        raise AssertionError("the reference upscalers launched no K4")
 
     # -- the main path ----------------------------------------------------
     t0 = time.perf_counter()
@@ -818,8 +957,9 @@ def main() -> int:
                 self.raw.append(out.clone())
             return out
 
-    def run_vid2vid(conv_kernel: bool, tag: str):
+    def run_vid2vid(conv_kernel: bool, tag: str, upscaler=None):
         vcfg = cfg.replace(use_pallas_conv=conv_kernel, seed=SEED, overlap_strength=cfg.strength,
+                           upscale=1.0 if upscaler is None else upscaler.scale,
                            output_video_dir=str(ROOT / "build" / "chip_smoke_vid2vid" / tag))
         rec = Recording(ControlAnimatePipeline(vcfg, models=models, text_stack=text,
                                                device="cuda"))
@@ -828,15 +968,18 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
         ck.reset_launch_counts()
+        uk.reset_launch_counts()
         t1 = time.perf_counter()
         summary = v2v.vid2vid(config=vcfg, pipeline=rec, frame_source=ArrayFrameSource(video),
-                              frame_sink=sink)
+                              frame_sink=sink, upscaler=upscaler)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t1
         counts = {"k1": fa.flash_attention.launches,
                   "k1_by_shape": dict(fa.flash_attention.launches_by_shape),
                   "k2": ck.conv3x3_fused.launches,
-                  "k2_by_shape": dict(ck.conv3x3_fused.launches_by_shape)}
+                  "k2_by_shape": dict(ck.conv3x3_fused.launches_by_shape),
+                  "k4": uk.upconv3x3.launches,
+                  "k4_by_shape": dict(uk.upconv3x3.launches_by_shape)}
         return summary, sink.frames, seconds, rec.raw, counts, torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
@@ -884,8 +1027,8 @@ def main() -> int:
     t0 = time.perf_counter()
     summary_plain, plain_frames, plain_seconds, _, counts, plain_peak = run_vid2vid(False,
                                                                                      "plain")
-    if counts["k2"] or summary_plain["frames_written"] != len(video):
-        raise AssertionError("the plain-conv vid2vid rerun launched K2 or lost frames")
+    if counts["k2"] or counts["k4"] or summary_plain["frames_written"] != len(video):
+        raise AssertionError("the plain-conv vid2vid rerun launched K2 or K4 or lost frames")
     diff = np.abs(np.stack(plain_frames).astype(np.int16) - np.stack(v2v_frames).astype(np.int16))
     phase("vid2vid_plain_conv", t0, loop_seconds=round(plain_seconds, 4),
           new_frames_per_second_first_window_included=round(
@@ -893,6 +1036,72 @@ def main() -> int:
           uint8_diff_mean=float(diff.mean()), uint8_diff_max=int(diff.max()),
           max_memory_allocated=plain_peak, timers=summary_plain["timers"])
     del diff, raw, matched
+
+    # -- this slice's path: the loop with the x4 upscaler, its tail on K4 ---
+    from controlanimate_tpu_torch.models.upscaler import RRDBNet, Upscaler
+
+    t0 = time.perf_counter()
+    ugen = torch.Generator(device="cuda")
+    ugen.manual_seed(SEED)
+    with torch.device("cuda"):
+        rrdb = RRDBNet()  # RealESRGAN_x4plus_anime_6B: 64 features, 6 blocks
+    init_rrdbnet_(torch, rrdb, ugen, RRDB_LAST_GAIN)
+    upscaler = Upscaler(4.0, model=rrdb, dtype=torch.bfloat16, device="cuda")
+    # warm-up: cuDNN picks its algorithms for the body outside the timed loop
+    upscaler.upscale_batch_device(torch.from_numpy(video[:1]).cuda())
+    torch.cuda.synchronize()
+    t_up_build = time.perf_counter() - t0
+    summary_up, up_frames, up_seconds, _, counts, up_peak = run_vid2vid(False, "upscale",
+                                                                        upscaler)
+    up_size = 4 * size
+    if summary_up["frames_written"] != len(video) or len(up_frames) != len(video):
+        raise AssertionError(f"vid2vid with upscale wrote {summary_up['frames_written']} frames "
+                             f"({len(up_frames)} in the sink) of {len(video)}")
+    if any(f.shape != (up_size, up_size, 3) or f.dtype != np.uint8 for f in up_frames):
+        raise AssertionError(f"upscaled frames are not ({up_size}, {up_size}, 3) uint8")
+    emits = [frames_n - overlap] * v2v_windows + [overlap]
+    k4_expected = expected_k4_launches(upscaler, emits, size)
+    k4_by_shape = counts["k4_by_shape"]
+    if k4_by_shape != k4_expected:
+        raise AssertionError(f"vid2vid_upscale K4 launches {k4_by_shape}, expected {k4_expected}")
+    if counts["k2"]:
+        raise AssertionError("K2 launched in vid2vid_upscale, where use_pallas_conv is off")
+    # the same upscaler on the vid2vid_plain_conv phase's frames (the loop's
+    # frames before the upscale, if the pipeline repeats itself)
+    diff_sum, diff_max, clipped = 0, 0, 0
+    for i in range(0, len(video), frames_n - overlap):
+        want = upscaler.upscale_batch_device(
+            torch.from_numpy(np.stack(plain_frames[i:i + frames_n - overlap])).cuda())
+        got = torch.from_numpy(np.stack(up_frames[i:i + frames_n - overlap])).cuda()
+        d = (want.int() - got.int()).abs()
+        diff_sum += int(d.sum())
+        diff_max = max(diff_max, int(d.max()))
+        clipped += int(((got == 0) | (got == 255)).sum())
+        del want, got, d
+    n_values = len(up_frames) * up_size * up_size * 3
+    # the device time of one emit's upscale, and of the RRDB body within it
+    emit_frames = torch.from_numpy(video[:frames_n - overlap]).cuda()
+    emit_x = (emit_frames.float() / 255.0).to(torch.bfloat16)
+    with torch.no_grad():
+        upscale_ms = cuda_ms(torch, lambda: upscaler.upscale_batch_device(emit_frames), 1)
+        body_ms = cuda_ms(torch, lambda: rrdb.features(emit_x), 1)
+    del emit_frames, emit_x
+    phase("vid2vid_upscale", t0, upscaler_build_seconds=round(t_up_build, 4),
+          windows=summary_up["windows"], frames_written=summary_up["frames_written"],
+          frame_shape=list(up_frames[0].shape), loop_seconds=round(up_seconds, 4),
+          new_frames_per_second_first_window_included=round(
+              summary_up["frames_written"] / up_seconds, 4),
+          chunks_per_emit=upscaler.chunk_sizes(frames_n - overlap, size, size),
+          upscale_ms_per_frame=upscale_ms / (frames_n - overlap),
+          rrdb_body_ms_per_frame=body_ms / (frames_n - overlap),
+          share_at_0_or_255=clipped / n_values,
+          uint8_diff_vs_plain_conv_upscaled_mean=diff_sum / n_values,
+          uint8_diff_vs_plain_conv_upscaled_max=diff_max,
+          max_memory_allocated=up_peak, k4_launches=counts["k4"],
+          k4_launches_by_shape={str(k): n for k, n in sorted(k4_by_shape.items())},
+          timers=summary_up["timers"])
+    del up_frames, plain_frames
+    torch.cuda.empty_cache()
 
     # -- K1 at every shape the window phase launched it with --------------
     t0 = time.perf_counter()
@@ -1015,6 +1224,55 @@ def main() -> int:
                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     phase("kernels_k3", t0, shapes=len(k3_rows), per_window=per_window)
 
+    # -- K4 at every shape the vid2vid_upscale phase launched it with ------
+    t0 = time.perf_counter()
+    F = torch.nn.functional
+    k4_rows = []
+    launched = sorted(k4_by_shape)
+    odd = [shape + (up,) for shape in K4_ODD_SHAPES for up in (True, False)]
+    for key in launched + odd:
+        shape, upsample = key[:5], key[5]
+        err_bf16 = check_k4(torch, uk, shape, upsample, torch.bfloat16, gen)
+        torch.cuda.empty_cache()
+        # fp32 at batch 1 of a launched shape: the batch of 8 at 2048^2 with
+        # the plain version's fp32 copies would hold about 40 GB
+        err_fp32 = check_k4(torch, uk, (1,) + shape[1:], upsample, torch.float32, gen)
+        torch.cuda.empty_cache()
+        x, w, bias = k4_inputs(torch, shape, torch.bfloat16, gen)
+        xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view
+        w_oihw = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        b16 = bias.to(torch.bfloat16)
+
+        def library():
+            h = F.interpolate(xc, scale_factor=2.0, mode="nearest") if upsample else xc
+            return F.leaky_relu(F.conv2d(h, w_oihw, b16, padding=1), 0.2)
+
+        B, H, W = shape[:3]
+        iters = 3 if B * H * W >= 4 * 1024 * 1024 else 10
+        row = {
+            "shape": list(shape), "upsample": upsample, "launches": k4_by_shape.get(key, 0),
+            "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
+            "ms": cuda_ms(torch, lambda: uk.upconv3x3(x, w, bias, upsample=upsample,
+                                                      act="lrelu"), iters),
+            "plain_ms": cuda_ms(torch, lambda: uk.upconv3x3_plain(x, w, bias, upsample=upsample,
+                                                                  act="lrelu"), iters),
+            "library_ms": cuda_ms(torch, library, iters),
+        }
+        row["ops_ms"], row["bytes_ms"], row["folded_gflop"] = upconv_bound_ms(shape, upsample, 2)
+        row["useful_gflop"] = row["ops_ms"] * PEAK_BF16_FLOPS / 1e12
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+        k4_rows.append(row)
+        print(json.dumps({"k4": row}), flush=True)
+        del x, w, bias, xc, w_oihw, b16
+        torch.cuda.empty_cache()
+    k4_by_row = {tuple(r["shape"]) + (r["upsample"],): r for r in k4_rows}
+    per_frame = {k: sum(n * k4_by_row[key][k] for key, n in k4_by_shape.items()) / len(video)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "folded_gflop",
+                           "useful_gflop")}
+    phase("kernels_k4", t0, shapes=len(k4_rows), per_frame=per_frame)
+
     def path_sum(by_row, by_shape, key):
         """`key` summed over one path's launches (launches x per-launch value
         at each shape)."""
@@ -1045,6 +1303,10 @@ def main() -> int:
         kernel_entry("motion_module_fused", "controlanimate_tpu_torch/csrc/motion_module.cu",
                      "controlanimate_tpu/ops/motion_kernel.py:94", k3_by_row, k3_by_shape,
                      [r["max_abs_err_bf16"] for r in k3_rows]),
+        # K4's path is the vid2vid_upscale phase's run
+        kernel_entry("upconv3x3", "controlanimate_tpu_torch/csrc/upconv3x3.cu",
+                     "controlanimate_tpu/ops/upconv_kernel.py:67", k4_by_row, k4_by_shape,
+                     [r["max_abs_err_bf16"] for r in k4_rows]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

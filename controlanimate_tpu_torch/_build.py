@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with one nvcc call and load them with ctypes.
 
 Every `csrc/*.cu` source (K1 `flash_attention.cu`, K2 `conv3x3_fused.cu`,
-K3 `motion_module.cu`) exports plain C functions and includes no PyTorch
-header, so one `nvcc -shared` call builds them all in seconds. The library
-lands in `build/torch_kernels/` at the root of the checkout (listed in
-`.gitignore`), named by a hash of the sources and flags, so an unchanged tree
-reuses it and a changed one rebuilds. A failed build raises with nvcc's output.
+K3 `motion_module.cu`, K4 `upconv3x3.cu`) exports plain C functions and
+includes no PyTorch header, so one `nvcc -shared` call builds them all in
+seconds. The library lands in `build/torch_kernels/` at the root of the
+checkout (listed in `.gitignore`), named by a hash of the sources and flags,
+so an unchanged tree reuses it and a changed one rebuilds. A failed build
+raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -77,6 +78,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.motion_module_fwd.restype = i
     lib.motion_module_error_string.argtypes = [i]
     lib.motion_module_error_string.restype = ctypes.c_char_p
+    ll = ctypes.c_longlong
+    lib.upconv3x3_fwd.argtypes = [p, ll, ll, ll, p, p, p] + [i] * 8 + [p]
+    lib.upconv3x3_fwd.restype = i
+    lib.upconv3x3_error_string.argtypes = [i]
+    lib.upconv3x3_error_string.restype = ctypes.c_char_p
 
 
 @functools.lru_cache(maxsize=None)

@@ -275,8 +275,7 @@ def require_ported(cfg: RunConfig, *, disk_build: bool = False) -> None:
     `textual_inversion_paths` is read only by a disk build, so it is checked
     only when `disk_build` is set."""
     unported = {
-        "upscale": (cfg.upscale > 1.0, "upscaling (M12)"),
-        "use_face_enhancer": (cfg.use_face_enhancer, "face restoration (M12)"),
+        "use_face_enhancer": (cfg.use_face_enhancer, "face restoration (M12b)"),
         "parallel_segments": (cfg.parallel_segments > 1, "segment-parallel runs (M15)"),
         "mesh_shape": (bool(cfg.mesh_shape), "device meshes (M15)"),
         "use_ipadapter": (cfg.use_ipadapter, "IP-Adapter (M11)"),

@@ -3,13 +3,15 @@ bounded queues, and array / directory sources and sinks for runs without
 ffmpeg.
 
 A copy of `controlanimate_tpu/io/media.py` (which imports no jax; the port
-keeps its own copy all the same). `cv2` and `PIL` are imported only inside
-the functions that need them. Encoder and decoder processes are closed with
-`wait()`.
+keeps its own copy all the same), except that videos are probed with
+`ffprobe` instead of OpenCV, which the port does not import. `PIL` is
+imported only inside the functions that need it. Encoder and decoder
+processes are closed with `wait()`.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import shutil
@@ -25,20 +27,28 @@ def ffmpeg_available(ffmpeg_path: str = "ffmpeg") -> bool:
     return shutil.which(ffmpeg_path) is not None
 
 
-def probe_video(path: str) -> tuple[float, int, int, int]:
-    """(fps, frame_count, width, height) via OpenCV
-    (reference: modules/utils.py:61-72)."""
-    import cv2
-
-    cap = cv2.VideoCapture(path)
+def probe_video(path: str, ffmpeg_path: str = "ffmpeg") -> tuple[float, int, int, int]:
+    """(fps, frame_count, width, height) of the first video stream, read with
+    the `ffprobe` beside `ffmpeg_path` (the JAX package asks OpenCV;
+    reference: modules/utils.py:61-72). The frame count is the container's
+    (0 where it has none)."""
+    exe = Path(ffmpeg_path)
+    ffprobe = str(exe.with_name(exe.name.replace("ffmpeg", "ffprobe")))
     try:
-        fps = cap.get(cv2.CAP_PROP_FPS)
-        n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-        w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
-        h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
-    finally:
-        cap.release()
-    return fps, n, w, h
+        proc = subprocess.run(
+            [ffprobe, "-v", "error", "-select_streams", "v:0", "-show_entries",
+             "stream=width,height,r_frame_rate,nb_frames", "-of", "json", path],
+            capture_output=True, text=True,
+        )
+    except OSError as e:
+        raise RuntimeError(f"ffprobe could not run ({ffprobe}): {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"ffprobe could not read {path}: {proc.stderr.strip()}")
+    stream = json.loads(proc.stdout)["streams"][0]
+    num, _, den = stream.get("r_frame_rate", "0/1").partition("/")
+    fps = float(num) / float(den or 1) if float(den or 1) else 0.0
+    n = stream.get("nb_frames", "0")
+    return fps, int(n) if str(n).isdigit() else 0, int(stream["width"]), int(stream["height"])
 
 
 class FrameSource:

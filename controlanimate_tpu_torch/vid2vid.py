@@ -9,16 +9,28 @@ sink, with checkpoint / resume, cooperative cancel and txt2vid up to
 window is read back once, into pinned host memory, while the next window
 computes.
 
+With `upscale` > 1 each emitted window goes through the RealESRGAN
+`Upscaler` (`models/upscaler.py`, its x4 tail on K4) on the device right
+after the stitch, and is packed to I420 there when the sink takes yuv420p
+(upscale 1 or 4, as in the JAX loop), before its readback starts; the tail
+flush after the loop goes through it too. The sink is opened at the
+upscaled size.
+
 Host / device overlap, as in the JAX loop: with `overlap_host_work` a worker
 thread reads window N+1 and uploads it on a side CUDA stream while window N
 runs; the main stream waits on that upload's event. The checkpoint worker
 reads the stitch state back on its own thread; the stitch returns new tensors
 and nothing writes into them, so a snapshot may hold references.
 
-Not ported yet, and rejected by `config.require_ported`: the upscaler and
-face enhancer, segment-parallel runs, ControlNets, IP-Adapter. The C++ ring
-buffer frame pipe (`use_native_framepipe`) is not ported: the loop takes the
-Python ffmpeg pipe, as the JAX loop does where that pipe cannot be built.
+Not ported yet, and rejected by `config.require_ported`: the face enhancer,
+segment-parallel runs, ControlNets, IP-Adapter. The C++ ring buffer frame
+pipe (`use_native_framepipe`) is not ported: the loop takes the Python
+ffmpeg pipe, as the JAX loop does where that pipe cannot be built. JAX
+behaviours not copied: a missing RealESRGAN file raises FileNotFoundError
+(the JAX loop drops the upscaler and writes frames of the wrong size into a
+sink opened at the upscaled size); an upscale that fails raises (the JAX
+loop falls back to the host); and `save_frames` dumps the frames the sink
+got, upscaled (the JAX loop dumps them unscaled behind a yuv420p sink).
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import RunConfig, StitchState, require_ported
+from .config import RunConfig, StitchState, require_ported, torch_dtype
 from .io import media
 from .ops.stitch import stitch_window
 from .ops.yuv import rgb_to_yuv420
@@ -182,28 +194,43 @@ def vid2vid(
     strength, seed, epoch)` returning a window's (F, H, W, 3) uint8 frames on
     its device, and a `device` attribute; None builds
     `ControlAnimatePipeline(config)`, which needs the disk build (not ported
-    yet). `progress`, if given, is called after every window with
+    yet). `upscaler` needs `upscale_batch_device(frames)` mapping (F, H, W, 3)
+    uint8 device frames to upscaled ones; None builds
+    `Upscaler(config.upscale, ...)` from `upscaler_model_path` when
+    `upscale` > 1. `progress`, if given, is called after every window with
     {"windows", "frames_written", "frames_generated"}. `should_stop`, if
     given, is polled at every window boundary; a truthy return stops the run
     as a `max_windows` interruption does (pending emits flush, a resumable
     checkpoint is saved) and the summary says `canceled`."""
     cfg = config or RunConfig.from_yaml(config_path)
     require_ported(cfg)
-    if upscaler is not None:
-        raise NotImplementedError("upscaler: upscaling (M12) is not ported yet")
 
     # geometry: multiples of 64, probed from the input video when unset
     has_input = bool(cfg.input_video_path) and Path(cfg.input_video_path).exists()
     width, height = cfg.width, cfg.height
     if has_input and (not width or not height):
-        _, _, width, height = media.probe_video(cfg.input_video_path)
+        _, _, width, height = media.probe_video(cfg.input_video_path, cfg.ffmpeg_path)
     width, height = _round64(width or 512), _round64(height or 512)
     cfg = cfg.replace(width=width, height=height)
+    upscale = max(float(cfg.upscale), 1.0)
+    out_w, out_h = int(width * upscale), int(height * upscale)
 
     seed = cfg.seed if cfg.seed != -1 else int(np.random.randint(1, 2**16))
 
     out_dir = Path(cfg.output_video_dir)
     resumed = _load_state(out_dir) if cfg.resume else None
+
+    # the models first: a missing weights file raises before any file opens
+    if pipeline is None:
+        from .pipelines.facade import ControlAnimatePipeline
+
+        pipeline = ControlAnimatePipeline(cfg)
+    device = torch.device(getattr(pipeline, "device", "cuda"))
+    if upscaler is None and upscale > 1.0:
+        from .models.upscaler import Upscaler
+
+        upscaler = Upscaler(upscale, model_path=cfg.upscaler_model_path,
+                            dtype=torch_dtype(cfg.dtype), device=device)
 
     # frame source and sink
     own_source = frame_source is None
@@ -228,9 +255,12 @@ def vid2vid(
     own_sink = frame_sink is None
     if frame_sink is None:
         if media.ffmpeg_available(cfg.ffmpeg_path):
+            # I420 halves the readback; the JAX loop packs it only at scale
+            # 1 or 4 (its device upscale path), and the port keeps that rule
+            pix_fmt = "yuv420p" if upscale == 1.0 or abs(upscale - 4.0) < 1e-6 else "rgb24"
             frame_sink = media.FFMPEGFrameSink(
-                str(raw_video_path), width, height, cfg.fps,
-                crf=cfg.crf, ffmpeg_path=cfg.ffmpeg_path, pix_fmt="yuv420p",
+                str(raw_video_path), out_w, out_h, cfg.fps,
+                crf=cfg.crf, ffmpeg_path=cfg.ffmpeg_path, pix_fmt=pix_fmt,
             )
         else:
             # on resume, number after the previous segment's frames
@@ -238,20 +268,14 @@ def vid2vid(
                 str(out_dir / "frames"), start_index=resumed[2] if resumed else 0)
     sink_pix_fmt = getattr(frame_sink, "pix_fmt", "rgb24")
 
-    if pipeline is None:
-        from .pipelines.facade import ControlAnimatePipeline
-
-        pipeline = ControlAnimatePipeline(cfg)
-    device = torch.device(getattr(pipeline, "device", "cuda"))
-
     timers = PhaseTimers()
     with contextlib.ExitStack() as cleanup:
         if own_source and frame_source is not None:
             cleanup.callback(frame_source.close)
         if own_sink:
             cleanup.callback(frame_sink.close)
-        summary = _run(cfg, pipeline, device, frame_source, frame_sink, sink_pix_fmt,
-                       resumed, seed, segment, out_dir, timers, cleanup,
+        summary = _run(cfg, pipeline, upscaler, device, frame_source, frame_sink,
+                       sink_pix_fmt, resumed, seed, segment, out_dir, timers, cleanup,
                        max_windows, progress, should_stop)
 
     # audio mux and frame interpolation of the encoded video
@@ -277,8 +301,8 @@ def vid2vid(
     return {**summary, "output": str(output_path), "timers": timers.summary()}
 
 
-def _run(cfg, pipeline, device, frame_source, frame_sink, sink_pix_fmt, resumed, seed,
-         segment, out_dir, timers, cleanup, max_windows, progress, should_stop) -> dict:
+def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt, resumed,
+         seed, segment, out_dir, timers, cleanup, max_windows, progress, should_stop) -> dict:
     """The epoch loop of `vid2vid` (a resumed run takes the checkpoint's
     seed); threads it starts are shut down through `cleanup`."""
     if resumed:
@@ -331,10 +355,19 @@ def _run(cfg, pipeline, device, frame_source, frame_sink, sink_pix_fmt, resumed,
         new = read_n(window - len(tail))
         return (new, stager.upload(np.stack(tail + new)) if new else None)
 
-    def write_frames(frames) -> None:
-        """Write (N, H, W, 3) uint8 frames (device or host) to the sink, as
-        I420 rows when the sink takes yuv420p."""
+    def upscaled(frames: torch.Tensor) -> torch.Tensor:
+        if upscaler is None:
+            return frames
+        with timers.phase("upscale"):
+            return upscaler.upscale_batch_device(frames)
+
+    def write_frames(frames, upscale: bool) -> None:
+        """Write (N, H, W, 3) uint8 frames (device or host) to the sink,
+        through the upscaler first when `upscale`, as I420 rows when the sink
+        takes yuv420p."""
         t = torch.as_tensor(frames)
+        if upscale:
+            t = upscaled(t.to(device))
         if sink_pix_fmt == "yuv420p":
             t = rgb_to_yuv420(t.to(device))
         for fr in _host(t):
@@ -356,7 +389,7 @@ def _run(cfg, pipeline, device, frame_source, frame_sink, sink_pix_fmt, resumed,
                 for fr in packed:
                     frame_sink.write(fr)
             else:
-                write_frames(packed)
+                write_frames(packed, upscale=False)
         if cfg.save_frames:
             _dump_frames(cfg, seed, out_dir, start_idx, packed, dump_inputs)
 
@@ -429,9 +462,15 @@ def _run(cfg, pipeline, device, frame_source, frame_sink, sink_pix_fmt, resumed,
                                 if overlaps else None)
                 packed, new_anchor, last_out_dev, tail_dev = stitch_window(
                     frames_dev, anchor, prev_overlap,
-                    overlap_length=overlap_length, to_yuv=to_yuv, emit=emit,
+                    overlap_length=overlap_length, to_yuv=to_yuv and upscaler is None,
+                    emit=emit,
                 )
-                # the readback starts now and is read at the next flush
+            if upscaler is not None:
+                packed = upscaled(packed)
+                if to_yuv:
+                    packed = rgb_to_yuv420(packed)
+            # the readback starts now (into pinned memory) and is read at the next flush
+            with timers.phase("readback"):
                 readback = _Readback(packed)
             state.last_output_frame = new_anchor
             if overlap_length > 0:
@@ -462,7 +501,7 @@ def _run(cfg, pipeline, device, frame_source, frame_sink, sink_pix_fmt, resumed,
         # the tail overlap, except on a resumable run: the resumed first window
         # re-emits those positions blended
         if not resumable and state.overlap_frames is not None and state.overlap_length:
-            write_frames(state.overlap_frames)
+            write_frames(state.overlap_frames, upscale=True)
             frames_written += state.overlap_length
         if progress is not None and windows_run:
             progress({"windows": windows_run, "frames_written": frames_written,

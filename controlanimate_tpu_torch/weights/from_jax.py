@@ -2,11 +2,12 @@
 
 Each function takes a Flax parameter tree (nested dicts of numpy arrays, as
 `jax.device_get(params)` gives) and returns the port's `state_dict` for the
-UNet, the VAE or the CLIP text model. The port's modules use the diffusers /
-HF checkpoint key names, so the tables below are the inverse of the JAX
-package's checkpoint loaders (`controlanimate_tpu/weights/unet_weights.py`,
-`vae_weights.py`, `clip_weights.py`), copied here so the port never imports
-that package. Kinds: "conv" HWIO -> OIHW, "dense" (in, out) -> (out, in),
+UNet, the VAE, the CLIP text model or the RealESRGAN RRDBNet. The port's
+modules use the diffusers / HF / basicsr checkpoint key names, so the tables
+below are the inverse of the JAX package's checkpoint loaders
+(`controlanimate_tpu/weights/unet_weights.py`, `vae_weights.py`,
+`clip_weights.py`, `models/upscaler.py` `rrdbnet_params_from_torch`), copied
+here so the port never imports that package. Kinds: "conv" HWIO -> OIHW, "dense" (in, out) -> (out, in),
 "raw" as is.
 """
 
@@ -205,6 +206,15 @@ def clip_text_mapping(num_layers: int) -> Iterator[Entry]:
     yield from _norm(f"{p}.final_layer_norm", "final_layer_norm")
 
 
+def rrdbnet_mapping(num_block: int) -> Iterator[Entry]:
+    for name in ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        yield from _conv(name, name)
+    for i in range(num_block):
+        for r in (1, 2, 3):
+            for c in range(1, 6):
+                yield from _conv(f"body.{i}.rdb{r}.conv{c}", f"body_{i}/rdb{r}/conv{c}")
+
+
 def _get(tree: dict, path: str):
     node = tree
     for part in path.split("/"):
@@ -234,3 +244,7 @@ def vae_state_dict(params: dict, block_out_channels=(128, 256, 512, 512)) -> dic
 
 def clip_text_state_dict(params: dict, cfg: CLIPTextConfig) -> dict[str, torch.Tensor]:
     return _state_dict(params, clip_text_mapping(cfg.num_layers))
+
+
+def rrdbnet_state_dict(params: dict, num_block: int) -> dict[str, torch.Tensor]:
+    return _state_dict(params, rrdbnet_mapping(num_block))

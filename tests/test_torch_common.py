@@ -18,10 +18,13 @@ from controlanimate_tpu.models.clip import CLIPTextConfig as JaxCLIPConfig
 from controlanimate_tpu.models.clip import CLIPTextModel as JaxCLIP
 from controlanimate_tpu.models.unet3d import UNet3DConditionModel as JaxUNet
 from controlanimate_tpu.models.unet3d import UNet3DConfig as JaxUNetConfig
+from controlanimate_tpu.models.upscaler import RRDBNet as JaxRRDBNet
+from controlanimate_tpu.models.upscaler import Upscaler as JaxUpscaler
 from controlanimate_tpu.models.vae import AutoencoderKL as JaxVAE
 from controlanimate_tpu_torch.config import MotionModuleConfig
 from controlanimate_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from controlanimate_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+from controlanimate_tpu_torch.models.upscaler import RRDBNet, Upscaler
 from controlanimate_tpu_torch.models.vae import AutoencoderKL
 from controlanimate_tpu_torch.weights import from_jax
 
@@ -141,6 +144,42 @@ def test_full_width_unet_mapping_matches_port_keys():
     keys = [t for t, _, _ in from_jax.unet_mapping(cfg)]
     assert len(keys) == len(set(keys))
     assert set(keys) == set(sd)
+
+
+def test_rrdbnet_mapping_is_the_port_state_dict():
+    keys = [t for t, _, _ in from_jax.rrdbnet_mapping(2)]
+    assert len(keys) == len(set(keys))
+    assert set(keys) == set(RRDBNet(num_feat=16, num_block=2).state_dict())
+
+
+def seeded_rrdbnet(num_feat: int = 16, num_block: int = 1, seed: int = 0) -> RRDBNet:
+    """A port RRDBNet with seeded weights whose uint8 output is rarely
+    clipped: lecun-normal conv weights, biases N(0, 0.05^2), and conv_last's
+    bias 0.5 (outputs about 0.4 +- 0.1 on smooth frames)."""
+    net = RRDBNet(num_feat=num_feat, num_block=num_block)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            std = 1.0 / np.sqrt(p[0].numel()) if p.ndim == 4 else 0.05
+            p.copy_(torch.randn(p.shape, generator=g) * std)
+        net.conv_last.bias.fill_(0.5)
+    return net.eval()
+
+
+def upscaler_pair(path, scale: float = 4.0, num_feat: int = 16, num_block: int = 1,
+                  seed: int = 0):
+    """(JAX Upscaler, port Upscaler) on the same seeded weights, fp32 on the
+    CPU. The weights go through a basicsr-layout checkpoint written to
+    `path` with torch.save, which the JAX Upscaler reads; it builds a
+    64-feature RRDBNet, so at another width it is given the network its
+    weights are for. The port's Upscaler takes the network itself."""
+    net = seeded_rrdbnet(num_feat, num_block, seed)
+    torch.save({"params_ema": net.state_dict()}, path)
+    jup = JaxUpscaler(scale, model_path=str(path), num_block=num_block)
+    if num_feat != 64:
+        jup.model = JaxRRDBNet(num_feat=num_feat, num_block=num_block, form=jup.model.form,
+                               dtype=jup.model.dtype)
+    return jup, Upscaler(scale, model=net, dtype=torch.float32, device="cpu")
 
 
 class JaxDraws:

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: K1, K2 and K3 against their plain versions, and a
+"""The port on a CUDA card: K1, K2, K3 and K4 against their plain versions, a
 small pipeline on the card against the same pipeline on the CPU (without
-the optional kernels, with K2, and with K3).
+the optional kernels, with K2, and with K3), and a small RealESRGAN upscaler
+(its x4 tail on K4) on the card against the CPU.
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -14,6 +15,7 @@ import torch
 
 from controlanimate_tpu_torch.ops import conv_kernel as ck
 from controlanimate_tpu_torch.ops import motion_kernel as mk
+from controlanimate_tpu_torch.ops import upconv_kernel as uk
 from controlanimate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
 pytestmark = pytest.mark.gpu
@@ -174,3 +176,74 @@ def test_small_pipeline_with_motion_kernel_card_matches_cpu(cuda):
     ref = chip_smoke.small_reference(torch, motion_kernel=True)
     assert ref["max_lsb"] <= 1, ref
     assert mk.motion_module_fused.launches > 0
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 64, 64, 64, 64), (2, 40, 48, 64, 64),  # the tail's widths
+    (2, 9, 37, 64, 64), (1, 1, 16, 64, 64), (1, 13, 21, 32, 32), (3, 8, 17, 32, 64),  # ragged
+])
+@pytest.mark.parametrize("upsample", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upconv_kernel_matches_plain(cuda, shape, upsample, dtype):
+    """The gates of `chip_smoke.k4_mismatch` (fp32 at 1e-4 with TF32 off,
+    bf16 within one output ulp and the rms) in both modes; H and W off the
+    8 x 16 tile; one launch a call, counted under its shape."""
+    import chip_smoke
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    before = uk.upconv3x3.launches
+    key = tuple(shape) + (upsample,)
+    before_shape = uk.upconv3x3.launches_by_shape[key]
+    chip_smoke.check_k4(torch, uk, shape, upsample, dtype, g)
+    torch.cuda.synchronize()
+    assert uk.upconv3x3.launches == before + 1
+    assert uk.upconv3x3.launches_by_shape[key] == before_shape + 1
+
+
+def test_upconv_kernel_reads_strided_inputs(cuda):
+    """A crop of a larger NHWC tensor (batch, row and column strides of the
+    parent) is read in place, without a copy, and agrees with the plain
+    version on the same values."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    parent = torch.randn((2, 20, 40, 64), generator=g, device=cuda)
+    x = parent[:, 3:14, 5:30]
+    w = torch.randn((3, 3, 64, 64), generator=g, device=cuda) / 24.0
+    b = torch.randn((64,), generator=g, device=cuda)
+    for upsample in (True, False):
+        torch.testing.assert_close(uk.upconv3x3(x, w, b, upsample=upsample, act="lrelu"),
+                                   uk.upconv3x3_plain(x.contiguous(), w, b, upsample=upsample,
+                                                      act="lrelu"),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_upconv_kernel_cpu_tensor_takes_the_plain_version(cuda):
+    uk.reset_launch_counts()
+    x, w, b = torch.randn(1, 8, 8, 64), torch.randn(3, 3, 64, 64), torch.randn(64)
+    out = uk.upsample2x_conv3x3_lrelu(x, w, b, "lrelu")
+    assert out.device.type == "cpu" and uk.upconv3x3.launches == 0
+    torch.testing.assert_close(out, uk.upconv3x3_plain(x, w, b, upsample=True, act="lrelu"))
+
+
+def test_upconv_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 8, 16, device=cuda)  # Ci not a multiple of 32
+    with pytest.raises(ValueError, match="not supported"):
+        uk.conv3x3_lrelu(x, torch.zeros(3, 3, 16, 64, device=cuda), torch.zeros(64, device=cuda))
+    x = torch.zeros(1, 8, 8, 64, device=cuda)  # Co not a multiple of 32
+    with pytest.raises(ValueError, match="not supported"):
+        uk.upsample2x_conv3x3_lrelu(x, torch.zeros(3, 3, 64, 48, device=cuda),
+                                    torch.zeros(48, device=cuda))
+    with pytest.raises(TypeError):
+        uk.conv3x3_lrelu(x.half(), torch.zeros(3, 3, 64, 64, device=cuda),
+                         torch.zeros(64, device=cuda))
+
+
+@pytest.mark.parametrize("scale", [4.0, 2.0])
+def test_small_upscaler_card_matches_cpu(cuda, scale):
+    import chip_smoke
+
+    uk.reset_launch_counts()
+    ref = chip_smoke.small_upscaler_reference(torch, scale)
+    assert ref["max_lsb"] <= 1, ref
+    assert uk.upconv3x3.launches == 3

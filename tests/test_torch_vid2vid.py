@@ -3,9 +3,11 @@
 Both loops are fed the same deterministic stub pipeline (a window's frames
 are a numpy function of its input frames, the previous outputs and the
 epoch), so any difference comes from the loop and the stitch: frame reads,
-overlap bookkeeping, color match, blend, emit order, checkpoint and resume.
-Gate: summaries, progress reports and the stub's calls equal; sink frames
-within the uint8 color match's gate (`assert_frames_close`). Then one run of the tiny real pipelines (the same
+overlap bookkeeping, color match, blend, emit order, checkpoint and resume,
+and with `upscale` the emit through each package's RealESRGAN `Upscaler` on
+the same weights. Gate: summaries, progress reports and the stub's calls
+equal; sink frames within the uint8 color match's gate
+(`assert_frames_close`). Then one run of the tiny real pipelines (the same
 weights through `weights/from_jax.py`, the same JAX noise) and the
 configuration checks: every sample YAML's `extras` equal to the JAX
 package's, and NotImplementedError for each setting the port lacks."""
@@ -28,10 +30,12 @@ from controlanimate_tpu_torch import vid2vid as tv2v
 from controlanimate_tpu_torch.config import RunConfig, require_ported
 from controlanimate_tpu_torch.io import media as tmedia
 from controlanimate_tpu_torch.models.tokenizer import CLIPTokenizer
+from controlanimate_tpu_torch.models.upscaler import Upscaler
 from controlanimate_tpu_torch.pipelines import engine as tengine
 from controlanimate_tpu_torch.pipelines import facade as tfacade
 from scripts.vid2vid import vid2vid as jax_vid2vid
-from test_torch_common import JaxDraws, clip_pair, unet_pair, vae_pair
+from test_torch_common import (JaxDraws, clip_pair, seeded_rrdbnet, unet_pair, upscaler_pair,
+                               vae_pair)
 
 SIZE = 64
 
@@ -88,27 +92,32 @@ BASE = dict(width=SIZE, height=SIZE, frame_count=16, overlap_length=8, seed=7, s
             overlap_strength=0.8, ffmpeg_path="ffmpeg-absent-here")
 
 
-def _run_one(cfg, loop, media, frames, max_windows=None, should_stop=None, sink=True):
+def _run_one(cfg, loop, media, frames, max_windows=None, should_stop=None, sink=True,
+             upscaler=None, pix_fmt="rgb24"):
     stub = StubPipeline(cfg.frame_count)
-    out_sink = media.ArrayFrameSink() if sink else None
+    out_sink = None
+    if sink:
+        out_sink = media.ArrayFrameSink()
+        out_sink.pix_fmt = pix_fmt  # what an ffmpeg sink takes, read by both loops
     progress = []
     summary = loop(
         config=cfg, pipeline=stub,
         frame_source=None if frames is None else media.ArrayFrameSource(frames),
-        frame_sink=out_sink, max_windows=max_windows,
+        frame_sink=out_sink, upscaler=upscaler, max_windows=max_windows,
         progress=progress.append,
         should_stop=None if should_stop is None else should_stop(progress),
     )
     return summary, (out_sink.frames if sink else None), progress, stub.calls
 
 
-def _pair(tmp_path, frames, run_kw=None, **cfg_kw):
+def _pair(tmp_path, frames, run_kw=None, upscalers=(None, None), **cfg_kw):
     """The same run through both loops: returns (jax result, port result)."""
     out = []
-    for name, cfg_cls, loop, media in (("jax", JaxRunConfig, jax_vid2vid, jmedia),
-                                       ("torch", RunConfig, tv2v.vid2vid, tmedia)):
+    for (name, cfg_cls, loop, media), up in zip(
+            (("jax", JaxRunConfig, jax_vid2vid, jmedia),
+             ("torch", RunConfig, tv2v.vid2vid, tmedia)), upscalers):
         cfg = cfg_cls(**{**BASE, "output_video_dir": str(tmp_path / name), **cfg_kw})
-        out.append(_run_one(cfg, loop, media, frames, **(run_kw or {})))
+        out.append(_run_one(cfg, loop, media, frames, upscaler=up, **(run_kw or {})))
     return out
 
 
@@ -246,6 +255,115 @@ def test_trace_dir_records_a_profiler_trace(tmp_path):
     assert {"animate_window", "stitch", "emit"} <= set(summary["timers"])
 
 
+# -- the upscaler on the emit ----------------------------------------------------
+def _upscalers(tmp_path, scale):
+    """The JAX and the port Upscaler on the same seeded 16-feature weights."""
+    return upscaler_pair(tmp_path / "realesrgan.pth", scale=scale, seed=11)
+
+
+@pytest.mark.parametrize("scale", [4.0, 2.0])
+def test_upscaled_stream_matches_jax(tmp_path, scale):
+    """24 frames: one whole window, one overlap-8 window, then the tail
+    flush (the last 8 frames), every emit upscaled. At 4 the JAX loop
+    upscales on the device; at 2 it takes its host path (the x4 network,
+    then cv2's Lanczos4) and the port resizes on the device."""
+    j, t = _pair(tmp_path, _video(9, 24), upscalers=_upscalers(tmp_path, scale), upscale=scale)
+    _assert_same(j, t)
+    side = int(SIZE * scale)
+    assert len(t[1]) == 24 and all(f.shape == (side, side, 3) for f in t[1])
+    assert "upscale" in t[0]["timers"]
+
+
+def test_upscaled_tail_flush_matches_jax(tmp_path):
+    """An interrupted run without checkpoints flushes its tail overlap
+    through the upscaler too: 8 emitted + 8 flushed frames, all 256x256."""
+    j, t = _pair(tmp_path, _video(10, 40), run_kw=dict(max_windows=1),
+                 upscalers=_upscalers(tmp_path, 4.0), upscale=4.0, checkpoint_interval=0)
+    _assert_same(j, t)
+    assert t[0]["frames_written"] == 16 and all(f.shape == (256, 256, 3) for f in t[1])
+
+
+def test_yuv420p_sink_gets_upscaled_i420(tmp_path):
+    """A yuv420p sink at upscale 4: each emit is upscaled and packed to I420
+    on the device before its readback, the tail flush too, in both loops."""
+    j, t = _pair(tmp_path, _video(12, 24), run_kw=dict(pix_fmt="yuv420p"),
+                 upscalers=_upscalers(tmp_path, 4.0), upscale=4.0)
+    _assert_same(j, t)
+    assert len(t[1]) == 24 and all(f.shape == (256 * 256 * 3 // 2,) for f in t[1])
+
+
+def test_resume_with_upscale_matches_jax(tmp_path):
+    """Checkpoint and resume are unchanged by the upscaler: the state holds
+    window-size frames, and the two segments together upscale all 40."""
+    frames = _video(13, 40)
+    ups = _upscalers(tmp_path, 4.0)
+    first = _pair(tmp_path, frames, run_kw=dict(max_windows=2), upscalers=ups, upscale=4.0)
+    _assert_same(*first)
+    assert first[1][0]["frames_written"] == 16
+    z = np.load(tmp_path / "torch" / tv2v.STATE_FILE)
+    assert z["overlap_frames"].shape == (8, SIZE, SIZE, 3)
+    second = _pair(tmp_path, frames, upscalers=ups, upscale=4.0, resume=True)
+    _assert_same(*second)
+    assert len(first[1][1]) + len(second[1][1]) == 40
+    assert all(f.shape == (256, 256, 3) for f in first[1][1] + second[1][1])
+
+
+@pytest.mark.parametrize("scale,pix_fmt", [(1.0, "yuv420p"), (4.0, "yuv420p"), (2.0, "rgb24")])
+def test_ffmpeg_sink_opens_at_the_upscaled_size(tmp_path, monkeypatch, scale, pix_fmt):
+    """Where ffmpeg exists the loop opens its sink at int(W * scale) x
+    int(H * scale), yuv420p only at scale 1 or 4 (the JAX loop's rule), and
+    writes frames of that size in that format."""
+    opened = []
+
+    class RecordingSink(tmedia.ArrayFrameSink):
+        def __init__(self, path, width, height, fps, crf=23, ffmpeg_path="ffmpeg",
+                     pix_fmt="rgb24"):
+            super().__init__()
+            self.pix_fmt = pix_fmt
+            opened.append((width, height, pix_fmt, self))
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(tmedia, "ffmpeg_available", lambda path="ffmpeg": True)
+    monkeypatch.setattr(tmedia, "FFMPEGFrameSink", RecordingSink)
+    monkeypatch.setattr(tmedia, "video_to_high_fps", lambda *a, **k: None)
+    up = None if scale == 1.0 else Upscaler(scale, model=seeded_rrdbnet(), dtype=torch.float32,
+                                            device="cpu")
+    cfg = RunConfig(**{**BASE, "output_video_dir": str(tmp_path), "upscale": scale,
+                       "frame_count": 8, "overlap_length": 0})
+    tv2v.vid2vid(config=cfg, pipeline=StubPipeline(8),
+                 frame_source=tmedia.ArrayFrameSource(_video(14, 8)), upscaler=up)
+    (width, height, fmt, sink), = opened
+    side = int(SIZE * scale)
+    assert (width, height, fmt) == (side, side, pix_fmt)
+    size = side * side * 3 // 2 if fmt == "yuv420p" else side * side * 3
+    assert len(sink.frames) == 8 and all(f.size == size for f in sink.frames)
+
+
+def test_loop_builds_the_upscaler_from_its_weights_file(tmp_path):
+    """Without an `upscaler` the loop reads `upscaler_model_path` (the
+    six-block anime_6B geometry) in the run dtype; a missing file raises
+    FileNotFoundError (the JAX loop drops the upscaler and writes 64x64
+    frames into a sink opened at 256x256)."""
+    cfg = RunConfig(**{**BASE, "output_video_dir": str(tmp_path / "out"), "upscale": 4.0,
+                       "frame_count": 2, "overlap_length": 0, "dtype": "float32",
+                       "upscaler_model_path": str(tmp_path / "absent.pth")})
+    frames = _video(15, 2)
+    with pytest.raises(FileNotFoundError, match="RealESRGAN"):
+        tv2v.vid2vid(config=cfg, pipeline=StubPipeline(2),
+                     frame_source=tmedia.ArrayFrameSource(frames), frame_sink=tmedia.ArrayFrameSink())
+    net = seeded_rrdbnet(num_feat=64, num_block=6, seed=16)
+    torch.save({"params_ema": net.state_dict()}, tmp_path / "x4.pth")
+    sink = tmedia.ArrayFrameSink()
+    tv2v.vid2vid(config=cfg.replace(upscaler_model_path=str(tmp_path / "x4.pth")),
+                 pipeline=StubPipeline(2), frame_source=tmedia.ArrayFrameSource(frames),
+                 frame_sink=sink)
+    window = StubPipeline(2)._window(frames, None, 0, cfg.strength, cfg.seed, 0)
+    want = Upscaler(4.0, model=net, dtype=torch.float32, device="cpu").upscale_batch(window)
+    np.testing.assert_array_equal(np.stack(sink.frames), want)
+
+
 def test_tiny_real_pipeline_matches_jax(tmp_path):
     """The port's facade and loop against the JAX ones on the same tiny
     models and JAX noise: 8 frames, 3 windows (4 frames, overlap 2), LCM,
@@ -298,13 +416,26 @@ def test_yaml_extras_match_jax(path):
         assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
 
 
+def test_probe_video_asks_ffprobe(tmp_path):
+    """Videos are probed with the ffprobe beside `ffmpeg_path` (the port
+    does not import OpenCV, which the JAX package probes with)."""
+    fake = tmp_path / "ffprobe"
+    fake.write_text("#!/bin/sh\necho '{\"streams\": [{\"width\": 640, \"height\": 360, "
+                    "\"r_frame_rate\": \"30000/1001\", \"nb_frames\": \"90\"}]}'\n")
+    fake.chmod(0o755)
+    fps, n, w, h = tmedia.probe_video("clip.mp4", str(tmp_path / "ffmpeg"))
+    assert (n, w, h) == (90, 640, 360) and abs(fps - 30000 / 1001) < 1e-9
+    with pytest.raises(RuntimeError, match="ffprobe"):
+        tmedia.probe_video("clip.mp4", str(tmp_path / "absent" / "ffmpeg"))
+
+
 def test_unknown_keys_land_in_extras():
     cfg = RunConfig.from_dict({"width": "320", "use_pallas_conv": "1", "no_such_key": 3})
     assert cfg.width == 320 and cfg.use_pallas_conv is True and cfg.extras == {"no_such_key": 3}
 
 
 UNPORTED = {
-    "upscale": 2.0, "use_face_enhancer": True, "parallel_segments": 4, "mesh_shape": (4, 2),
+    "use_face_enhancer": True, "parallel_segments": 4, "mesh_shape": (4, 2),
     "use_ipadapter": True, "do_initial_generation": True,
     "controlnets": ("lllyasviel/sd-controlnet-canny",), "loop_back_frames": True,
 }
@@ -331,10 +462,3 @@ def test_textual_inversion_raises_only_for_a_disk_build():
     with pytest.raises(NotImplementedError, match="textual_inversion_paths"):
         require_ported(cfg, disk_build=True)
     require_ported(cfg.replace(textual_inversion_paths=()), disk_build=True)
-
-
-def test_loop_rejects_an_upscaler(tmp_path):
-    with pytest.raises(NotImplementedError, match="upscal"):
-        tv2v.vid2vid(config=RunConfig(**{**BASE, "output_video_dir": str(tmp_path)}),
-                     pipeline=StubPipeline(16), frame_sink=tmedia.ArrayFrameSink(),
-                     upscaler=object())
