@@ -5,11 +5,15 @@
 
 Phases, each printed as one JSON line with its seconds:
   device     the card's name, count and power limit; no card is an error.
-  build      one nvcc call builds the CUDA kernels (K1 flash attention, K2
-             fused GroupNorm -> SiLU -> conv3x3, K3 fused motion module, K4
-             nearest-2x + conv3x3 + leaky ReLU); prints its time and nvcc's
-             register / spill report, K2's, K3's and K4's each on a line of
-             its own.
+  build      nvcc builds the CUDA kernels (K1 flash attention, K2 fused
+             GroupNorm -> SiLU -> conv3x3, K3 fused motion module, K4
+             nearest-2x + conv3x3 + leaky ReLU), one compile a source, all
+             in parallel, then one link; prints its time and nvcc's register
+             / spill report, K1's, K2's, K3's and K4's each on a line of its
+             own. K1's line adds the dynamic shared memory of each bf16
+             plan and the tensor-core (HMMA) instructions that `cuobjdump
+             -sass` finds in each K1 kernel: every bf16 K1 kernel must have
+             some.
   reference  a small pipeline (head dims 40/80/512, fp32) on the card against
              the same pipeline on the CPU with the same weights and noise:
              uint8 frames within 1 LSB; then the same with
@@ -31,6 +35,12 @@ Phases, each printed as one JSON line with its seconds:
   window_plain_attention
              the overlap-8 windows again with the plain attention on the
              same inputs (time and uint8 difference reported, not gated).
+  profile    the first overlap-8 window again, under torch.profiler (the
+             card's activity only): the device's busy time (its kernels'
+             and copies' time summed; one stream, so they do not overlap),
+             its idle share of the window phase's mean overlap window, the
+             ten kernels with the most device time, and K1's share of the
+             busy time.
   window_motion_kernel
              the overlap-8 windows again on the same models and inputs, from
              a pipeline built with CONTROLANIMATE_PALLAS_MOTION=1, so that
@@ -67,7 +77,8 @@ Phases, each printed as one JSON line with its seconds:
              vid2vid_plain_conv phase's frames (reported, not gated).
   kernels    K1 against its plain version at every shape the window phase
              launched it with, plus odd lengths, in bf16 and fp32
-             (`k1_mismatch` states the gates); K2 against its plain version
+             (`k1_mismatch` states the gates), with its achieved TFLOP/s
+             and share of the bound in bf16; K2 against its plain version
              at every shape the vid2vid phase launched it with, plus odd
              H and W, each with and without the affine + SiLU + residual, in
              bf16 and fp32 (`k2_mismatch`). Then each kernel's time, its
@@ -152,6 +163,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sass_counts(library: Path, cuobjdump: Path, opcode: str) -> dict:
+    """Instructions of `opcode` in each kernel of the built library, from
+    `cuobjdump -sass`."""
+    out = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current is not None and re.search(rf"\b{opcode}\b", line):
+            counts[current] += 1
+    return counts
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Registers, spills and shared memory per compiled kernel from -Xptxas -v."""
     rows, current = [], None
@@ -205,8 +232,10 @@ def k1_mismatch(torch, out, ref) -> str | None:
     version). bf16: the JAX bf16 gate (atol = rtol = 3e-2), and also
     |out - ref| <= 1e-2 * (|ref| + rms(ref)), because outputs at the main
     path's lengths are about 0.03, so the first gate alone passes nearly
-    anything. Both sides round one fp32 value to bf16, so a right kernel
-    differs from the plain version by at most one bf16 ulp (< 2**-7 |ref|)."""
+    anything. Both sides round P to bf16 against the row's exact max and the
+    output once, so a right kernel differs from the plain version by the
+    summation order, an exp that rounds otherwise, and then one bf16 ulp
+    (< 2**-7 |ref|)."""
     bf16 = out.dtype == torch.bfloat16
     out, ref = out.float(), ref.float()
     if not bool(torch.isfinite(out).all()):
@@ -701,6 +730,45 @@ def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = Fals
     return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.float().mean())}
 
 
+def profile_window(torch, run, unprofiled_seconds: float) -> dict:
+    """One call of `run` (a window) under torch.profiler, recording the
+    card's activity only: the device activities' summed time (one stream, so
+    they do not overlap), the device's idle share of the same window run
+    without the profiler (`unprofiled_seconds`), the ten kernels with the
+    most device time and K1's share of the device time. The profiler's raw
+    event list is summed directly: its per-op tables (`key_averages`) take
+    seconds to build for a window's twenty thousand launches."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    device_ns, launches = Counter(), Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            device_ns[e.name()] += e.duration_ns()
+            launches[e.name()] += 1
+    busy_ns = sum(device_ns.values())
+    if busy_ns <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    k1_ns = sum(ns for name, ns in device_ns.items() if "attn_" in name)
+    return {
+        "profiled_window_seconds": round(seconds, 4),
+        "unprofiled_window_seconds": round(unprofiled_seconds, 4),
+        "device_busy_ms": busy_ns / 1e6,
+        "device_idle_share": 1.0 - busy_ns / 1e9 / unprofiled_seconds,
+        "device_activities": sum(launches.values()),
+        "k1_ms": k1_ns / 1e6, "k1_share_of_busy": k1_ns / busy_ns,
+        "top10": [{"kernel": name[:120], "ms": ns / 1e6, "count": launches[name]}
+                  for name, ns in device_ns.most_common(10)],
+    }
+
+
 @contextmanager
 def plain_attention(attention_module, plain):
     """Route the main path's K1 calls to the plain version (comparison only)."""
@@ -761,6 +829,15 @@ def main() -> int:
     ptxas = ptxas_report(lib.log)
     phase("build", t0, nvcc_seconds=round(lib.build_seconds, 3), library=lib.path.name,
           ptxas=ptxas)
+    hmma = sass_counts(lib.path, Path(_build._nvcc()).with_name("cuobjdump"), "HMMA")
+    k1_hmma = {name: n for name, n in hmma.items() if "attn_" in name}
+    print(json.dumps({"k1_ptxas": [r for r in ptxas if "attn_" in r["function"]],
+                      "k1_hmma": k1_hmma,
+                      "k1_bf16_dynamic_smem": {D: lib.lib.flash_attention_bf16_smem_bytes(D)
+                                               for D in fa.SUPPORTED_HEAD_DIMS}}), flush=True)
+    bf16_k1 = [name for name in k1_hmma if "attn_bf16" in name]
+    if not bf16_k1 or not all(k1_hmma[name] for name in bf16_k1):
+        raise AssertionError(f"bf16 K1 kernels without tensor-core instructions: {k1_hmma}")
     print(json.dumps({"k2_ptxas": [r for r in ptxas if "conv3x3" in r["function"]]}), flush=True)
     print(json.dumps({"k3_ptxas": [r for r in ptxas if "motion" in r["function"]]}), flush=True)
     print(json.dumps({"k4_ptxas": [r for r in ptxas if "upconv" in r["function"]]}), flush=True)
@@ -898,6 +975,14 @@ def main() -> int:
     phase("window_plain_attention", t0, overlap_windows_seconds=round(t_plain, 4),
           new_frames_per_second=round((frames_n - overlap) * WINDOWS / t_plain, 4),
           uint8_diff_mean=float(diff.float().mean()), uint8_diff_max=int(diff.max()))
+
+    t0 = time.perf_counter()
+    frames, last, epoch = stream[0]
+    pipe._overlap_latent_cache = cache_before
+    profile = profile_window(
+        torch, lambda: pipe.animate(frames, last, overlaps=overlap, seed=SEED, epoch=epoch),
+        t_stream / WINDOWS)
+    phase("profile", t0, **profile)
 
     # -- this slice's path: the overlap windows with the motion modules on K3
     t0 = time.perf_counter()
@@ -1128,6 +1213,8 @@ def main() -> int:
         row["ops_ms"], row["bytes_ms"] = attention_bound_ms(shape, 2)
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+        row["tflops"] = 4.0 * B * H * Nq * Nk * D / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         print(json.dumps({"k1": row}), flush=True)
         del q, k, v, qt, kt, vt

@@ -1,9 +1,10 @@
-"""Build the port's CUDA kernels with one nvcc call and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every `csrc/*.cu` source (K1 `flash_attention.cu`, K2 `conv3x3_fused.cu`,
 K3 `motion_module.cu`, K4 `upconv3x3.cu`) exports plain C functions and
-includes no PyTorch header, so one `nvcc -shared` call builds them all in
-seconds. The library lands in `build/torch_kernels/` at the root of the
+includes no PyTorch header. One `nvcc -c` a source, all started together,
+compiles them in parallel, and one `nvcc -shared` links the objects. The
+library lands in `build/torch_kernels/` at the root of the
 checkout (listed in `.gitignore`), named by a hash of the sources and flags,
 so an unchanged tree reuses it and a changed one rebuilds. A failed build
 raises with nvcc's output.
@@ -27,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -36,7 +37,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output (the -Xptxas -v resource report)
+    log: str  # nvcc's output (the -Xptxas -v resource report), source by source
 
 
 def _nvcc() -> str:
@@ -68,6 +69,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [p, p, p, p] + [i] * 17 + [ctypes.c_float, i, p]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_bf16_smem_bytes.argtypes = [i]
+    lib.flash_attention_bf16_smem_bytes.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     lib.conv3x3_fused_fwd.argtypes = [p] * 7 + [i] * 7 + [p]
@@ -95,14 +98,28 @@ def load_library() -> KernelLibrary:
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        objs = [out.with_name(f"{src.stem}.{os.getpid()}.o") for src in sources]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        steps = [(cmd, proc.communicate()[0], proc.returncode)
+                 for cmd, proc in zip(compiles, procs)]
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(rc == 0 for _, _, rc in steps):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            steps.append((link, proc.stdout + proc.stderr, proc.returncode))
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        log = "".join(text for _, text, _ in steps)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        failed = [(cmd, text, rc) for cmd, text, rc in steps if rc != 0]
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            cmd, text, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
         log_path.write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
     lib = ctypes.CDLL(str(out))

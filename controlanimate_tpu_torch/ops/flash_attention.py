@@ -3,17 +3,22 @@
 Replaces the TPU kernel `controlanimate_tpu/ops/flash_attention.py`
 (`flash_attention` -> `_attn_kernel`): softmax(Q K^T * scale) V with no mask,
 fp32 softmax and accumulation, over (B, N, H, D) tensors. The CUDA source is
-`csrc/flash_attention.cu`; `_build.py` compiles it with one nvcc call and loads
-it with ctypes.
+`csrc/flash_attention.cu`; `_build.py` compiles it with nvcc and loads it
+with ctypes.
 
 What bounds it on the H100: 4*B*H*Nq*Nk*D FLOPs (989 TFLOP/s in bf16) against
 (Nq + 2*Nk + Nq)*B*H*D elements moved (3.35 TB/s), so it is compute-bound at
-every shape of the UNet and the VAE. The kernel streams K/V tiles through
-shared memory and never writes the Nq x Nk logits, which is the whole point
-of the TPU kernel too. What the simple design leaves on the table: its
-products run as fp32 FMAs on the CUDA cores, not on the tensor cores
-(wgmma), and its loads are neither vectorised nor overlapped (TMA,
-cp.async pipelines); PERF.md records how far that leaves it from the bound.
+every shape of the UNet and the VAE. The bf16 kernels (the main path) run
+both products on the tensor cores (mma.sync, fp32 sums) in two passes over K:
+the first finds each row's exact max, the second rounds P to bf16 against it
+as the JAX kernel's one-pass branch and `flash_attention_plain` do, and
+multiplies it by V. At D <= 160 each warp keeps its scores and P in
+registers; at D = 512 D is split over the warps. K/V tiles come through a
+two-stage cp.async ring; the source's header note gives the plans. The
+16-byte copies need 16-byte-aligned base pointers and (B, N, H) strides,
+which `check_kernel_args` demands of bf16 inputs. The fp32 kernel does its
+products as FMAs on the CUDA cores: it serves the fp32 reference runs and
+their 1e-4 gates, which bf16 tensor cores cannot meet.
 
 On a CPU tensor the wrapper computes the plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. Each launch adds one to
@@ -33,14 +38,21 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None):
-    """The kernel's function in plain PyTorch: (q * scale) @ k^T, softmax in
-    fp32, @ v, all in fp32, cast back to the input dtype."""
+    """The kernel's function in plain PyTorch, rounded where the JAX kernel
+    rounds at every main-path shape (its one-pass branch,
+    `controlanimate_tpu/ops/flash_attention.py` `_attn_kernel`): logits
+    (q * scale) @ k^T and the softmax in fp32, P = exp(logits - row max) cast
+    to the input dtype before the P @ v product (summed in fp32), the result
+    divided by the fp32 row sum of the unrounded P and cast back to the input
+    dtype. In fp32 the cast is the identity."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf = q.float(), k.float(), v.float()
-    logits = torch.einsum("bqhd,bkhd->bhqk", qf * scale, kf)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+    p = torch.einsum("bqhd,bkhd->bhqk", qf * scale, kf)
+    p = p.sub_(p.amax(dim=-1, keepdim=True)).exp_()  # in place: the logits' storage
+    rowsum = p.sum(dim=-1).permute(0, 2, 1)[..., None]  # (B, Nq, H, 1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), vf)
+    return (out / rowsum).to(q.dtype)
 
 
 def _check_args(q, k, v) -> None:
@@ -62,7 +74,11 @@ def _check_args(q, k, v) -> None:
 
 def check_kernel_args(q, k, v) -> None:
     """What the CUDA kernel takes beyond `_check_args`: a supported head dim,
-    B*H within the grid, and CUDA tensors."""
+    B*H within the grid, CUDA tensors, and in bf16 16-byte alignment: the
+    bf16 kernels copy 16 bytes at a time (cp.async), so every base pointer
+    and every (B, N, H) stride of a dimension longer than one must be a
+    multiple of 16 bytes. A misaligned input raises, naming the tensor; no
+    copy is made and nothing falls back."""
     B, _, H, D = q.shape
     if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {D} not supported by the kernel {SUPPORTED_HEAD_DIMS}")
@@ -70,6 +86,15 @@ def check_kernel_args(q, k, v) -> None:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid (65535)")
     if max(t.numel() for t in (q, k, v)) >= 2**31:
         raise ValueError("tensors of 2**31 elements or more overflow the kernel's int strides")
+    for name, t in (("q", q), ("k", k), ("v", v)) if q.dtype == torch.bfloat16 else ():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s data pointer is not 16-byte aligned (the bf16 "
+                             "kernel's cp.async copies need it)")
+        for dim in range(3):
+            if t.shape[dim] > 1 and (t.stride(dim) * t.element_size()) % 16:
+                raise ValueError(f"{name}'s stride {t.stride(dim)} of dimension {dim} is not a "
+                                 "multiple of 16 bytes (the bf16 kernel's cp.async copies "
+                                 "need it)")
     if q.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {q.device}")
 

@@ -40,12 +40,17 @@ def _qkv(shape, device, dtype, nk=None, seed=0):
 
 @pytest.mark.parametrize("shape,nk", [((2, 256, 2, 40), None), ((2, 77, 2, 80), None),
                                       ((1, 100, 3, 160), None), ((1, 130, 1, 512), None),
-                                      ((2, 64, 2, 40), 200), ((1, 1, 1, 80), None)])
+                                      ((2, 64, 2, 40), 200), ((1, 1, 1, 80), None),
+                                      ((3, 129, 2, 40), 77), ((1, 200, 2, 80), 333),
+                                      ((2, 77, 2, 160), 300), ((1, 64, 1, 512), 129)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda, shape, nk, dtype):
     """The gates of `chip_smoke.k1_mismatch`: fp32 at 1e-4 (TF32 off in the
-    plain version), bf16 within the JAX bf16 gate and one bf16 ulp; query and
-    key lengths may differ and need not be tile multiples."""
+    plain version), bf16 within the JAX bf16 gate and 1e-2 (|ref| + rms);
+    query and key lengths may differ and need not be tile multiples. In bf16
+    every tile plan (D = 40, 80, 160, 512) runs with ragged Nq and Nk, with
+    Nq != Nk, and with more than two K/V tiles, so the two-stage ring wraps
+    (BK = 64, 64, 64 and 32 keys)."""
     import chip_smoke
 
     q, k, v = _qkv(shape, cuda, dtype, nk)
@@ -64,6 +69,21 @@ def test_kernel_reads_strided_inputs(cuda):
     q, k, v = qkv.unbind(2)
     torch.testing.assert_close(flash_attention(q, k, v), flash_attention_plain(q, k, v),
                                atol=1e-4, rtol=1e-4)
+
+
+def test_kernel_rejects_misaligned_bf16(cuda):
+    """The bf16 kernel copies 16 bytes at a time: a view whose data pointer
+    or head stride is not a multiple of 16 bytes raises, and launches
+    nothing."""
+    q, k, v = _qkv((1, 16, 2, 40), cuda, torch.bfloat16)
+    shifted = torch.zeros(1 + q.numel(), device=cuda, dtype=torch.bfloat16)[1:].view(q.shape)
+    sliced = torch.zeros(1, 16, 2, 44, device=cuda, dtype=torch.bfloat16)[..., :40]
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="q's data pointer"):
+        flash_attention(shifted, k, v)
+    with pytest.raises(ValueError, match="v's stride 44 of dimension 2"):
+        flash_attention(q, k, sliced)
+    assert flash_attention.launches == before
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
