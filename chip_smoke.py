@@ -13,7 +13,9 @@ Phases, each printed as one JSON line with its seconds:
              own. K1's line adds the dynamic shared memory of each bf16
              plan and the tensor-core (HMMA) instructions that `cuobjdump
              -sass` finds in each K1 kernel: every bf16 K1 kernel must have
-             some.
+             some. K2's line adds the HMMA and cp.async (LDGSTS)
+             instructions of each K2 kernel: every bf16 K2 kernel must have
+             both, and spill no registers.
   reference  a small pipeline (head dims 40/80/512, fp32) on the card against
              the same pipeline on the CPU with the same weights and noise:
              uint8 frames within 1 LSB; then the same with
@@ -62,7 +64,8 @@ Phases, each printed as one JSON line with its seconds:
              and peak memory.
   vid2vid_plain_conv
              the same loop with `use_pallas_conv` off (time and uint8
-             difference reported, not gated).
+             difference reported, not gated); then one line with both
+             phases' peak memory and their difference (reported).
   vid2vid_upscale
              this slice's path: the same loop (K2 off) with `upscale` 4 and
              a full-width RealESRGAN x4 RRDBNet (64 features, 6 blocks,
@@ -80,11 +83,14 @@ Phases, each printed as one JSON line with its seconds:
              (`k1_mismatch` states the gates), with its achieved TFLOP/s
              and share of the bound in bf16; K2 against its plain version
              at every shape the vid2vid phase launched it with, plus odd
-             H and W, each with and without the affine + SiLU + residual, in
-             bf16 and fp32 (`k2_mismatch`). Then each kernel's time, its
-             plain version's, one PyTorch call's (SDPA for K1, `F.conv2d` on
-             the activated input for K2: yardsticks the port never calls)
-             and the bound.
+             H, W and Cin, each with and without the affine + SiLU +
+             residual, in bf16 and fp32 (`k2_mismatch`), with K2's achieved
+             TFLOP/s and share of the bound in bf16, and the GroupNorm
+             fold's time and peak memory at the largest input it folds,
+             beside the same statistics taken from full fp32 copies. Then
+             each kernel's time, its plain version's, one PyTorch call's
+             (SDPA for K1, `F.conv2d` on the activated input for K2:
+             yardsticks the port never calls) and the bound.
   kernels_k3 K3 against its plain version at every shape the
              window_motion_kernel phase launched it with, plus odd shapes
              (N = 37, F = 8 and 24, PE off, C = 64), in bf16 and fp32
@@ -132,9 +138,11 @@ UNET_SHAPES = {
 }
 ODD_SHAPES = [(2, 77, 77, 8, 40), (3, 333, 333, 2, 80), (1, 129, 129, 8, 160),
               (2, 77, 77, 1, 512)]
-# odd K2 shapes (B, H, W, Cin, Cout): W not a multiple of the 16-pixel tile,
-# H = 7, and H = 1 with W = 16
-K2_ODD_SHAPES = [(2, 9, 37, 128, 128), (1, 7, 21, 256, 128), (2, 1, 16, 128, 256)]
+# odd K2 shapes (B, H, W, Cin, Cout): H and W not multiples of the 16 x 16
+# tile, H = 7, H = 1 with W = 16, and Cin = 80, whose last 32-channel chunk
+# is a short one of 16
+K2_ODD_SHAPES = [(2, 9, 37, 128, 128), (1, 7, 21, 256, 128), (2, 1, 16, 128, 256),
+                 (2, 23, 45, 80, 256)]
 # odd K3 shapes (B, F, N, C, heads, positional encoding): N not a multiple of
 # the 128-row tile, 8 and 24 frames, PE off, and C = 64 (head dim 8)
 K3_ODD_SHAPES = [(1, 16, 37, 320, 8, True), (1, 8, 64, 640, 8, True), (1, 24, 64, 320, 8, True),
@@ -163,19 +171,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_counts(library: Path, cuobjdump: Path, opcode: str) -> dict:
-    """Instructions of `opcode` in each kernel of the built library, from
-    `cuobjdump -sass`."""
+def sass_counts(library: Path, cuobjdump: Path, opcodes: tuple[str, ...]) -> dict:
+    """Instructions of each of `opcodes` in each kernel of the built library,
+    from one `cuobjdump -sass`: {opcode: {kernel: count}}."""
     out = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True, text=True,
                          check=True, timeout=300).stdout
-    counts, current = {}, None
+    counts, current = {op: {} for op in opcodes}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             current = m.group(1)
-            counts[current] = 0
-        elif current is not None and re.search(rf"\b{opcode}\b", line):
-            counts[current] += 1
+            for op in opcodes:
+                counts[op][current] = 0
+        elif current is not None:
+            for op in opcodes:
+                if re.search(rf"\b{op}\b", line):
+                    counts[op][current] += 1
     return counts
 
 
@@ -313,12 +324,21 @@ def k2_inputs(torch, shape, dtype, gen):
     return x, w, bias, (a, b), res
 
 
-def check_k2(torch, ck, shape, dtype, gen) -> float:
-    """K2 at (B, H, W, Cin, Cout) against its plain version, plain and with
-    affine + SiLU + residual; max abs error."""
+K2_CHECKED = ({}, {"affine": True, "act": "silu", "residual": True})
+
+
+def check_k2(torch, ck, shape, dtype, gen, variants=K2_CHECKED) -> float:
+    """K2 at (B, H, W, Cin, Cout) against its plain version, for each of
+    `variants` (the operands a call gets: by default none, then the affine
+    + SiLU + residual); max abs error."""
     x, w, bias, affine, res = k2_inputs(torch, shape, dtype, gen)
     err = 0.0
-    for kw in ({}, {"affine": affine, "act": "silu", "residual": res}):
+    for variant in variants:
+        kw = {"affine": affine} if variant.get("affine") else {}
+        if variant.get("act"):
+            kw["act"] = variant["act"]
+        if variant.get("residual"):
+            kw["residual"] = res
         out = ck.conv3x3_fused(x, w, bias, **kw)
         ref = ck.conv3x3_fused_plain(x, w, bias, **kw)
         bad = k2_mismatch(torch, out, ref)
@@ -326,6 +346,26 @@ def check_k2(torch, ck, shape, dtype, gen) -> float:
             raise AssertionError(f"K2 {shape} {dtype} {sorted(kw)}: {bad}")
         err = max(err, (out.float() - ref.float()).abs().max().item())
     return err
+
+
+def fold_cost(torch, fn, x) -> dict:
+    """Time of one GroupNorm fold of x and the memory it takes above x at
+    its peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(x)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    return {"ms": cuda_ms(torch, lambda: fn(x), 5), "extra_peak_bytes": extra}
+
+
+def fold_with_fp32_copies(x, groups: int = 32):
+    """E[x] and E[x^2] of each group as the fold took them before it read x
+    in place: from a full fp32 copy of x and a full squared copy (the
+    yardstick of the k2_fold line)."""
+    grouped = x.reshape(x.shape[0], -1, groups, x.shape[-1] // groups).float()
+    return grouped.mean(dim=(1, 3)), grouped.square().mean(dim=(1, 3))
 
 
 def motion_bound_ms(shape, itemsize: int) -> tuple[float, float]:
@@ -829,8 +869,8 @@ def main() -> int:
     ptxas = ptxas_report(lib.log)
     phase("build", t0, nvcc_seconds=round(lib.build_seconds, 3), library=lib.path.name,
           ptxas=ptxas)
-    hmma = sass_counts(lib.path, Path(_build._nvcc()).with_name("cuobjdump"), "HMMA")
-    k1_hmma = {name: n for name, n in hmma.items() if "attn_" in name}
+    sass = sass_counts(lib.path, Path(_build._nvcc()).with_name("cuobjdump"), ("HMMA", "LDGSTS"))
+    k1_hmma = {name: n for name, n in sass["HMMA"].items() if "attn_" in name}
     print(json.dumps({"k1_ptxas": [r for r in ptxas if "attn_" in r["function"]],
                       "k1_hmma": k1_hmma,
                       "k1_bf16_dynamic_smem": {D: lib.lib.flash_attention_bf16_smem_bytes(D)
@@ -838,7 +878,19 @@ def main() -> int:
     bf16_k1 = [name for name in k1_hmma if "attn_bf16" in name]
     if not bf16_k1 or not all(k1_hmma[name] for name in bf16_k1):
         raise AssertionError(f"bf16 K1 kernels without tensor-core instructions: {k1_hmma}")
-    print(json.dumps({"k2_ptxas": [r for r in ptxas if "conv3x3" in r["function"]]}), flush=True)
+    k2_ptxas = [r for r in ptxas if "conv3x3" in r["function"]]
+    k2_sass = {op: {name: n for name, n in sass[op].items() if "conv3x3" in name}
+               for op in ("HMMA", "LDGSTS")}
+    print(json.dumps({"k2_ptxas": k2_ptxas, "k2_hmma": k2_sass["HMMA"],
+                      "k2_ldgsts": k2_sass["LDGSTS"]}), flush=True)
+    bf16_k2 = [name for name in k2_sass["HMMA"] if "conv3x3_bf16" in name]
+    if not bf16_k2 or not all(k2_sass["HMMA"][n] and k2_sass["LDGSTS"][n] for n in bf16_k2):
+        raise AssertionError(f"bf16 K2 kernels without tensor-core (HMMA) or cp.async (LDGSTS) "
+                             f"instructions: {k2_sass}")
+    spilled = [r for r in k2_ptxas if "conv3x3_bf16" in r["function"]
+               and (r.get("spill_stores") or r.get("spill_loads"))]
+    if spilled:
+        raise AssertionError(f"bf16 K2 kernels spill registers: {spilled}")
     print(json.dumps({"k3_ptxas": [r for r in ptxas if "motion" in r["function"]]}), flush=True)
     print(json.dumps({"k4_ptxas": [r for r in ptxas if "upconv" in r["function"]]}), flush=True)
 
@@ -1120,6 +1172,8 @@ def main() -> int:
               summary_plain["frames_written"] / plain_seconds, 4),
           uint8_diff_mean=float(diff.mean()), uint8_diff_max=int(diff.max()),
           max_memory_allocated=plain_peak, timers=summary_plain["timers"])
+    print(json.dumps({"peak_memory": {"vid2vid": v2v_peak, "vid2vid_plain_conv": plain_peak,
+                                      "difference": v2v_peak - plain_peak}}), flush=True)
     del diff, raw, matched
 
     # -- this slice's path: the loop with the x4 upscaler, its tail on K4 ---
@@ -1261,6 +1315,8 @@ def main() -> int:
             row["ops_ms"], row["bytes_ms"] = conv_bound_ms(shape, 2, has_res)
             row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
             row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+            row["tflops"] = 2.0 * 9 * B * H * W * Cin * Cout / row["ms"] / 1e9
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
             k2_rows.append(row)
             print(json.dumps({"k2": row}), flush=True)
             del z
@@ -1274,6 +1330,16 @@ def main() -> int:
         return {key: sum(n * k2_by_row[k][key] for k, n in weights.items())
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
+    # the GroupNorm fold before K2, at the largest input the path folds
+    B, H, W, Cin = max((key[:4] for key in k2_by_shape if key[5]), key=math.prod)
+    x = torch.randn((B, H, W, Cin), generator=gen, device="cuda").bfloat16()
+    ones, zeros = torch.ones(Cin, device="cuda"), torch.zeros(Cin, device="cuda")
+    print(json.dumps({"k2_fold": {
+        "shape": [B, H, W, Cin],
+        "fold": fold_cost(torch, lambda t: ck.groupnorm_fold(t, ones, zeros, 32, 1e-6), x),
+        "fp32_copies": fold_cost(torch, fold_with_fp32_copies, x)}}), flush=True)
+    del x
+    torch.cuda.empty_cache()
     phase("kernels_k2", t0, shapes=len(k2_rows), per_full_window=k2_window_sums(1, 0),
           per_overlap_window=k2_window_sums(0, 1))
 

@@ -3,20 +3,24 @@
 Replaces the TPU kernel `controlanimate_tpu/ops/conv_kernel.py`
 (`conv3x3_fused` -> `_conv_kernel`): y = conv3x3(act(x * a + b)) + bias
 [+ residual] on channels-last tensors, zero padding after the activation.
-The CUDA source is `csrc/conv3x3_fused.cu`; `_build.py` compiles it with K1
-in one nvcc call and loads it with ctypes.
+The CUDA source is `csrc/conv3x3_fused.cu`; `_build.py` compiles it beside
+the other kernels and loads it with ctypes.
 
 What bounds it on the H100: 2*9*B*H*W*Cin*Cout FLOPs (989 TFLOP/s in bf16)
 against (B*H*W*(Cin + Cout [+ Cout]) + 9*Cin*Cout) elements moved (3.35 TB/s):
 compute-bound at every conv of the SD VAE. The kernel is an implicit GEMM
 with the normalisation and activation applied while the input patch is
 staged, so the activated tensor never reaches device memory (the point of the
-TPU kernel too); in bf16 the products run on the tensor cores (mma.sync),
-in fp32 as FMAs on the CUDA cores.
+TPU kernel too). In bf16 the products run on the tensor cores (mma.sync fed
+by ldmatrix) over 16 x 16 pixel tiles, with the next 32-channel chunk's
+weights and input landing by cp.async while the current one is multiplied;
+in fp32 they are FMAs on the CUDA cores.
 
 Weights come in HWIO (3, 3, Cin, Cout), the JAX tree's layout; the wrapper
 re-lays them on every call to (9, Cout, Cin) in the input dtype, the layout
-the kernel stages (a small copy beside the conv, not cached).
+the kernel stages (a small copy beside the conv, not cached). The GroupNorm
+before a conv is folded into (a, b) by `groupnorm_fold`, in plain PyTorch, as
+the JAX fold is plain XLA outside its kernel.
 
 On a CPU tensor the wrapper computes the plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. Each launch adds one to
@@ -32,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-CIN_MULTIPLE = 16  # input channels staged per step
+CIN_MULTIPLE = 16  # one mma k16 step; a chunk of 32 may end on a short one
 COUT_MULTIPLE = 128  # output channels per block
 
 
@@ -47,12 +51,19 @@ def supported(H: int, W: int, Cin: int, Cout: int) -> bool:
 def groupnorm_fold(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
     """Fold GroupNorm's statistics into per-(batch, channel) (a, b), so that
     x * a + b is the normalised x: fp32 statistics, var = E[x^2] - E[x]^2
-    clamped at 0, rsqrt(var + eps), (a, b) cast to x's dtype. x: (B, ..., C)."""
+    clamped at 0, rsqrt(var + eps), (a, b) cast to x's dtype. x: (B, ..., C).
+
+    No fp32 or squared copy of x is made on CUDA: E[x] is a sum and E[x^2]
+    the squared 2-norm of each group, both reductions reading x as it is and
+    accumulating in fp32 (as the JAX fold's means with dtype=float32 do
+    inside XLA's fused reductions). The norm's square root and its square
+    add one fp32 rounding to E[x^2]."""
     B, C = x.shape[0], x.shape[-1]
     G = num_groups
-    grouped = x.reshape(B, -1, G, C // G).float()
-    mean = grouped.mean(dim=(1, 3))  # (B, G)
-    mean2 = grouped.square().mean(dim=(1, 3))
+    grouped = x.reshape(B, -1, G, C // G)
+    count = grouped.shape[1] * grouped.shape[3]
+    mean = torch.sum(grouped, dim=(1, 3), dtype=torch.float32) / count  # (B, G)
+    mean2 = torch.linalg.vector_norm(grouped, dim=(1, 3), dtype=torch.float32).square() / count
     var = torch.clamp(mean2 - mean.square(), min=0.0)
     inv = torch.rsqrt(var + eps)
     scale_g = scale.reshape(G, C // G).float()
@@ -159,8 +170,8 @@ def conv3x3_fused(x, weight, bias, affine=None, act=None, residual=None):
     if residual is not None:
         res = residual.contiguous()
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
-    if any(t.data_ptr() % 16 for t in (x, w, res, out) if t is not None):
-        raise ValueError("the kernel reads x, weights and residual in 16-byte vectors: "
+    if any(t.data_ptr() % 16 for t in (x, w, a, b, res, out) if t is not None):
+        raise ValueError("the kernel reads x, weights, affine and residual in 16-byte vectors: "
                          "their data must be 16-byte aligned")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

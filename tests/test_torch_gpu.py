@@ -105,20 +105,27 @@ def test_small_pipeline_card_matches_cpu(cuda):
 @pytest.mark.parametrize("shape", [
     (2, 64, 64, 128, 128), (2, 32, 32, 256, 512), (1, 16, 16, 512, 256),  # VAE-like
     (2, 9, 37, 128, 128), (1, 7, 21, 256, 128), (2, 1, 16, 128, 256),  # ragged tiles
+    # H and W off the 16 x 16 tile with a short last 32-channel chunk (48, 80),
+    # or only one (16), at Cout = 256 and 512
+    (1, 20, 35, 48, 256), (1, 5, 9, 80, 512), (2, 23, 45, 80, 256), (1, 16, 16, 16, 128),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_kernel_matches_plain(cuda, shape, dtype):
     """The gates of `chip_smoke.k2_mismatch` (fp32 at 1e-4 with TF32 off,
-    bf16 within one output ulp and the rms), with and without the affine,
-    SiLU and residual; each call is one launch."""
+    bf16 within one output ulp and the rms), with neither, either or both of
+    the affine + SiLU and the residual, and the affine or the SiLU alone
+    (each a kernel of its own in bf16); each call is one launch."""
     import chip_smoke
 
+    variants = ({}, {"affine": True, "act": "silu"}, {"residual": True},
+                {"affine": True, "act": "silu", "residual": True}, {"affine": True},
+                {"act": "silu"})
     g = torch.Generator(device=cuda)
     g.manual_seed(1)
     before = ck.conv3x3_fused.launches
-    chip_smoke.check_k2(torch, ck, shape, dtype, g)
+    chip_smoke.check_k2(torch, ck, shape, dtype, g, variants)
     torch.cuda.synchronize()
-    assert ck.conv3x3_fused.launches == before + 2
+    assert ck.conv3x3_fused.launches == before + len(variants)
 
 
 def test_conv_kernel_rejects_what_it_does_not_take(cuda):
@@ -129,6 +136,23 @@ def test_conv_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         ck.conv3x3_fused(x, torch.zeros(3, 3, 16, 128, device=cuda, dtype=torch.float16),
                          torch.zeros(128, device=cuda))
+
+
+def test_conv_kernel_rejects_misaligned_bf16(cuda):
+    """The bf16 kernel copies x and reads the affine terms 16 bytes at a
+    time: a view one element into its storage raises, and launches nothing."""
+    x = torch.zeros(1, 8, 8, 16, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 16, 128, device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros(128, device=cuda)
+    shifted = torch.zeros(1 + x.numel(), device=cuda, dtype=torch.bfloat16)[1:].view(x.shape)
+    a = torch.ones(1, 16, device=cuda, dtype=torch.bfloat16)
+    a_shifted = torch.ones(17, device=cuda, dtype=torch.bfloat16)[1:].view(1, 16)
+    before = ck.conv3x3_fused.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck.conv3x3_fused(shifted, w, bias)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck.conv3x3_fused(x, w, bias, affine=(a_shifted, a), act="silu")
+    assert ck.conv3x3_fused.launches == before
 
 
 def test_small_pipeline_with_conv_kernel_card_matches_cpu(cuda):
