@@ -15,7 +15,10 @@ Phases, each printed as one JSON line with its seconds:
              -sass` finds in each K1 kernel: every bf16 K1 kernel must have
              some. K2's line adds the HMMA and cp.async (LDGSTS)
              instructions of each K2 kernel: every bf16 K2 kernel must have
-             both, and spill no registers.
+             both, and spill no registers. K3's line (`k3_ptxas`) adds the
+             HMMA, LDGSTS and LDSM (ldmatrix) instructions of each K3
+             kernel: every bf16 K3 GEMM kernel must have all three, and
+             spill no registers.
   reference  a small pipeline (head dims 40/80/512, fp32) on the card against
              the same pipeline on the CPU with the same weights and noise:
              uint8 frames within 1 LSB; then the same with
@@ -97,7 +100,15 @@ Phases, each printed as one JSON line with its seconds:
              (`k3_mismatch` states the gates); then K3's time, its plain
              version's, the port's dense `TemporalTransformer3D`'s in bf16
              (the stock PyTorch path K3 replaces, as the yardstick) and the
-             bound.
+             bound; and at each launched shape a `k3_stages` line: each of
+             the chain's fourteen launches timed by CUDA events, each GEMM's
+             TFLOP/s and each memory-bound pass's GB/s, the bytes the chain
+             moves through device memory and their time at 3.35 TB/s beside
+             the operation bound, and one PyTorch copy's GB/s; and there
+             K3's and the dense path's time on the card alone
+             (`device_ms`, `library_device_ms`: torch.profiler's summed
+             activity, without the waits for the host that the CUDA-event
+             times include).
   kernels_k4 K4 against its plain version at every shape vid2vid_upscale
              launched it with (bf16 as launched, fp32 at batch 1), plus odd
              shapes in both modes (H and W off the 8 x 16 tile, H = 1,
@@ -143,6 +154,11 @@ ODD_SHAPES = [(2, 77, 77, 8, 40), (3, 333, 333, 2, 80), (1, 129, 129, 8, 160),
 # is a short one of 16
 K2_ODD_SHAPES = [(2, 9, 37, 128, 128), (1, 7, 21, 256, 128), (2, 1, 16, 128, 256),
                  (2, 23, 45, 80, 256)]
+# K3 launches of one SD1.5 UNet forward on a 512x512, 16-frame window, by
+# (B, F, N, C, heads): the motion modules of the 64x64, 32x32, 16x16 and 8x8
+# levels (the window_motion_kernel phase holds them against the module tree)
+K3_SHAPES = {(1, 16, 4096, 320, 8): 5, (1, 16, 1024, 640, 8): 5, (1, 16, 256, 1280, 8): 5,
+             (1, 16, 64, 1280, 8): 6}
 # odd K3 shapes (B, F, N, C, heads, positional encoding): N not a multiple of
 # the 128-row tile, 8 and 24 frames, PE off, and C = 64 (head dim 8)
 K3_ODD_SHAPES = [(1, 16, 37, 320, 8, True), (1, 8, 64, 640, 8, True), (1, 24, 64, 320, 8, True),
@@ -407,6 +423,78 @@ def k3_mismatch(torch, out, ref) -> str | None:
     if excess > 0:
         return f"bf16 error exceeds 5e-2 * (|ref| + rms(ref) = {rms.item()}) by {excess}"
     return None
+
+
+K3_GEMMS = {"proj_in": (1, 1), "qkv": (3, 1), "out": (1, 1), "w1_geglu": (8, 1), "w2": (1, 4),
+            "proj_out": (1, 1)}  # (output columns, reduction depth) in units of C
+
+
+def k3_stage_work(shape, stage: str, itemsize: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch of K3's chain, by its name in
+    `mk.STAGES`, T = B*F*N tokens: a GEMM's 2 T K Nw FLOPs (W1's useful 8C
+    columns), and the bytes it moves through device memory (its A read, its
+    outputs written, the residual read, its weights read once); a
+    normalize pass reads h and writes z; the frame attention reads q|k (dtype)
+    and v (fp32) and writes its output (dtype), 4 T F C FLOPs."""
+    B, F, N, C = shape[:4]
+    T, s = B * F * N, itemsize
+    base = stage.rstrip("01")
+    if base.startswith("norm"):
+        return 0.0, 2.0 * T * C * s
+    if base == "attn":
+        return 4.0 * T * F * C, T * (3.0 * C * s + 4.0 * C)
+    nw, k = K3_GEMMS[base]
+    out = {"qkv": T * (2.0 * C * s + 4.0 * C), "w1_geglu": 4.0 * T * C * s}.get(base, T * C * s)
+    res = T * C * s if base in ("out", "w2") else 0.0
+    return 2.0 * T * nw * k * C * C, T * k * C * s + out + res + nw * k * C * C * s
+
+
+def k3_stage_split(torch, mk, shape, x, p, pe, packed, reps: int = 5) -> dict:
+    """Each launch of K3's chain at (B, F, N, C, heads, use_pe) in bf16 (CUDA
+    events, the mean of `reps` chains after one warm-up), each GEMM's TFLOP/s
+    and each memory-bound pass's GB/s; and the chain's bytes through device
+    memory (the sum of `k3_stage_work`'s bytes: h, z, q|k, v, attn and the
+    GEGLU output written and read back between launches) at 3.35 TB/s, beside
+    its operation bound; and the GB/s of one PyTorch copy of an (M, C) bf16
+    tensor, the yardstick of the memory-bound passes."""
+    heads = shape[4]
+    with torch.no_grad():
+        mk.motion_module_stage_ms(x, p, heads=heads, pe=pe, packed=packed, reps=1)
+        ms = mk.motion_module_stage_ms(x, p, heads=heads, pe=pe, packed=packed, reps=reps)
+        flat = x.reshape(-1, x.shape[-1])
+        copy_ms = cuda_ms(torch, flat.clone, reps)
+    rates, chain_bytes = {}, 0.0
+    for stage, t in ms.items():
+        flops, nbytes = k3_stage_work(shape, stage, 2)
+        chain_bytes += nbytes
+        if stage.rstrip("01") in K3_GEMMS:
+            rates[stage] = {"tflops": flops / t / 1e9}
+        else:
+            rates[stage] = {"gbps": nbytes / t / 1e6}
+    return {"shape": list(shape), "ms": ms, "total_ms": sum(ms.values()), "rates": rates,
+            "chain_bytes": chain_bytes, "chain_bytes_ms": 1e3 * chain_bytes / PEAK_BYTES,
+            "ops_ms": motion_bound_ms(shape, 2)[0],
+            "copy_gbps": 2 * flat.numel() * flat.element_size() / copy_ms / 1e6}
+
+
+def k3_build_report(ptxas: list[dict], sass: dict) -> None:
+    """Print K3's `k3_ptxas` line (registers, spills and shared memory of
+    each K3 kernel, and its HMMA, LDGSTS (cp.async) and LDSM (ldmatrix)
+    instructions); fail if a bf16 K3 GEMM kernel lacks any of the three or
+    spills registers."""
+    k3_sass = {op: {name: n for name, n in sass[op].items() if "motion" in name}
+               for op in ("HMMA", "LDGSTS", "LDSM")}
+    k3_ptxas = [r for r in ptxas if "motion" in r["function"]]
+    print(json.dumps({"k3_ptxas": k3_ptxas, "k3_hmma": k3_sass["HMMA"],
+                      "k3_ldgsts": k3_sass["LDGSTS"], "k3_ldsm": k3_sass["LDSM"]}), flush=True)
+    gemms = [name for name in k3_sass["HMMA"] if "motion_gemm_bf16" in name]
+    if not gemms or not all(k3_sass[op][n] for n in gemms for op in k3_sass):
+        raise AssertionError(f"bf16 K3 GEMM kernels without tensor-core (HMMA), cp.async "
+                             f"(LDGSTS) or ldmatrix (LDSM) instructions: {k3_sass}")
+    spilled = [r for r in k3_ptxas if "motion_gemm_bf16" in r["function"]
+               and (r.get("spill_stores") or r.get("spill_loads"))]
+    if spilled:
+        raise AssertionError(f"bf16 K3 GEMM kernels spill registers: {spilled}")
 
 
 def k3_module(torch, C: int, heads: int, use_pe: bool, gen):
@@ -770,6 +858,24 @@ def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = Fals
     return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.float().mean())}
 
 
+def device_activities(prof) -> tuple:
+    """The card's activities (kernels and copies) that `prof` (a finished
+    torch.profiler run) recorded, summed from its raw event list by name:
+    (ns by name, count by name). Raises when it recorded no device time."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    device_ns, launches = Counter(), Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            device_ns[e.name()] += e.duration_ns()
+            launches[e.name()] += 1
+    if sum(device_ns.values()) <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return device_ns, launches
+
+
 def profile_window(torch, run, unprofiled_seconds: float) -> dict:
     """One call of `run` (a window) under torch.profiler, recording the
     card's activity only: the device activities' summed time (one stream, so
@@ -778,9 +884,6 @@ def profile_window(torch, run, unprofiled_seconds: float) -> dict:
     most device time and K1's share of the device time. The profiler's raw
     event list is summed directly: its per-op tables (`key_averages`) take
     seconds to build for a window's twenty thousand launches."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -788,14 +891,8 @@ def profile_window(torch, run, unprofiled_seconds: float) -> dict:
         run()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    device_ns, launches = Counter(), Counter()
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
-            device_ns[e.name()] += e.duration_ns()
-            launches[e.name()] += 1
+    device_ns, launches = device_activities(prof)
     busy_ns = sum(device_ns.values())
-    if busy_ns <= 0:
-        raise AssertionError("the profiler recorded no device time")
     k1_ns = sum(ns for name, ns in device_ns.items() if "attn_" in name)
     return {
         "profiled_window_seconds": round(seconds, 4),
@@ -807,6 +904,23 @@ def profile_window(torch, run, unprofiled_seconds: float) -> dict:
         "top10": [{"kernel": name[:120], "ms": ns / 1e6, "count": launches[name]}
                   for name, ns in device_ns.most_common(10)],
     }
+
+
+def device_busy_ms(torch, fn, iters: int = 3) -> float:
+    """The card's summed activity time (kernels and copies; one stream, so
+    they do not overlap) of one call of `fn`, by torch.profiler over `iters`
+    calls after a warm-up: its time on the card without the waits for the
+    host that a CUDA-event time includes when the host launches slower than
+    the card runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_activities(prof)[0].values()) / 1e6 / iters
 
 
 @contextmanager
@@ -869,7 +983,8 @@ def main() -> int:
     ptxas = ptxas_report(lib.log)
     phase("build", t0, nvcc_seconds=round(lib.build_seconds, 3), library=lib.path.name,
           ptxas=ptxas)
-    sass = sass_counts(lib.path, Path(_build._nvcc()).with_name("cuobjdump"), ("HMMA", "LDGSTS"))
+    sass = sass_counts(lib.path, Path(_build._nvcc()).with_name("cuobjdump"),
+                       ("HMMA", "LDGSTS", "LDSM"))
     k1_hmma = {name: n for name, n in sass["HMMA"].items() if "attn_" in name}
     print(json.dumps({"k1_ptxas": [r for r in ptxas if "attn_" in r["function"]],
                       "k1_hmma": k1_hmma,
@@ -891,7 +1006,7 @@ def main() -> int:
                and (r.get("spill_stores") or r.get("spill_loads"))]
     if spilled:
         raise AssertionError(f"bf16 K2 kernels spill registers: {spilled}")
-    print(json.dumps({"k3_ptxas": [r for r in ptxas if "motion" in r["function"]]}), flush=True)
+    k3_build_report(ptxas, sass)
     print(json.dumps({"k4_ptxas": [r for r in ptxas if "upconv" in r["function"]]}), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1060,6 +1175,8 @@ def main() -> int:
     k3_expected = expected_k3_launches(models.unet, size // 8, frames_n, steps, WINDOWS)
     if k3_by_shape != k3_expected:
         raise AssertionError(f"K3 launches by shape {k3_by_shape}, expected {k3_expected}")
+    if {k: n // (steps * WINDOWS) for k, n in k3_expected.items()} != K3_SHAPES:
+        raise AssertionError(f"K3_SHAPES {K3_SHAPES} is not the UNet's {k3_expected}")
     if float(out_k3.float().std()) == 0.0:
         raise AssertionError("window output with K3 is constant")
     diff = (out.int() - out_k3.int()).abs()
@@ -1368,13 +1485,22 @@ def main() -> int:
         row["ops_ms"], row["bytes_ms"] = motion_bound_ms(shape, 2)
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+        if row["launches"]:
+            split = k3_stage_split(torch, mk, shape, x, p, pe, packed)
+            row["chain_bytes_ms"] = split["chain_bytes_ms"]
+            print(json.dumps({"k3_stages": split}), flush=True)
+            with torch.no_grad():
+                row["device_ms"] = device_busy_ms(torch, lambda: mk.motion_module_fused(
+                    x, p, heads=heads, pe=pe, packed=packed))
+                row["library_device_ms"] = device_busy_ms(torch, lambda: mod(x))
         k3_rows.append(row)
         print(json.dumps({"k3": row}), flush=True)
         del mod, x, p, pe, packed
         torch.cuda.empty_cache()
     k3_by_row = {tuple(r["shape"][:5]): r for r in k3_rows if r["shape"][5]}
     per_window = {key: sum(n * k3_by_row[k][key] for k, n in k3_by_shape.items()) / WINDOWS
-                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms", "chain_bytes_ms",
+                              "device_ms", "library_device_ms")}
     phase("kernels_k3", t0, shapes=len(k3_rows), per_window=per_window)
 
     # -- K4 at every shape the vid2vid_upscale phase launched it with ------

@@ -79,6 +79,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.conv3x3_fused_error_string.restype = ctypes.c_char_p
     lib.motion_module_fwd.argtypes = [ctypes.POINTER(p)] + [i] * 6 + [p]
     lib.motion_module_fwd.restype = i
+    lib.motion_module_fwd_timed.argtypes = ([ctypes.POINTER(p)] + [i] * 6
+                                            + [p, ctypes.POINTER(ctypes.c_float), i, i])
+    lib.motion_module_fwd_timed.restype = i
+    lib.motion_attention_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.motion_attention_plan.restype = i
     lib.motion_module_error_string.argtypes = [i]
     lib.motion_module_error_string.restype = ctypes.c_char_p
     ll = ctypes.c_longlong

@@ -15,14 +15,17 @@ and K2 in one nvcc call and loads it with ctypes.
 
 What bounds it on the H100: 44 C^2 + 8 F C FLOPs a token (989 TFLOP/s in
 bf16) against 2 C elements a token and the 22 C^2 weights moved (3.35 TB/s):
-compute-bound at every main-path shape, and the time is in the GEMMs, not in
-the 16 x 16 frame attention. The TPU kernel keeps all weights resident in
-VMEM; here they do not fit shared memory (4.5 MB at C = 320, 72 MB at
-C = 1280, against 227 KB), so the module is a chain of ten launches: one
-tiled GEMM kernel with fused prologues (GroupNorm affine; LayerNorm with the
-row statistics computed by the block, + the PE row) and epilogues (bias,
-residual, the q|k / v split, the GEGLU gate), and one frame-attention kernel.
-bf16 products run on the tensor cores (mma.sync), fp32 ones as FMAs.
+bound by its operations at every main-path shape, and the time is in the
+GEMMs, not in the 16 x 16 frame attention. The TPU kernel keeps all weights
+resident in VMEM; here they do not fit shared memory (4.5 MB at C = 320, 72
+MB at C = 1280, against 227 KB), so the module is a chain of fourteen
+launches (`STAGES`): a normalize pass before each GEMM that reads a
+normalized input (the folded GroupNorm affine; LayerNorm with its fp32 row
+statistics, + the PE row), seven GEMMs (bf16: mma.sync on a three-stage
+cp.async ring with ldmatrix fragments, 128 x 160 or 64 x 160 output tiles)
+with fused epilogues (bias, residual, the q|k / v split, the GEGLU gate), and
+two frame attentions (a block per run of consecutive positions, 16-byte
+copies). fp32 GEMMs run as FMAs.
 
 `p` is the flat parameter dict of the JAX caller
 (`controlanimate_tpu/models/motion_module.py` `MotionModule.__call__`), with
@@ -48,17 +51,19 @@ import torch
 import torch.nn.functional as F
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_FRAMES = 32  # one warp per softmax row in the frame attention
+MAX_FRAMES = 32
 CHANNEL_MULTIPLE = 8  # 16-byte rows
-GEGLU_GROUP = 64  # W1 value rows per group (then as many gate rows)
-_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
+GEGLU_GROUP = 80  # W1 value rows per group (then as many gate rows): half a GEMM column tile
 LN_EPS = 1e-5
 
 # the pointer table of `motion_module_fwd`, in the order of the C enum `Ptr`
 _WEIGHTS = ("win", "bin", "ls0", "lb0", "wqkv0", "wo0", "ob0", "ls1", "lb1", "wqkv1", "wo1",
             "ob1", "lsf", "lbf", "w1", "b1", "w2", "b2", "wout", "bout")
-_SCRATCH = ("h", "qk", "v", "attn", "gg", "out")
+_SCRATCH = ("h", "z", "qk", "v", "attn", "gg", "out")
 _PTR_ORDER = ("x", "gn_a", "gn_b", "pe") + _WEIGHTS + _SCRATCH
+# the chain's launches, in order (`kLaunches` of them in the source)
+STAGES = ("norm_gn", "proj_in", "norm0", "qkv0", "attn0", "out0", "norm1", "qkv1", "attn1",
+          "out1", "norm_ff", "w1_geglu", "w2", "proj_out")
 
 
 def _layernorm(h, scale, bias, eps: float = LN_EPS):
@@ -180,10 +185,25 @@ def _check_args(x, p, heads, pe) -> None:
         raise ValueError("all parameters must be on x's device")
 
 
+def attention_plan(frames: int, channels: int, heads: int, positions: int,
+                   itemsize: int) -> tuple[int, int, int] | None:
+    """The frame attention's plan as the CUDA source makes it
+    (`motion_attention_plan`): (heads a block, positions a block, shared
+    memory bytes), or None when one position does not fit shared memory.
+    Loads the kernels' library."""
+    from .._build import load_library
+
+    out = (ctypes.c_int * 3)()
+    if not load_library().lib.motion_attention_plan(frames, channels, heads, positions,
+                                                    itemsize, out):
+        return None
+    return tuple(out)
+
+
 def check_kernel_args(x, heads: int) -> None:
     """What the CUDA kernel takes beyond `_check_args`: a CUDA tensor, C a
-    multiple of 8, at most 32 frames, and one head's frame tile within shared
-    memory."""
+    multiple of 8, at most 32 frames, and one position of the frame attention
+    within shared memory."""
     B, F_, N, C = x.shape
     if x.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {x.device}")
@@ -191,18 +211,16 @@ def check_kernel_args(x, heads: int) -> None:
         raise ValueError(f"channels {C} not supported by the kernel (C % {CHANNEL_MULTIPLE})")
     if F_ > MAX_FRAMES:
         raise ValueError(f"{F_} frames not supported by the kernel (at most {MAX_FRAMES})")
-    D = C // heads
-    if 4 * (3 * F_ * (D + 1) + F_ * (F_ + 1)) > _SMEM_LIMIT:
-        raise ValueError(f"head dim {D} with {F_} frames does not fit shared memory")
+    if attention_plan(F_, C, heads, N, x.element_size()) is None:
+        raise ValueError(f"{C} channels in {heads} heads with {F_} frames do not fit shared memory")
 
 
-def motion_module_fused(x, p: dict, *, heads: int, pe=None, packed: dict | None = None):
-    """x: (B, F, N, C); p: the flat parameter dict (module docstring); pe:
-    (>= F, C) positional table or None; packed: `pack_weights(p, x.dtype)`,
-    made here when not given. Returns the delta, (B, F, N, C) in x's dtype."""
-    _check_args(x, p, heads, pe)
-    if x.device.type == "cpu":
-        return motion_module_plain(x, p, heads=heads, pe=pe)
+def _launch(x, p: dict, heads: int, pe, packed: dict | None, timed_reps: int = 0):
+    """Launch the chain on x's stream (x passed `_check_args`); returns (out,
+    stage ms or None). With `timed_reps`, the chain runs that many times with
+    a CUDA event after each launch (the stream is synchronized) and each
+    launch's mean ms comes back by name (`STAGES`). Each chain run counts as
+    one launch."""
     check_kernel_args(x, heads)
     from .._build import load_library
 
@@ -218,8 +236,9 @@ def motion_module_fused(x, p: dict, *, heads: int, pe=None, packed: dict | None 
     tensors["gn_b"] = p["gn_b"].to(dt).reshape(B * F_, C).contiguous()
     tensors["pe"] = (None if pe is None
                      else torch.as_tensor(pe, device=x.device)[:F_].to(dt).contiguous())
-    for key, width, dtype in (("h", C, dt), ("qk", 2 * C, dt), ("v", C, torch.float32),
-                              ("attn", C, dt), ("gg", 4 * C, dt), ("out", C, dt)):
+    for key, width, dtype in (("h", C, dt), ("z", C, dt), ("qk", 2 * C, dt),
+                              ("v", C, torch.float32), ("attn", C, dt), ("gg", 4 * C, dt),
+                              ("out", C, dt)):
         tensors[key] = torch.empty((M, width), dtype=dtype, device=x.device)
     for key in _PTR_ORDER:
         t = tensors[key]
@@ -231,15 +250,41 @@ def motion_module_fused(x, p: dict, *, heads: int, pe=None, packed: dict | None 
             raise ValueError(f"the kernel reads {key} in 16-byte vectors: it must be 16-byte aligned")
     ptrs = (ctypes.c_void_p * len(_PTR_ORDER))(
         *[None if tensors[k] is None else tensors[k].data_ptr() for k in _PTR_ORDER])
+    stage_ms = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.motion_module_fwd(ptrs, B, F_, N, C, heads, _DTYPE_CODES[dt], stream)
+        if timed_reps:
+            ms = (ctypes.c_float * len(STAGES))()
+            err = lib.motion_module_fwd_timed(ptrs, B, F_, N, C, heads, _DTYPE_CODES[dt], stream,
+                                              ms, len(STAGES), timed_reps)
+            stage_ms = dict(zip(STAGES, ms))
+        else:
+            err = lib.motion_module_fwd(ptrs, B, F_, N, C, heads, _DTYPE_CODES[dt], stream)
     if err != 0:
         msg = lib.motion_module_error_string(err).decode()
         raise RuntimeError(f"motion_module_fwd failed: {msg} ({err})")
-    motion_module_fused.launches += 1
-    motion_module_fused.launches_by_shape[(B, F_, N, C, heads)] += 1
-    return tensors["out"].reshape(B, F_, N, C)
+    chains = timed_reps or 1
+    motion_module_fused.launches += chains
+    motion_module_fused.launches_by_shape[(B, F_, N, C, heads)] += chains
+    return tensors["out"].reshape(B, F_, N, C), stage_ms
+
+
+def motion_module_fused(x, p: dict, *, heads: int, pe=None, packed: dict | None = None):
+    """x: (B, F, N, C); p: the flat parameter dict (module docstring); pe:
+    (>= F, C) positional table or None; packed: `pack_weights(p, x.dtype)`,
+    made here when not given. Returns the delta, (B, F, N, C) in x's dtype."""
+    _check_args(x, p, heads, pe)
+    if x.device.type == "cpu":
+        return motion_module_plain(x, p, heads=heads, pe=pe)
+    return _launch(x, p, heads, pe, packed)[0]
+
+
+def motion_module_stage_ms(x, p: dict, *, heads: int, pe=None, packed: dict | None = None,
+                           reps: int = 5) -> dict:
+    """Each launch's mean time in ms over `reps` runs of the chain on a CUDA
+    x, by CUDA events, keyed by `STAGES` (a measurement; synchronizes)."""
+    _check_args(x, p, heads, pe)
+    return _launch(x, p, heads, pe, packed, timed_reps=reps)[1]
 
 
 def reset_launch_counts() -> None:

@@ -168,11 +168,17 @@ def test_small_pipeline_with_conv_kernel_card_matches_cpu(cuda):
     (1, 4, 32, 64, 8, True), (1, 4, 32, 64, 8, False),  # the CPU parity tests' shape
     (2, 16, 37, 80, 2, True), (1, 8, 130, 160, 2, True),  # the small pipeline's widths
     (1, 24, 9, 320, 8, True), (1, 32, 5, 40, 1, False),  # 24 and 32 frames; one head of 40
+    # the main path's short grid: M = 1024 at C = 1280, whose C-wide GEMMs take
+    # 64-row tiles and the others 128-row tiles; and C = 320 with N = 37, a
+    # ragged last row tile and a partial last attention block
+    (1, 16, 64, 1280, 8, True), (1, 16, 37, 320, 8, True),
+    # head dim 12: 8-column attention tasks that span two heads, scalar logits
+    (1, 6, 9, 96, 8, True),
 ])
 def test_motion_kernel_matches_plain(cuda, shape):
     """The gates of `chip_smoke.k3_mismatch` (fp32 at 1e-4, bf16 within
-    5e-2 of |ref| + rms(ref)) at small and ragged shapes, fp32 and bf16; one
-    launch a call."""
+    5e-2 of |ref| + rms(ref)) at small, ragged and short-grid shapes, fp32
+    and bf16; one launch a call."""
     import chip_smoke
 
     g = torch.Generator(device=cuda)
@@ -201,6 +207,23 @@ def test_motion_kernel_never_takes_the_plain_version(cuda, monkeypatch):
     assert out.is_cuda and out.shape == x.shape and bool(torch.isfinite(out).all())
 
 
+def test_motion_kernel_stage_times(cuda):
+    """The timed chain returns one positive time per launch of `STAGES` and
+    counts each of its `reps` chains as a launch."""
+    import chip_smoke
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(6)
+    mod, x = chip_smoke.k3_inputs(torch, (1, 16, 37, 320, 8, True), g)
+    mod, x = mod.to(torch.bfloat16), x.bfloat16()
+    before = mk.motion_module_fused.launches
+    with torch.no_grad():
+        p, pe = mod.fused_operands(x)
+        ms = mk.motion_module_stage_ms(x, p, heads=8, pe=pe, reps=2)
+    assert list(ms) == list(mk.STAGES) and all(t > 0 for t in ms.values())
+    assert mk.motion_module_fused.launches == before + 2
+
+
 def test_motion_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="C % 8"):
         mk.check_kernel_args(torch.zeros(1, 4, 8, 36, device=cuda), 4)
@@ -211,6 +234,24 @@ def test_motion_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         mk.motion_module_fused(torch.zeros(1, 4, 8, 64, device=cuda, dtype=torch.float16), {},
                                heads=8)
+
+
+@pytest.mark.parametrize("shape", [
+    (16, 4096, 320, 8), (16, 1024, 640, 8), (16, 256, 1280, 8), (16, 64, 1280, 8),  # main path
+    (4, 37, 64, 8), (6, 9, 96, 8), (24, 9, 320, 8), (32, 5, 40, 1),
+])
+@pytest.mark.parametrize("item", [2, 4], ids=["bf16", "fp32"])
+def test_motion_attention_plan_fits(cuda, shape, item):
+    """The CUDA source's frame attention plan: a head group that divides the
+    heads in whole 8-column units, 1 to N positions a block, within shared
+    memory, and two blocks an SM at the main path's bf16 shapes."""
+    F_, N, C, heads = shape
+    hg, P, smem = mk.attention_plan(F_, C, heads, N, item)
+    assert heads % hg == 0 and hg * (C // heads) % 8 == 0 and 1 <= P <= N
+    assert 0 < smem <= 232448
+    if item == 2 and F_ == 16 and C >= 320:
+        assert 2 * (smem + 1024) <= 233472
+    assert mk.attention_plan(32, 4096, 1, 8, 4) is None
 
 
 def test_small_pipeline_with_motion_kernel_card_matches_cpu(cuda):
