@@ -18,7 +18,9 @@ Phases, each printed as one JSON line with its seconds:
              both, and spill no registers. K3's line (`k3_ptxas`) adds the
              HMMA, LDGSTS and LDSM (ldmatrix) instructions of each K3
              kernel: every bf16 K3 GEMM kernel must have all three, and
-             spill no registers.
+             spill no registers. K4's line (`k4_ptxas`) likewise: every bf16
+             K4 kernel must have HMMA, LDGSTS and LDSM and spill no
+             registers.
   reference  a small pipeline (head dims 40/80/512, fp32) on the card against
              the same pipeline on the CPU with the same weights and noise:
              uint8 frames within 1 LSB; then the same with
@@ -111,12 +113,18 @@ Phases, each printed as one JSON line with its seconds:
              times include).
   kernels_k4 K4 against its plain version at every shape vid2vid_upscale
              launched it with (bf16 as launched, fp32 at batch 1), plus odd
-             shapes in both modes (H and W off the 8 x 16 tile, H = 1,
-             Ci = Co = 32, B = 3), in bf16 and fp32 (`k4_mismatch` states the
-             gates); then K4's time, its plain version's, one PyTorch call's
-             (nearest-2x + `F.conv2d` + leaky ReLU in bf16, channels_last; a
-             yardstick the port never calls), the bound over the useful work
-             and the folded GEMM's work beside it.
+             shapes in both modes (H and W off the tiles, H = 1,
+             Ci = Co = 32, B = 3, Ci = 128), in bf16 and fp32 (`k4_mismatch`
+             states the gates), each called with the weights folded in the
+             call and folded once (`packed`, as the upscaler calls it); then
+             K4's time with the weights folded once (`ms`) and in the call
+             (`unpacked_ms`), its TFLOP/s and GB/s, its plain version's
+             time, one PyTorch call's (nearest-2x + `F.conv2d` + leaky ReLU
+             in bf16, channels_last; a yardstick the port never calls), the
+             bound over the useful work and the folded GEMM's work beside
+             it; at each launched shape the launch plan (the block's shared
+             memory, whether the weights stay resident, the grid and the
+             tiles a block walks).
 Then the kernels line, the `nvidia-smi` name/power-limit line, and last the
 `{"ok": true, "device": ...}` line. Any failure ends the run non-zero.
 """
@@ -164,8 +172,11 @@ K3_SHAPES = {(1, 16, 4096, 320, 8): 5, (1, 16, 1024, 640, 8): 5, (1, 16, 256, 12
 K3_ODD_SHAPES = [(1, 16, 37, 320, 8, True), (1, 8, 64, 640, 8, True), (1, 24, 64, 320, 8, True),
                  (1, 16, 64, 1280, 8, False), (2, 16, 50, 64, 8, True)]
 # odd K4 shapes (B, H, W, Ci, Co), each in both modes: H and W not multiples
-# of the 8 x 16 tile, H = 1, Ci = Co = 32 (the 32-channel block), and B = 3
-K4_ODD_SHAPES = [(2, 9, 37, 64, 64), (1, 1, 16, 64, 64), (1, 13, 21, 32, 32), (3, 8, 16, 64, 64)]
+# of the tiles (8 x 16 coarse upsample, 16 x 16 conv), H = 1, Ci = Co = 32
+# (the 32-channel block), B = 3, and Ci = 128 (in the upsample mode the
+# weights do not fit shared memory and are staged with each patch)
+K4_ODD_SHAPES = [(2, 9, 37, 64, 64), (1, 1, 16, 64, 64), (1, 13, 21, 32, 32), (3, 8, 16, 64, 64),
+                 (1, 11, 19, 128, 64)]
 # conv_last's weight scale in the seeded RRDBNet (its bias is 0.5): keeps most
 # uint8 outputs of the 6-block network off 0 and 255
 RRDB_LAST_GAIN = 0.3
@@ -477,24 +488,25 @@ def k3_stage_split(torch, mk, shape, x, p, pe, packed, reps: int = 5) -> dict:
             "copy_gbps": 2 * flat.numel() * flat.element_size() / copy_ms / 1e6}
 
 
-def k3_build_report(ptxas: list[dict], sass: dict) -> None:
-    """Print K3's `k3_ptxas` line (registers, spills and shared memory of
-    each K3 kernel, and its HMMA, LDGSTS (cp.async) and LDSM (ldmatrix)
-    instructions); fail if a bf16 K3 GEMM kernel lacks any of the three or
-    spills registers."""
-    k3_sass = {op: {name: n for name, n in sass[op].items() if "motion" in name}
-               for op in ("HMMA", "LDGSTS", "LDSM")}
-    k3_ptxas = [r for r in ptxas if "motion" in r["function"]]
-    print(json.dumps({"k3_ptxas": k3_ptxas, "k3_hmma": k3_sass["HMMA"],
-                      "k3_ldgsts": k3_sass["LDGSTS"], "k3_ldsm": k3_sass["LDSM"]}), flush=True)
-    gemms = [name for name in k3_sass["HMMA"] if "motion_gemm_bf16" in name]
-    if not gemms or not all(k3_sass[op][n] for n in gemms for op in k3_sass):
-        raise AssertionError(f"bf16 K3 GEMM kernels without tensor-core (HMMA), cp.async "
-                             f"(LDGSTS) or ldmatrix (LDSM) instructions: {k3_sass}")
-    spilled = [r for r in k3_ptxas if "motion_gemm_bf16" in r["function"]
+def pipelined_build_report(label: str, family: str, gated: str, ptxas: list[dict],
+                           sass: dict) -> None:
+    """Print the `{label}_ptxas` line (registers, spills and shared memory of
+    each kernel whose name holds `family`, and its HMMA, LDGSTS (cp.async)
+    and LDSM (ldmatrix) instructions); fail if a kernel whose name holds
+    `gated` lacks any of the three or spills registers."""
+    ops = {op: {name: n for name, n in sass[op].items() if family in name}
+           for op in ("HMMA", "LDGSTS", "LDSM")}
+    rows = [r for r in ptxas if family in r["function"]]
+    print(json.dumps({f"{label}_ptxas": rows, f"{label}_hmma": ops["HMMA"],
+                      f"{label}_ldgsts": ops["LDGSTS"], f"{label}_ldsm": ops["LDSM"]}), flush=True)
+    kernels = [name for name in ops["HMMA"] if gated in name]
+    if not kernels or not all(ops[op][n] for n in kernels for op in ops):
+        raise AssertionError(f"{label.upper()} kernels {gated} without tensor-core (HMMA), "
+                             f"cp.async (LDGSTS) or ldmatrix (LDSM) instructions: {ops}")
+    spilled = [r for r in rows if gated in r["function"]
                and (r.get("spill_stores") or r.get("spill_loads"))]
     if spilled:
-        raise AssertionError(f"bf16 K3 GEMM kernels spill registers: {spilled}")
+        raise AssertionError(f"{label.upper()} kernels {gated} spill registers: {spilled}")
 
 
 def k3_module(torch, C: int, heads: int, use_pe: bool, gen):
@@ -590,13 +602,22 @@ def k4_inputs(torch, shape, dtype, gen):
 
 def check_k4(torch, uk, shape, upsample: bool, dtype, gen) -> float:
     """K4 at (B, H, W, Ci, Co) in one mode, with leaky ReLU, against its
-    plain version; max abs error."""
+    plain version, called with the weights folded in the call and with them
+    folded once (`packed`, as the upscaler and the timed call pass them):
+    both within the gates and equal bit for bit; max abs error."""
     x, w, bias = k4_inputs(torch, shape, dtype, gen)
-    out = uk.upconv3x3(x, w, bias, upsample=upsample, act="lrelu")
     ref = uk.upconv3x3_plain(x, w, bias, upsample=upsample, act="lrelu")
-    bad = k4_mismatch(torch, out, ref)
-    if bad:
-        raise AssertionError(f"K4 {shape} upsample={upsample} {dtype}: {bad}")
+    out = uk.upconv3x3(x, w, bias, upsample=upsample, act="lrelu")
+    packed = uk.kernel_weights(w, dtype, upsample)
+    for name, got in (("folded in the call", out),
+                      ("packed", uk.upconv3x3(x, w, bias, upsample=upsample, act="lrelu",
+                                              packed=packed))):
+        bad = k4_mismatch(torch, got, ref)
+        if bad:
+            raise AssertionError(f"K4 {shape} upsample={upsample} {dtype}, weights {name}: {bad}")
+        if not torch.equal(got, out):
+            raise AssertionError(f"K4 {shape} upsample={upsample} {dtype}: packed weights "
+                                 f"give another output than weights folded in the call")
     return (out.float() - ref.float()).abs().max().item()
 
 
@@ -911,16 +932,23 @@ def device_busy_ms(torch, fn, iters: int = 3) -> float:
     they do not overlap) of one call of `fn`, by torch.profiler over `iters`
     calls after a warm-up: its time on the card without the waits for the
     host that a CUDA-event time includes when the host launches slower than
-    the card runs."""
+    the card runs. A profile that recorded no device time at all (the
+    profiler now and then drops a short run's activity) is taken again, three
+    times in all before it fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_activities(prof)[0].values()) / 1e6 / iters
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        try:
+            return sum(device_activities(prof)[0].values()) / 1e6 / iters
+        except AssertionError:
+            if attempt == 2:
+                raise
 
 
 @contextmanager
@@ -1006,8 +1034,8 @@ def main() -> int:
                and (r.get("spill_stores") or r.get("spill_loads"))]
     if spilled:
         raise AssertionError(f"bf16 K2 kernels spill registers: {spilled}")
-    k3_build_report(ptxas, sass)
-    print(json.dumps({"k4_ptxas": [r for r in ptxas if "upconv" in r["function"]]}), flush=True)
+    pipelined_build_report("k3", "motion", "motion_gemm_bf16", ptxas, sass)
+    pipelined_build_report("k4", "upconv", "upconv_bf16", ptxas, sass)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1529,11 +1557,14 @@ def main() -> int:
 
         B, H, W = shape[:3]
         iters = 3 if B * H * W >= 4 * 1024 * 1024 else 10
+        packed = uk.kernel_weights(w, x.dtype, upsample)  # folded once, as the upscaler does
         row = {
             "shape": list(shape), "upsample": upsample, "launches": k4_by_shape.get(key, 0),
             "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
             "ms": cuda_ms(torch, lambda: uk.upconv3x3(x, w, bias, upsample=upsample,
-                                                      act="lrelu"), iters),
+                                                      act="lrelu", packed=packed), 10),
+            "unpacked_ms": cuda_ms(torch, lambda: uk.upconv3x3(x, w, bias, upsample=upsample,
+                                                               act="lrelu"), 10),
             "plain_ms": cuda_ms(torch, lambda: uk.upconv3x3_plain(x, w, bias, upsample=upsample,
                                                                   act="lrelu"), iters),
             "library_ms": cuda_ms(torch, library, iters),
@@ -1542,14 +1573,19 @@ def main() -> int:
         row["useful_gflop"] = row["ops_ms"] * PEAK_BF16_FLOPS / 1e12
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+        row["tflops"] = row["useful_gflop"] / row["ms"]
+        row["gbs"] = row["bytes_ms"] * PEAK_BYTES / 1e9 / row["ms"]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        if key in k4_by_shape:
+            row["plan"] = uk.kernel_plan(*shape, upsample)
         k4_rows.append(row)
         print(json.dumps({"k4": row}), flush=True)
-        del x, w, bias, xc, w_oihw, b16
+        del x, w, bias, xc, w_oihw, b16, packed
         torch.cuda.empty_cache()
     k4_by_row = {tuple(r["shape"]) + (r["upsample"],): r for r in k4_rows}
     per_frame = {k: sum(n * k4_by_row[key][k] for key, n in k4_by_shape.items()) / len(video)
-                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "folded_gflop",
-                           "useful_gflop")}
+                 for k in ("ms", "unpacked_ms", "plain_ms", "library_ms", "bound_ms",
+                           "folded_gflop", "useful_gflop")}
     phase("kernels_k4", t0, shapes=len(k4_rows), per_frame=per_frame)
 
     def path_sum(by_row, by_shape, key):

@@ -89,6 +89,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ll = ctypes.c_longlong
     lib.upconv3x3_fwd.argtypes = [p, ll, ll, ll, p, p, p] + [i] * 8 + [p]
     lib.upconv3x3_fwd.restype = i
+    lib.upconv3x3_bf16_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    lib.upconv3x3_bf16_plan.restype = i
     lib.upconv3x3_error_string.argtypes = [i]
     lib.upconv3x3_error_string.restype = ctypes.c_char_p
 

@@ -13,7 +13,8 @@ runs on its Pallas kernel, and `conv_last` on `F.conv2d`.
 Parameters stay in fp32 and are cast at use: the network computes in the
 dtype of its input, which the `Upscaler` sets to the run dtype (the flax
 policy the JAX package follows), so K4's folded weights are bf16(w1 + w2) of
-the fp32 weights.
+the fp32 weights. `RRDBNet` folds and casts them once per parameter version
+and dtype, not once per call.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_lanczos4
-from ..ops.upconv_kernel import conv3x3_lrelu, upsample2x_conv3x3_lrelu
+from ..ops.upconv_kernel import conv3x3_lrelu, kernel_weights, upsample2x_conv3x3_lrelu
 
 DEFAULT_MODEL_PATH = "models/Upscalers/RealESRGAN_x4plus_anime_6B.pth"
 NET_SCALE = 4
@@ -90,6 +91,23 @@ class RRDBNet(nn.Module):
         self.conv_up2 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
         self.conv_hr = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
         self.conv_last = nn.Conv2d(num_feat, 3, 3, 1, 1)
+        # K4's weights by (conv name, dtype): ((data_ptr, _version, device) of
+        # the weight they were made from, that weight, the packed weights)
+        self._k4_weights: dict = {}
+
+    def k4_weights(self, name: str, upsample: bool, dtype: torch.dtype) -> torch.Tensor:
+        """The tail conv `name`'s weights in K4's layout and `dtype`
+        (`kernel_weights`: folded in fp32 and rounded once when upsample),
+        made once and kept until the weight is replaced, moved or changed in
+        place. The entry holds the weight it was made from, so no new tensor
+        can take its address while the entry lives."""
+        w = getattr(self, name).weight
+        stamp = (w.data_ptr(), w._version, w.device)
+        hit = self._k4_weights.get((name, dtype))
+        if hit is None or hit[0] != stamp:
+            hit = (stamp, w.detach(), kernel_weights(_hwio(getattr(self, name)), dtype, upsample))
+            self._k4_weights[(name, dtype)] = hit
+        return hit[2]
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """conv_first, the RRDB trunk and conv_body with the residual:
@@ -105,9 +123,12 @@ class RRDBNet(nn.Module):
     def tail(self, feat: torch.Tensor) -> torch.Tensor:
         """The x4 up-stage on K4, then conv_last: (B, H, W, num_feat) ->
         (B, 4H, 4W, 3)."""
-        feat = upsample2x_conv3x3_lrelu(feat, _hwio(self.conv_up1), self.conv_up1.bias, "lrelu")
-        feat = upsample2x_conv3x3_lrelu(feat, _hwio(self.conv_up2), self.conv_up2.bias, "lrelu")
-        feat = conv3x3_lrelu(feat, _hwio(self.conv_hr), self.conv_hr.bias, "lrelu")
+        for name in ("conv_up1", "conv_up2"):
+            conv = getattr(self, name)
+            feat = upsample2x_conv3x3_lrelu(feat, _hwio(conv), conv.bias, "lrelu",
+                                            packed=self.k4_weights(name, True, feat.dtype))
+        feat = conv3x3_lrelu(feat, _hwio(self.conv_hr), self.conv_hr.bias, "lrelu",
+                             packed=self.k4_weights("conv_hr", False, feat.dtype))
         return _conv(self.conv_last, feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -17,15 +17,19 @@ accumulate in fp32; the bias (fp32) and the leaky ReLU run in fp32; the
 result is rounded once.
 
 The CUDA source is `csrc/upconv3x3.cu`; `_build.py` compiles it with K1-K3
-in one nvcc call and loads it with ctypes. What bounds it on the H100: at the
-tail's Ci = Co = 64 the useful work is 2*4*Ci*Co FLOPs a fine pixel
+in one nvcc call and loads it with ctypes. What bounds it on the H100: at
+the tail's Ci = Co = 64 the useful work is 2*4*Ci*Co FLOPs a fine pixel
 (upsample) or 2*9*Ci*Co (conv) against the input read and the output
-written once, 64 and 144 FLOPs a bf16 byte, under the card's 295: bound by
-bytes. The TPU kernel multiplies by a dense (9 Ci, 4 Co) fold that is 5/9
-zeros; the CUDA kernel runs each output parity as its own 2x2 convolution
-on the coarse input, stages the coarse tile with its halo and one parity's
-weights in shared memory, and writes the fine layout from its epilogue. In
-bf16 the products run on the tensor cores (mma.sync), in fp32 as FMAs.
+written once, 64 and 144 FLOPs a bf16 byte, under the card's 295: up1 and
+up2 are bound by bytes, conv_hr nearly balanced. The TPU kernel multiplies
+by a dense (9 Ci, 4 Co) fold that is 5/9 zeros; the CUDA kernel runs each
+output parity as its own 2x2 convolution on the coarse input. In bf16 its
+blocks walk over tiles with the folded weights resident in shared memory,
+stage each tile's patch once for all four parities through a cp.async ring,
+read mma.sync fragments with ldmatrix and store whole fine rows in 16-byte
+units; in fp32 the products are FMAs. The weights in the kernel's layout
+(`kernel_weights`) may be passed in as `packed`, folded and cast once: the
+upscaler keeps them per parameter version.
 
 On a CPU tensor the wrapper computes the plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. Each launch adds one to
@@ -138,23 +142,38 @@ def check_kernel_args(x, weight) -> None:
         raise ValueError(f"the kernel runs on CUDA tensors, got {x.device}")
 
 
-def _kernel_weights(weight, dtype, upsample: bool) -> torch.Tensor:
-    """The kernel's (P, T, Co, Ci) layout in `dtype`: the four parities' four
-    folded taps, or the conv's nine taps."""
+def kernel_weights(weight, dtype, upsample: bool) -> torch.Tensor:
+    """The kernel's (P, T, Co, Ci) layout in `dtype`, contiguous: the four
+    parities' (2p + q) four folded taps (2a + b), or the conv's nine taps
+    (3 dy + dx)."""
     Ci, Co = weight.shape[2], weight.shape[3]
-    if upsample:
-        w = fold_upsample_weights(weight).to(dtype).reshape(4, 4, Ci, Co)
-    else:
-        w = weight.to(dtype).reshape(1, 9, Ci, Co)
-    return w.transpose(2, 3).contiguous()
+    with torch.no_grad():
+        if upsample:
+            w = fold_upsample_weights(weight).to(dtype).reshape(4, 4, Ci, Co)
+        else:
+            w = weight.to(dtype).reshape(1, 9, Ci, Co)
+        return w.transpose(2, 3).contiguous()
 
 
-def upconv3x3(x, weight, bias, *, upsample: bool, act=None):
+def _check_packed(packed, x, weight, upsample: bool) -> None:
+    Ci, Co = weight.shape[2], weight.shape[3]
+    want = (4, 4, Co, Ci) if upsample else (1, 9, Co, Ci)
+    if (tuple(packed.shape) != want or packed.dtype != x.dtype or packed.device != x.device
+            or not packed.is_contiguous()):
+        raise ValueError(f"packed weights must be contiguous {want} {x.dtype} on {x.device}, "
+                         f"got {tuple(packed.shape)} {packed.dtype} on {packed.device}")
+
+
+def upconv3x3(x, weight, bias, *, upsample: bool, act=None, packed=None):
     """x: (B, H, W, Ci), channels contiguous (any batch / row / column
-    strides); weight: (3, 3, Ci, Co) HWIO; bias: (Co,); act: None or 'lrelu'.
-    Returns lrelu(conv3x3(nearest_2x(x) if upsample else x) + bias) in x's
-    dtype: (B, 2H, 2W, Co) or (B, H, W, Co), contiguous."""
+    strides); weight: (3, 3, Ci, Co) HWIO; bias: (Co,); act: None or 'lrelu';
+    packed: None or `kernel_weights(weight, x.dtype, upsample)`, computed
+    once by the caller (the kernel then folds nothing). Returns
+    lrelu(conv3x3(nearest_2x(x) if upsample else x) + bias) in x's dtype:
+    (B, 2H, 2W, Co) or (B, H, W, Co), contiguous."""
     _check_args(x, weight, bias, act)
+    if packed is not None:
+        _check_packed(packed, x, weight, upsample)
     if x.device.type == "cpu":
         return upconv3x3_plain(x, weight, bias, upsample=upsample, act=act)
     check_kernel_args(x, weight)
@@ -166,7 +185,7 @@ def upconv3x3(x, weight, bias, *, upsample: bool, act=None):
     vec = 16 // x.element_size()
     if x.stride(3) != 1 or any(s % vec for s in x.stride()[:3]) or x.data_ptr() % 16:
         x = x.contiguous()  # the kernel reads each pixel's channels as 16-byte vectors
-    w = _kernel_weights(weight, x.dtype, upsample)
+    w = kernel_weights(weight, x.dtype, upsample) if packed is None else packed
     bias32 = bias.float().contiguous()
     scale = 2 if upsample else 1
     out = torch.empty((B, scale * H, scale * W, Co), dtype=x.dtype, device=x.device)
@@ -184,16 +203,34 @@ def upconv3x3(x, weight, bias, *, upsample: bool, act=None):
     return out
 
 
-def conv3x3_lrelu(x, weight, bias, act=None):
+def conv3x3_lrelu(x, weight, bias, act=None, packed=None):
     """[lrelu](conv3x3(x) + bias), stride 1, SAME zero padding: the
     counterpart of the JAX `conv3x3_small`."""
-    return upconv3x3(x, weight, bias, upsample=False, act=act)
+    return upconv3x3(x, weight, bias, upsample=False, act=act, packed=packed)
 
 
-def upsample2x_conv3x3_lrelu(x, weight, bias, act=None):
+def upsample2x_conv3x3_lrelu(x, weight, bias, act=None, packed=None):
     """[lrelu](conv3x3(nearest_2x(x)) + bias) -> (B, 2H, 2W, Co), fine
     layout: the counterpart of the JAX `upsample2x_conv3x3_fine`."""
-    return upconv3x3(x, weight, bias, upsample=True, act=act)
+    return upconv3x3(x, weight, bias, upsample=True, act=act, packed=packed)
+
+
+def kernel_plan(B: int, H: int, W: int, Ci: int, Co: int, upsample: bool) -> dict:
+    """The bf16 kernel's launch plan for a call on the card: the block's
+    shared memory, whether the weights stay resident, the grid of persistent
+    blocks and the most tiles a block walks."""
+    import ctypes
+
+    from .._build import load_library
+
+    lib = load_library().lib
+    plan = (ctypes.c_int * 5)()
+    err = lib.upconv3x3_bf16_plan(B, H, W, Ci, Co, int(upsample), plan)
+    if err != 0:
+        raise RuntimeError(f"upconv3x3_bf16_plan failed: "
+                           f"{lib.upconv3x3_error_string(err).decode()} ({err})")
+    return {"smem_bytes": plan[0], "resident_weights": bool(plan[1]),
+            "grid": [plan[2], plan[3]], "tiles_per_block": plan[4]}
 
 
 def reset_launch_counts() -> None:

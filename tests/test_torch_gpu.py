@@ -266,13 +266,16 @@ def test_small_pipeline_with_motion_kernel_card_matches_cpu(cuda):
 @pytest.mark.parametrize("shape", [
     (1, 64, 64, 64, 64), (2, 40, 48, 64, 64),  # the tail's widths
     (2, 9, 37, 64, 64), (1, 1, 16, 64, 64), (1, 13, 21, 32, 32), (3, 8, 17, 32, 64),  # ragged
+    (1, 11, 19, 128, 64), (1, 9, 23, 256, 96),  # weights staged with each patch; BN = 32
 ])
 @pytest.mark.parametrize("upsample", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_upconv_kernel_matches_plain(cuda, shape, upsample, dtype):
     """The gates of `chip_smoke.k4_mismatch` (fp32 at 1e-4 with TF32 off,
-    bf16 within one output ulp and the rms) in both modes; H and W off the
-    8 x 16 tile; one launch a call, counted under its shape."""
+    bf16 within one output ulp and the rms) in both modes, with the weights
+    folded in the call and folded once (`chip_smoke.check_k4` calls both);
+    H and W off the 8 x 16 tile; one launch a call, counted under its
+    shape."""
     import chip_smoke
 
     g = torch.Generator(device=cuda)
@@ -282,8 +285,8 @@ def test_upconv_kernel_matches_plain(cuda, shape, upsample, dtype):
     before_shape = uk.upconv3x3.launches_by_shape[key]
     chip_smoke.check_k4(torch, uk, shape, upsample, dtype, g)
     torch.cuda.synchronize()
-    assert uk.upconv3x3.launches == before + 1
-    assert uk.upconv3x3.launches_by_shape[key] == before_shape + 1
+    assert uk.upconv3x3.launches == before + 2
+    assert uk.upconv3x3.launches_by_shape[key] == before_shape + 2
 
 
 def test_upconv_kernel_reads_strided_inputs(cuda):
@@ -301,6 +304,22 @@ def test_upconv_kernel_reads_strided_inputs(cuda):
                                    uk.upconv3x3_plain(x.contiguous(), w, b, upsample=upsample,
                                                       act="lrelu"),
                                    atol=1e-4, rtol=1e-4)
+
+
+def test_upconv_kernel_takes_weights_folded_once(cuda):
+    """Weights folded once (`kernel_weights`, as the upscaler caches them)
+    give the output of weights folded in the call, bit for bit, in both
+    modes."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(6)
+    x = torch.randn((2, 19, 45, 64), generator=g, device=cuda).bfloat16()
+    w = torch.randn((3, 3, 64, 64), generator=g, device=cuda) / 24.0
+    b = torch.randn((64,), generator=g, device=cuda)
+    for upsample in (True, False):
+        packed = uk.kernel_weights(w, x.dtype, upsample)
+        want = uk.upconv3x3(x, w, b, upsample=upsample, act="lrelu")
+        assert torch.equal(uk.upconv3x3(x, w, b, upsample=upsample, act="lrelu", packed=packed),
+                           want)
 
 
 def test_upconv_kernel_cpu_tensor_takes_the_plain_version(cuda):

@@ -1,7 +1,7 @@
 """The port stands alone: no file of controlanimate_tpu_torch/, nor
-chip_smoke.py, imports jax, flax, the JAX package or cv2 (the card's machine
-has no OpenCV), nor yaml at module level; and the package imports in a
-process where none of them can be imported."""
+chip_smoke.py or k4_split.py, imports jax, flax, the JAX package or cv2
+(the card's machine has no OpenCV), nor yaml at module level; and the
+package imports in a process where none of them can be imported."""
 
 import ast
 import subprocess
@@ -11,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "controlanimate_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "controlanimate_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                   ROOT / "k4_split.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "controlanimate_tpu", "cv2"}
 
 

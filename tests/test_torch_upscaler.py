@@ -156,3 +156,41 @@ def test_resize_lanczos4_matches_cv2(scale, record_property):
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     record_property("exact_share", float((diff == 0).mean()))
     assert diff.max() <= 1, (diff.max(), (diff > 0).mean())
+
+
+def test_tail_folds_k4_weights_once_per_parameter_version(monkeypatch):
+    """The tail hands K4 weights folded and cast once per parameter version
+    and dtype: a second forward folds nothing; an in-place update of one
+    conv's weight (its `_version` moves, its address does not) refolds that
+    conv alone, and the new weights are the fold of the updated ones; a new
+    dtype folds again."""
+    from controlanimate_tpu_torch.models import upscaler as up_mod
+    from controlanimate_tpu_torch.ops import upconv_kernel as uk
+
+    folds = []
+
+    def counting(weight, dtype, upsample):
+        folds.append((dtype, upsample))
+        return uk.kernel_weights(weight, dtype, upsample)
+
+    monkeypatch.setattr(up_mod, "kernel_weights", counting)
+    net = RRDBNet(num_feat=32, num_block=1)
+    feat = torch.from_numpy(np.random.RandomState(2).randn(1, 4, 5, 32).astype(np.float32))
+    with torch.no_grad():
+        first = net.tail(feat)
+        assert len(folds) == 3
+        packed = net.k4_weights("conv_up2", True, torch.float32)
+        assert net.tail(feat).equal(first) and len(folds) == 3
+        ptr = net.conv_up2.weight.data_ptr()
+        net.conv_up2.weight.mul_(0.5)
+    assert net.conv_up2.weight.data_ptr() == ptr
+    with torch.no_grad():
+        net.tail(feat)
+    assert folds[3:] == [(torch.float32, True)]
+    refolded = net.k4_weights("conv_up2", True, torch.float32)
+    assert refolded is not packed
+    torch.testing.assert_close(refolded, uk.kernel_weights(
+        net.conv_up2.weight.permute(2, 3, 1, 0), torch.float32, True), rtol=0, atol=0)
+    torch.testing.assert_close(refolded, 0.5 * packed, rtol=0, atol=0)
+    net.k4_weights("conv_hr", False, torch.bfloat16)
+    assert folds[4:] == [(torch.bfloat16, False)]
