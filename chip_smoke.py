@@ -30,7 +30,10 @@ Phases, each printed as one JSON line with its seconds:
              and must be nonzero); then a small fp32 RealESRGAN `Upscaler`
              (64 features, 1 block, 2 frames of 64x64) on the card against
              the same on the CPU, at scale 4 and at scale 2 (the x4 network
-             then Lanczos4): uint8 within 1 LSB, K4's launches nonzero.
+             then Lanczos4): uint8 within 1 LSB, K4's launches nonzero;
+             then a small bf16 pipeline built from disk (a snapshot written
+             from seeded weights, inference-v2.yaml) against the injected
+             pipeline of the same weights, both on the card: frames equal.
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -40,8 +43,9 @@ Phases, each printed as one JSON line with its seconds:
              are counted per shape over the phase and must equal what the
              UNet and VAE imply.
   window_plain_attention
-             the overlap-8 windows again with the plain attention on the
-             same inputs (time and uint8 difference reported, not gated).
+             the first overlap-8 window again with the plain attention on
+             the same inputs (time and uint8 difference reported, not
+             gated).
   profile    the first overlap-8 window again, under torch.profiler (the
              card's activity only): the device's busy time (its kernels'
              and copies' time summed; one stream, so they do not overlap),
@@ -83,19 +87,44 @@ Phases, each printed as one JSON line with its seconds:
              and the uint8
              difference against the same upscaler applied on the card to the
              vid2vid_plain_conv phase's frames (reported, not gated).
+  disk       the disk build and the CLI, the path of the shipped profiles:
+             writes a synthetic HF-layout snapshot of the window phase's
+             bf16 models under build/chip_smoke_snapshot/ (unet/, vae/,
+             text_encoder/ as config.json + safetensors written by
+             `save_safetensors`, tokenizer/ with the tiny vocabulary, and
+             AnimateDiff v2 and v1 motion checkpoints with their PE tables
+             by torch.save) and the 40 frames as PNG directories; runs
+             `python -m controlanimate_tpu_torch --config` in-process on
+             it, frames from the PNG directory and PNGs out (no ffmpeg):
+             at 512x512 on inference-v2.yaml with K2 off, whose frames must
+             equal the vid2vid_plain_conv phase's (same bf16 weights, noise
+             and kernels; when they do not, the injected loop runs again
+             and the difference may not exceed that rerun's); then at
+             512x768 on inference-v1.yaml (no mid-block motion module,
+             non-inflated GroupNorm, PE 24 long) with K2 on, 40 frames of
+             (768, 512), whose K1 and K2 launches by shape must equal what
+             the UNet and the VAE imply at 96x64 latents, and whose first
+             window's unblended frames must equal the injected pipeline's
+             on inference-v1.yaml with the same weights. Prints the
+             snapshot's write seconds and bytes, each run's disk-build
+             seconds (the loop's `build_pipeline` timer), loop seconds and
+             new frames/s (the PNG source and sink included), peak memory
+             and timers; deletes the snapshot.
   kernels    K1 against its plain version at every shape the window phase
-             launched it with, plus odd lengths, in bf16 and fp32
-             (`k1_mismatch` states the gates), with its achieved TFLOP/s
-             and share of the bound in bf16; K2 against its plain version
-             at every shape the vid2vid phase launched it with, plus odd
-             H, W and Cin, each with and without the affine + SiLU +
-             residual, in bf16 and fp32 (`k2_mismatch`), with K2's achieved
-             TFLOP/s and share of the bound in bf16, and the GroupNorm
-             fold's time and peak memory at the largest input it folds,
-             beside the same statistics taken from full fp32 copies. Then
-             each kernel's time, its plain version's, one PyTorch call's
-             (SDPA for K1, `F.conv2d` on the activated input for K2:
-             yardsticks the port never calls) and the bound.
+             and the disk phase's 512x768 run launched it with, plus odd
+             lengths, in bf16 and fp32 (`k1_mismatch` states the gates),
+             with its achieved TFLOP/s and share of the bound in bf16; K2
+             against its plain version at every shape the vid2vid phase and
+             the 512x768 run launched it with, plus odd H, W and Cin, each
+             with and without the affine + SiLU + residual, in bf16 and
+             fp32 (`k2_mismatch`), with K2's achieved TFLOP/s and share of
+             the bound in bf16, and the GroupNorm fold's time and peak
+             memory at the largest input it folds, beside the same
+             statistics taken from full fp32 copies. Then each kernel's
+             time, its plain version's (at the 512x512 shapes only), one
+             PyTorch call's (SDPA for K1, `F.conv2d` on the activated input
+             for K2: yardsticks the port never calls) and the bound, and
+             their sums over a window at both geometries.
   kernels_k3 K3 against its plain version at every shape the
              window_motion_kernel phase launched it with, plus odd shapes
              (N = 37, F = 8 and 24, PE off, C = 64), in bf16 and fp32
@@ -131,14 +160,16 @@ Then the kernels line, the `nvidia-smi` name/power-limit line, and last the
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -146,15 +177,19 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
-# K1 launches of one SD1.5 UNet forward on a 512x512, 16-frame window, by
-# (B*F, Nq, Nk, H, D): the spatial self-attention of the 16 transformer blocks
-# (5 at each of the 64x64, 32x32 and 16x16 levels, 1 in the 8x8 mid block)
-UNET_SHAPES = {
-    (16, 4096, 4096, 8, 40): 5,
-    (16, 1024, 1024, 8, 80): 5,
-    (16, 256, 256, 8, 160): 5,
-    (16, 64, 64, 8, 160): 1,
-}
+# the spatial self-attention of one SD1.5 UNet forward (K1), by level: (token
+# count divisor against the latent, head dim, transformer blocks): 5 at each
+# of the full, 1/2 and 1/4 levels, 1 in the 1/8 mid block; 8 heads
+UNET_LEVELS = ((1, 40, 5), (4, 80, 5), (16, 160, 5), (64, 160, 1))
+
+
+def unet_k1_shapes(frames_n: int, latent: tuple[int, int]) -> dict:
+    """K1 launches of one UNet forward on `latent` (h, w), by (B*F, Nq, Nk,
+    H, D)."""
+    n = latent[0] * latent[1]
+    return {(frames_n, n // div, n // div, 8, D): blocks for div, D, blocks in UNET_LEVELS}
+
+
 ODD_SHAPES = [(2, 77, 77, 8, 40), (3, 333, 333, 2, 80), (1, 129, 129, 8, 160),
               (2, 77, 77, 1, 512)]
 # odd K2 shapes (B, H, W, Cin, Cout): H and W not multiples of the 16 x 16
@@ -182,7 +217,21 @@ K4_ODD_SHAPES = [(2, 9, 37, 64, 64), (1, 1, 16, 64, 64), (1, 13, 21, 32, 32), (3
 RRDB_LAST_GAIN = 0.3
 WINDOWS = 4  # timed windows of each kind
 V2V_OVERLAP_WINDOWS = 3  # overlap windows after the vid2vid phase's first window
+# what the kernels phases sum at the 512x768 shapes, whose plain versions
+# are checked but not timed
+UNTIMED_PLAIN = ("ms", "library_ms", "bound_ms")
 SEED = 7
+# the disk phase's synthetic model zoo (build/ is git-ignored), the SD1.5
+# LCM unet's and the SD VAE's config.json, and the AnimateDiff architectures
+SNAPSHOT = ROOT / "build" / "chip_smoke_snapshot"
+SD15_LCM_UNET_JSON = {"in_channels": 4, "out_channels": 4,
+                      "block_out_channels": [320, 640, 1280, 1280], "layers_per_block": 2,
+                      "attention_head_dim": 8, "cross_attention_dim": 768, "norm_num_groups": 32,
+                      "time_cond_proj_dim": 256}
+SD_VAE_JSON = {"block_out_channels": [128, 256, 512, 512], "norm_num_groups": 32,
+               "scaling_factor": 0.18215}
+INFERENCE_V1 = ROOT / "configs" / "inference" / "inference-v1.yaml"
+INFERENCE_V2 = ROOT / "configs" / "inference" / "inference-v2.yaml"
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -644,7 +693,7 @@ def small_upscaler_reference(torch, scale: float) -> dict:
 
     net = RRDBNet(num_feat=64, num_block=1)
     init_rrdbnet_(torch, net, torch.Generator().manual_seed(SEED), 1.0)
-    frames = synthetic_video(np, 2, 64, SEED)
+    frames = synthetic_video(np, 2, 64, 64, SEED)
     out_cpu = Upscaler(scale, model=net, dtype=torch.float32, device="cpu").upscale_batch(frames)
     gpu = Upscaler(scale, model=copy.deepcopy(net), dtype=torch.float32, device="cuda")
     out_gpu = gpu.upscale_batch(frames)
@@ -718,9 +767,9 @@ def motion_env(on: bool):
             os.environ[MOTION_ENV] = old
 
 
-def vae_k2_calls(vae, size: int) -> tuple:
-    """The K2 calls of one VAE encode and one decode of a size x size image,
-    read off the module tree: Counters of (H, W, Cin, Cout, affine, residual),
+def vae_k2_calls(vae, hw: tuple[int, int]) -> tuple:
+    """The K2 calls of one VAE encode and one decode of an (H, W) image, read
+    off the module tree: Counters of (H, W, Cin, Cout, affine, residual),
     each resnet giving conv1 (affine + SiLU) and conv2 (affine + SiLU +
     residual), each Upsample2D one call on the 2x map (no affine, no SiLU)."""
     from collections import Counter
@@ -729,38 +778,38 @@ def vae_k2_calls(vae, size: int) -> tuple:
 
     def resnets(blocks_and_hw):
         calls = Counter()
-        for resnet, hw in blocks_and_hw:
+        for resnet, (h, w) in blocks_and_hw:
             for conv, res in ((resnet.conv1, False), (resnet.conv2, True)):
-                if ck.supported(hw, hw, conv.in_channels, conv.out_channels):
-                    calls[(hw, hw, conv.in_channels, conv.out_channels, True, res)] += 1
+                if ck.supported(h, w, conv.in_channels, conv.out_channels):
+                    calls[(h, w, conv.in_channels, conv.out_channels, True, res)] += 1
         return calls
 
-    enc, hw, seen = vae.encoder, size, []
+    enc, (h, w), seen = vae.encoder, hw, []
     for blk in enc.down_blocks:
-        seen += [(r, hw) for r in blk.resnets]
+        seen += [(r, (h, w)) for r in blk.resnets]
         if hasattr(blk, "downsamplers"):
-            hw //= 2
-    seen += [(r, hw) for r in enc.mid_block.resnets]
+            h, w = h // 2, w // 2
+    seen += [(r, (h, w)) for r in enc.mid_block.resnets]
     encode = resnets(seen)
 
-    dec, hw = vae.decoder, size // 8
-    seen, ups = [(r, hw) for r in dec.mid_block.resnets], Counter()
+    dec, (h, w) = vae.decoder, (hw[0] // 8, hw[1] // 8)
+    seen, ups = [(r, (h, w)) for r in dec.mid_block.resnets], Counter()
     for blk in dec.up_blocks:
-        seen += [(r, hw) for r in blk.resnets]
+        seen += [(r, (h, w)) for r in blk.resnets]
         if hasattr(blk, "upsamplers"):
-            hw *= 2
+            h, w = 2 * h, 2 * w
             c = blk.upsamplers[0].conv
-            ups[(hw, hw, c.in_channels, c.out_channels, False, False)] += 1
+            ups[(h, w, c.in_channels, c.out_channels, False, False)] += 1
     return encode, resnets(seen) + ups
 
 
-def expected_k2_launches(vae, size, frames_n, overlap, full_windows, overlap_windows) -> dict:
+def expected_k2_launches(vae, hw, frames_n, overlap, full_windows, overlap_windows) -> dict:
     """K2 launches by (B, H, W, Cin, Cout, affine, residual) for windows of
     `frames_n` frames: every window decodes all frames; a whole window
     encodes all, an overlap window only its new frames."""
     from collections import Counter
 
-    encode, decode = vae_k2_calls(vae, size)
+    encode, decode = vae_k2_calls(vae, hw)
     out = Counter()
     for key, n in decode.items():
         out[(frames_n,) + key] += n * (full_windows + overlap_windows)
@@ -771,15 +820,15 @@ def expected_k2_launches(vae, size, frames_n, overlap, full_windows, overlap_win
     return dict(out)
 
 
-def synthetic_video(np, n: int, size: int, seed: int):
-    """n seeded (size, size, 3) uint8 frames of moving gradients and noise."""
+def synthetic_video(np, n: int, height: int, width: int, seed: int):
+    """n seeded (height, width, 3) uint8 frames of moving gradients and noise."""
     rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
-    frames = np.empty((n, size, size, 3), np.uint8)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    frames = np.empty((n, height, width, 3), np.uint8)
     for i in range(n):
         base = np.stack([128 + 90 * np.sin((xx + 6 * i) / 37.0), 40 + 0.3 * yy + 2 * i,
                          128 + 80 * np.cos((xx + yy - 4 * i) / 53.0)], axis=-1)
-        frames[i] = np.clip(base + rng.randn(size, size, 3) * 8, 0, 255)
+        frames[i] = np.clip(base + rng.randn(height, width, 3) * 8, 0, 255)
     return frames
 
 
@@ -836,6 +885,134 @@ def build_models(torch, unet_cfg, vae_channels, clip_cfg, device, seed, vae_grou
     for m in (unet, vae, clip):
         init_weights_(torch, m, gen)
     return EngineModels(unet=unet, vae=vae), TextStack(CLIPTokenizer.tiny(), clip)
+
+
+def save_safetensors(torch, path: Path, sd: dict) -> int:
+    """Write `sd` in the safetensors format (an 8-byte little-endian header
+    length, the JSON header, then each tensor's bytes); returns the bytes
+    written. The port reads the format without the `safetensors` package,
+    and so does this writer."""
+    names = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16", torch.int64: "I64", torch.int32: "I32", torch.int16: "I16",
+             torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
+    header, offset = {}, 0
+    for key, t in sd.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in sd.values():
+            f.write(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy())
+    return 8 + len(blob) + offset
+
+
+def write_snapshot(torch, root: Path, models, text, unet_json: dict, vae_json: dict,
+                   motion: dict) -> dict:
+    """A synthetic HF-layout snapshot of `models` and `text` under `root`:
+    unet/ (the 2D keys), vae/, text_encoder/ (config.json + safetensors, in
+    the modules' dtype) and tokenizer/ (the tokenizer's vocabulary and
+    merges); and AnimateDiff motion checkpoints written by torch.save,
+    `motion` mapping a file name to (with the mid block, positional-encoding
+    length): the motion keys, plus each attention block's `pos_encoder.pe`
+    table as AnimateDiff ships them. Returns the bytes of each file."""
+    import shutil
+
+    from controlanimate_tpu_torch.models.motion_module import temporal_positional_encoding
+
+    shutil.rmtree(root, ignore_errors=True)
+    usd = models.unet.state_dict()
+    c = text.model.config
+    te_json = {"vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+               "num_hidden_layers": c.num_layers, "num_attention_heads": c.num_heads,
+               "intermediate_size": c.intermediate_size,
+               "max_position_embeddings": c.max_position_embeddings,
+               "layer_norm_eps": c.layer_norm_eps, "eos_token_id": c.eos_token_id}
+    sizes = {}
+    for name, cfg, sd, fname in (
+            ("unet", unet_json, {k: v for k, v in usd.items() if "motion_modules" not in k},
+             "diffusion_pytorch_model.safetensors"),
+            ("vae", vae_json, models.vae.state_dict(), "diffusion_pytorch_model.safetensors"),
+            ("text_encoder", te_json, text.model.state_dict(), "model.safetensors")):
+        (root / name).mkdir(parents=True)
+        (root / name / "config.json").write_text(json.dumps(cfg))
+        sizes[f"{name}/{fname}"] = save_safetensors(torch, root / name / fname, sd)
+    tok = text.tokenizer
+    (root / "tokenizer").mkdir()
+    (root / "tokenizer" / "vocab.json").write_text(json.dumps(tok.vocab))
+    merges = sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)
+    (root / "tokenizer" / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    for fname, (mid, pe_len) in motion.items():
+        sd = {k: v.cpu() for k, v in usd.items()
+              if "motion_modules" in k and (mid or not k.startswith("mid_block."))}
+        for key in [k for k in sd if ".attention_blocks." in k and k.endswith(".to_q.weight")]:
+            pe = temporal_positional_encoding(pe_len, sd[key].shape[0])
+            sd[key.replace("to_q.weight", "pos_encoder.pe")] = torch.from_numpy(pe)[None].to(
+                sd[key].dtype)
+        torch.save(sd, root / fname)
+        sizes[fname] = (root / fname).stat().st_size
+        del sd
+    return sizes
+
+
+def write_frames(np, directory: Path, frames) -> None:
+    """Frames as numbered PNGs (a frame directory the loop reads without
+    ffmpeg)."""
+    from PIL import Image
+
+    directory.mkdir(parents=True, exist_ok=True)
+    for i, frame in enumerate(frames):
+        Image.fromarray(np.asarray(frame)).save(directory / f"{i + 1:04d}.png", compress_level=1)
+
+
+def read_frames(np, directory: Path) -> list:
+    from PIL import Image
+
+    return [np.asarray(Image.open(p).convert("RGB")) for p in sorted(directory.glob("*.png"))]
+
+
+def small_disk_reference(torch, root: Path) -> dict:
+    """A small bf16 pipeline built from disk on the card (a snapshot written
+    under `root` from seeded weights, inference-v2.yaml) against the injected
+    pipeline of the same weights on the card, same noise: the uint8
+    difference (0 when the build read the weights it was given). Run by
+    tests/test_torch_gpu.py; the `disk` phase checks the same at full width."""
+    from controlanimate_tpu_torch.config import ArchConfig, RunConfig
+    from controlanimate_tpu_torch.models.clip import CLIPTextConfig
+    from controlanimate_tpu_torch.models.unet3d import UNet3DConfig
+    from controlanimate_tpu_torch.pipelines.facade import ControlAnimatePipeline
+
+    unet_json = {"block_out_channels": [80, 80, 160, 160], "layers_per_block": 1,
+                 "attention_head_dim": 2, "cross_attention_dim": 32, "norm_num_groups": 8,
+                 "time_cond_proj_dim": 8}
+    vae_json = {"block_out_channels": [32, 64, 64, 512], "norm_num_groups": 8}
+    arch = ArchConfig.from_yaml(INFERENCE_V2)
+    ccfg = CLIPTextConfig(vocab_size=514, hidden_size=32, num_layers=2, num_heads=2,
+                          intermediate_size=64, eos_token_id=513)
+    models, text = build_models(torch, UNet3DConfig.from_arch(arch, unet_json),
+                                tuple(vae_json["block_out_channels"]), ccfg, "cuda", SEED,
+                                vae_groups=8)
+    cfg = RunConfig(width=64, height=64, frame_count=4, overlap_length=2, use_lcm=True,
+                    steps=2, strength=0.9, lcm_origin_steps=8, prompt="a (red fox)+",
+                    dtype="bfloat16", pretrained_lcm_model_path=str(root),
+                    inference_config_path=str(INFERENCE_V2),
+                    motion_module=str(root / "mm.ckpt"), textual_inversion_paths=())
+    injected = ControlAnimatePipeline(cfg, models=models, text_stack=text, arch=arch,
+                                      device="cuda")
+    write_snapshot(torch, root, models, text, unet_json, vae_json, {"mm.ckpt": (True, 32)})
+    disk = ControlAnimatePipeline(cfg, device="cuda")
+    frames = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(SEED))
+    out_injected = injected.animate(frames, None, seed=SEED)
+    out_disk = disk.animate(frames, None, seed=SEED)
+    diff = (out_injected.int() - out_disk.int()).abs()
+    return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.float().mean()),
+            "config_equal": disk.models.unet.config == models.unet.config}
 
 
 def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = False) -> dict:
@@ -963,16 +1140,19 @@ def plain_attention(attention_module, plain):
 
 
 def expected_k1_launches(full_windows: int, overlap_windows: int, steps: int,
-                         frames_n: int, overlap: int) -> dict:
-    """K1 launches by shape that the window phase implies: the UNet's
+                         frames_n: int, overlap: int, latent=(64, 64)) -> dict:
+    """K1 launches by shape that windows on `latent` (h, w) imply: the UNet's
     self-attention `steps` times a window, one VAE mid-block attention in the
     decode (all frames) and one in the encode (all frames, or only the new
     ones when the overlap latents are reused)."""
     windows = full_windows + overlap_windows
-    expected = {shape: n * steps * windows for shape, n in UNET_SHAPES.items()}
-    # the VAE's mid block sees 64x64 latents with one head of 512
-    expected[(frames_n, 4096, 4096, 1, 512)] = windows + full_windows
-    expected[(frames_n - overlap, 4096, 4096, 1, 512)] = overlap_windows
+    expected = {shape: n * steps * windows
+                for shape, n in unet_k1_shapes(frames_n, latent).items()}
+    # the VAE's mid block sees the latent grid with one head of 512
+    n = latent[0] * latent[1]
+    expected[(frames_n, n, n, 1, 512)] = windows + full_windows
+    if overlap_windows:
+        expected[(frames_n - overlap, n, n, 1, 512)] = overlap_windows
     return expected
 
 
@@ -988,13 +1168,14 @@ def main() -> int:
     from controlanimate_tpu_torch.models.clip import CLIPTextConfig
     from controlanimate_tpu_torch.models.tokenizer import CLIPTokenizer
     from controlanimate_tpu_torch.models.transformer import BasicTransformerBlock
-    from controlanimate_tpu_torch.models.unet3d import UNet3DConfig
+    from controlanimate_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
     from controlanimate_tpu_torch.models.vae import VaeAttnBlock
     from controlanimate_tpu_torch.ops import attention as attention_module
     from controlanimate_tpu_torch.ops import conv_kernel as ck
     from controlanimate_tpu_torch.ops import flash_attention as fa
     from controlanimate_tpu_torch.ops import motion_kernel as mk
     from controlanimate_tpu_torch.ops import upconv_kernel as uk
+    from controlanimate_tpu_torch.pipelines.engine import EngineModels
     from controlanimate_tpu_torch.pipelines.facade import MOTION_ENV, ControlAnimatePipeline
 
     # the phases without K3 build their pipelines with the motion switch off
@@ -1133,6 +1314,8 @@ def main() -> int:
         stream.append((frames, out[-overlap:], epoch))
         out = pipe.animate(frames, out[-overlap:], overlaps=overlap, seed=SEED, epoch=epoch)
         check_window(out)
+        if len(stream) == 1:
+            first_overlap_out = out
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t1
     launches, by_shape = fa.flash_attention.launches, dict(fa.flash_attention.launches_by_shape)
@@ -1160,15 +1343,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     pipe._overlap_latent_cache = cache_before
+    frames, last, epoch = stream[0]
     with plain_attention(attention_module, fa.flash_attention_plain):
         t1 = time.perf_counter()
-        for frames, last, epoch in stream:
-            out_plain = pipe.animate(frames, last, overlaps=overlap, seed=SEED, epoch=epoch)
+        out_plain = pipe.animate(frames, last, overlaps=overlap, seed=SEED, epoch=epoch)
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t1
-    diff = (out.int() - out_plain.int()).abs()
-    phase("window_plain_attention", t0, overlap_windows_seconds=round(t_plain, 4),
-          new_frames_per_second=round((frames_n - overlap) * WINDOWS / t_plain, 4),
+    diff = (first_overlap_out.int() - out_plain.int()).abs()
+    phase("window_plain_attention", t0, overlap_window_seconds=round(t_plain, 4),
+          new_frames_per_second=round((frames_n - overlap) / t_plain, 4),
           uint8_diff_mean=float(diff.float().mean()), uint8_diff_max=int(diff.max()))
 
     t0 = time.perf_counter()
@@ -1225,7 +1408,8 @@ def main() -> int:
     from controlanimate_tpu_torch.ops.blending import blend_overlap_u8
     from controlanimate_tpu_torch.ops.color_match import match_colors_u8
 
-    video = synthetic_video(np, frames_n + V2V_OVERLAP_WINDOWS * (frames_n - overlap), size, SEED)
+    video = synthetic_video(np, frames_n + V2V_OVERLAP_WINDOWS * (frames_n - overlap), size,
+                            size, SEED)
 
     class Recording:
         """The facade, keeping the first two windows' raw frames."""
@@ -1288,7 +1472,7 @@ def main() -> int:
     if counts["k1_by_shape"] != k1_expected:
         raise AssertionError(f"vid2vid K1 launches {counts['k1_by_shape']}, "
                              f"expected {k1_expected}")
-    k2_expected = expected_k2_launches(models.vae, size, frames_n, overlap, 1,
+    k2_expected = expected_k2_launches(models.vae, (size, size), frames_n, overlap, 1,
                                        V2V_OVERLAP_WINDOWS)
     if counts["k2_by_shape"] != k2_expected:
         raise AssertionError(f"vid2vid K2 launches {counts['k2_by_shape']}, "
@@ -1300,9 +1484,9 @@ def main() -> int:
           color_match_mean_change_window2=color_change, max_memory_allocated=v2v_peak,
           k1_launches=counts["k1"], k2_launches=counts["k2"],
           k2_launches_per_full_window=sum(
-              expected_k2_launches(models.vae, size, frames_n, overlap, 1, 0).values()),
+              expected_k2_launches(models.vae, (size, size), frames_n, overlap, 1, 0).values()),
           k2_launches_per_overlap_window=sum(
-              expected_k2_launches(models.vae, size, frames_n, overlap, 0, 1).values()),
+              expected_k2_launches(models.vae, (size, size), frames_n, overlap, 0, 1).values()),
           timers=summary["timers"])
     v2v_counts = counts
 
@@ -1384,7 +1568,154 @@ def main() -> int:
           max_memory_allocated=up_peak, k4_launches=counts["k4"],
           k4_launches_by_shape={str(k): n for k, n in sorted(k4_by_shape.items())},
           timers=summary_up["timers"])
-    del up_frames, plain_frames
+    del up_frames
+    torch.cuda.empty_cache()
+
+    # -- the disk build and the CLI: the shipped profiles' path ------------
+    from controlanimate_tpu_torch.__main__ import main as cli_main
+    from controlanimate_tpu_torch.config import ArchConfig
+
+    t0 = time.perf_counter()
+    if UNet3DConfig.from_arch(ArchConfig.from_yaml(INFERENCE_V2),
+                              SD15_LCM_UNET_JSON) != models.unet.config:
+        raise AssertionError("inference-v2.yaml + the unet config.json do not give the "
+                             "window phase's UNet")
+    t1 = time.perf_counter()
+    snapshot_bytes = write_snapshot(torch, SNAPSHOT, models, text, SD15_LCM_UNET_JSON,
+                                    SD_VAE_JSON, {"mm_v2.ckpt": (True, 32),
+                                                  "mm_v1.ckpt": (False, 24)})
+    height_768 = 768
+    video_768 = synthetic_video(np, len(video), height_768, size, SEED)
+    write_frames(np, SNAPSHOT / "frames_512x512", video)
+    write_frames(np, SNAPSHOT / "frames_512x768", video_768)
+    write_seconds = time.perf_counter() - t1
+
+    def run_cli(tag: str, **settings):
+        """`python -m controlanimate_tpu_torch --config <profile>` in-process
+        on the snapshot: the vid2vid phase's settings, frames from a PNG
+        directory, PNGs out (no ffmpeg). Returns (summary, frames written,
+        seconds, launch counts, peak memory)."""
+        out_dir = ROOT / "build" / "chip_smoke_vid2vid" / tag
+        shutil.rmtree(out_dir, ignore_errors=True)
+        profile = {
+            "output_video_dir": str(out_dir), "prompt": cfg.prompt, "n_prompt": cfg.n_prompt,
+            "use_lcm": 1, "steps": steps, "guidance_scale": cfg.guidance_scale,
+            "strength": cfg.strength, "overlap_strength": cfg.strength,
+            "lcm_origin_steps": cfg.lcm_origin_steps, "dtype": cfg.dtype, "seed": SEED,
+            "frame_count": frames_n, "overlap_length": overlap, "upscale": 1,
+            "pretrained_lcm_model_path": str(SNAPSHOT), "textual_inversion_paths": [],
+            "ffmpeg_path": str(SNAPSHOT / "no-ffmpeg"), **settings}
+        path = SNAPSHOT / f"{tag}.yaml"
+        path.write_text(json.dumps(profile))  # JSON is YAML
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for module in (fa, ck, mk, uk):
+            module.reset_launch_counts()
+        t1 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):  # the CLI prints its summary
+            summary = cli_main(["--config", str(path)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        counts = {"k1_by_shape": dict(fa.flash_attention.launches_by_shape),
+                  "k2_by_shape": dict(ck.conv3x3_fused.launches_by_shape),
+                  "k3": mk.motion_module_fused.launches, "k4": uk.upconv3x3.launches}
+        return (summary, read_frames(np, out_dir / "frames"), seconds, counts,
+                torch.cuda.max_memory_allocated())
+
+    def loop_fields(summary, seconds, peak):
+        build = summary["timers"]["build_pipeline"]["total_s"]
+        return {"cli_seconds": round(seconds, 4), "disk_build_seconds": build,
+                "loop_seconds": round(seconds - build, 4),
+                "new_frames_per_second_first_window_included": round(
+                    summary["frames_written"] / (seconds - build), 4),
+                "max_memory_allocated": peak}
+
+    # 512x512, K2 off: the vid2vid_plain_conv phase's run, from disk
+    summary, disk_frames, seconds, counts, peak = run_cli(
+        "disk_512x512", input_video_path=str(SNAPSHOT / "frames_512x512"), width=size,
+        height=size, inference_config_path=str(INFERENCE_V2),
+        motion_module=str(SNAPSHOT / "mm_v2.ckpt"), use_pallas_conv=0)
+    if summary["frames_written"] != len(video) or len(disk_frames) != len(video):
+        raise AssertionError(f"the CLI wrote {summary['frames_written']} frames "
+                             f"({len(disk_frames)} PNGs) of {len(video)}")
+    if counts["k2_by_shape"] or counts["k3"] or counts["k4"]:
+        raise AssertionError(f"the 512x512 CLI run launched K2, K3 or K4: {counts}")
+    diff = np.abs(np.stack(disk_frames).astype(np.int16) - np.stack(plain_frames).astype(np.int16))
+    fields_512 = {"uint8_diff_vs_plain_conv_max": int(diff.max()),
+                  "uint8_diff_vs_plain_conv_mean": float(diff.mean())}
+    if diff.max():
+        # the injected pipeline again: the card's own run-to-run difference
+        _, again, _, _, _, _ = run_vid2vid(False, "plain_again")
+        rerun = np.abs(np.stack(again).astype(np.int16) - np.stack(plain_frames).astype(np.int16))
+        fields_512["injected_rerun_diff_max"] = int(rerun.max())
+        if diff.max() > rerun.max():
+            raise AssertionError(f"the CLI's frames differ from vid2vid_plain_conv's by "
+                                 f"{int(diff.max())}, two injected runs by {int(rerun.max())}")
+    fields_512.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
+    del disk_frames, diff
+
+    # 512x768 with inference-v1.yaml (the shipped LCM profile's geometry and
+    # architecture: no mid-block motion module, PE 24 long), K2 on
+    latent = (height_768 // 8, size // 8)
+    summary, frames_768, seconds, counts, peak = run_cli(
+        "disk_512x768", input_video_path=str(SNAPSHOT / "frames_512x768"), width=size,
+        height=height_768, inference_config_path=str(INFERENCE_V1),
+        motion_module=str(SNAPSHOT / "mm_v1.ckpt"), use_pallas_conv=1)
+    if summary["frames_written"] != len(video) or len(frames_768) != len(video):
+        raise AssertionError(f"the 512x768 CLI run wrote {summary['frames_written']} frames "
+                             f"({len(frames_768)} PNGs) of {len(video)}")
+    if any(f.shape != (height_768, size, 3) for f in frames_768):
+        raise AssertionError("the 512x768 CLI run's frames are not (768, 512, 3)")
+    if float(np.stack(frames_768).std()) == 0.0:
+        raise AssertionError("the 512x768 CLI run's frames are constant")
+    k1_768 = counts["k1_by_shape"]
+    k1_768_expected = expected_k1_launches(1, V2V_OVERLAP_WINDOWS, steps, frames_n, overlap,
+                                           latent=latent)
+    if k1_768 != k1_768_expected:
+        raise AssertionError(f"512x768 K1 launches {k1_768}, expected {k1_768_expected}")
+    k2_768 = counts["k2_by_shape"]
+    k2_768_expected = expected_k2_launches(models.vae, (height_768, size), frames_n, overlap, 1,
+                                           V2V_OVERLAP_WINDOWS)
+    if k2_768 != k2_768_expected:
+        raise AssertionError(f"512x768 K2 launches {k2_768}, expected {k2_768_expected}")
+    if counts["k3"] or counts["k4"]:
+        raise AssertionError(f"the 512x768 CLI run launched K3 or K4: {counts}")
+    # its first window against the injected pipeline of the same weights on
+    # inference-v1.yaml: the window phase's UNet without the mid block's
+    # motion module (parameters shared), same settings and noise
+    arch_v1 = ArchConfig.from_yaml(INFERENCE_V1)
+    with torch.device("meta"):
+        unet_v1 = UNet3DConditionModel(UNet3DConfig.from_arch(arch_v1, SD15_LCM_UNET_JSON))
+    v2_state = models.unet.state_dict()
+    unet_v1.load_state_dict({k: v2_state[k] for k in unet_v1.state_dict()}, assign=True)
+    v1_cfg = cfg.replace(use_pallas_conv=True, seed=SEED, overlap_strength=cfg.strength,
+                         width=size, height=height_768, upscale=1.0,
+                         output_video_dir=str(ROOT / "build" / "chip_smoke_vid2vid" / "v1"))
+    v1_pipe = ControlAnimatePipeline(
+        v1_cfg, models=EngineModels(unet=unet_v1.to("cuda"), vae=models.vae),
+        text_stack=text, arch=arch_v1, device="cuda")
+    v1_sink = ArrayFrameSink()
+    v2v.vid2vid(config=v1_cfg, pipeline=v1_pipe, frame_source=ArrayFrameSource(video_768),
+                frame_sink=v1_sink, max_windows=1)
+    head = frames_n - overlap  # window 1's frames that window 2 does not blend
+    if len(v1_sink.frames) != head:
+        raise AssertionError(f"one injected v1 window wrote {len(v1_sink.frames)} frames")
+    diff_v1 = np.abs(np.stack(frames_768[:head]).astype(np.int16)
+                     - np.stack(v1_sink.frames[:head]).astype(np.int16))
+    if diff_v1.max():
+        raise AssertionError(f"the 512x768 CLI run's first window differs from the injected "
+                             f"v1 pipeline's by {int(diff_v1.max())}")
+    del unet_v1, v2_state, v1_pipe, v1_sink, diff_v1
+    shutil.rmtree(SNAPSHOT)
+    phase("disk", t0, snapshot_write_seconds=round(write_seconds, 4),
+          snapshot_bytes=snapshot_bytes, cli_512x512=fields_512,
+          cli_512x768={**loop_fields(summary, seconds, peak),
+                       "uint8_diff_vs_injected_v1_first_window_max": 0,
+                       "k1_launches": sum(k1_768.values()), "k2_launches": sum(k2_768.values()),
+                       "k1_launches_by_shape": {str(k): n for k, n in sorted(k1_768.items())},
+                       "k2_launches_by_shape": {str(k): n for k, n in sorted(k2_768.items())},
+                       "timers": summary["timers"]})
+    del frames_768, video_768, plain_frames
     torch.cuda.empty_cache()
 
     # -- K1 at every shape the window phase launched it with --------------
@@ -1393,7 +1724,7 @@ def main() -> int:
     gen.manual_seed(SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for shape in sorted(by_shape) + ODD_SHAPES:
+    for shape in sorted(set(by_shape) | set(k1_768)) + ODD_SHAPES:
         err_bf16 = check_kernel(torch, fa, shape, torch.bfloat16, gen)
         err_fp32 = check_kernel(torch, fa, shape, torch.float32, gen)
         B, Nq, Nk, H, D = shape
@@ -1404,9 +1735,13 @@ def main() -> int:
         iters = 10 if Nq >= 1024 else 50
         row = {
             "shape": list(shape), "launches": by_shape.get(shape, 0),
+            "launches_512x768": k1_768.get(shape, 0),
             "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
             "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), iters),
-            "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v), iters),
+            # the plain version is timed on the main path's shapes only (the
+            # 512x768 shapes are checked against it above)
+            "plain_ms": None if shape in k1_768 else cuda_ms(
+                torch, lambda: fa.flash_attention_plain(q, k, v), iters),
             "library_ms": cuda_ms(torch, lambda: sdpa(qt, kt, vt), iters),
         }
         row["ops_ms"], row["bytes_ms"] = attention_bound_ms(shape, 2)
@@ -1420,25 +1755,29 @@ def main() -> int:
         torch.cuda.empty_cache()
     by_row = {tuple(r["shape"]): r for r in rows}
 
-    def window_sums(full, overlapped):
+    def window_sums(full, overlapped, lat=(size // 8, size // 8),
+                    keys=("ms", "plain_ms", "library_ms", "bound_ms")):
         """K1's per-launch times summed over one window's launches."""
-        weights = expected_k1_launches(full, overlapped, steps, frames_n, overlap)
+        weights = expected_k1_launches(full, overlapped, steps, frames_n, overlap, latent=lat)
         return {key: sum(n * by_row[shape][key] for shape, n in weights.items())
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for key in keys}
 
     phase("kernels", t0, shapes=len(rows), per_full_window=window_sums(1, 0),
-          per_overlap_window=window_sums(0, 1))
+          per_overlap_window=window_sums(0, 1),
+          per_full_window_512x768=window_sums(1, 0, latent, UNTIMED_PLAIN),
+          per_overlap_window_512x768=window_sums(0, 1, latent, UNTIMED_PLAIN))
 
     # -- K2 at every shape the vid2vid phase launched it with -------------
     t0 = time.perf_counter()
     k2_by_shape = v2v_counts["k2_by_shape"]
     k2_rows = []
-    for shape in sorted({key[:5] for key in k2_by_shape}) + K2_ODD_SHAPES:
+    k2_launched = {**k2_by_shape, **k2_768}
+    for shape in sorted({key[:5] for key in k2_launched}) + K2_ODD_SHAPES:
         err_bf16 = check_k2(torch, ck, shape, torch.bfloat16, gen)
         err_fp32 = check_k2(torch, ck, shape, torch.float32, gen)
         x, w, bias, affine, res = k2_inputs(torch, shape, torch.bfloat16, gen)
         w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        variants = sorted({key[5:] for key in k2_by_shape if key[:5] == shape}) or [(True, True)]
+        variants = sorted({key[5:] for key in k2_launched if key[:5] == shape}) or [(True, True)]
         B, H, W, Cin, Cout = shape
         iters = 3 if 2 * 9 * B * H * W * Cin * Cout > 2e11 else 10
         for has_affine, has_res in variants:
@@ -1449,10 +1788,11 @@ def main() -> int:
             row = {
                 "shape": list(shape), "affine_silu": has_affine, "residual": has_res,
                 "launches": k2_by_shape.get(shape + (has_affine, has_res), 0),
+                "launches_512x768": k2_768.get(shape + (has_affine, has_res), 0),
                 "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
                 "ms": cuda_ms(torch, lambda: ck.conv3x3_fused(x, w, bias, **kw), iters),
-                "plain_ms": cuda_ms(torch, lambda: ck.conv3x3_fused_plain(x, w, bias, **kw),
-                                    iters),
+                "plain_ms": None if shape + (has_affine, has_res) in k2_768 else cuda_ms(
+                    torch, lambda: ck.conv3x3_fused_plain(x, w, bias, **kw), iters),
                 "library_ms": cuda_ms(
                     torch, lambda: torch.nn.functional.conv2d(z, w_oihw, bias.to(z.dtype),
                                                               padding=1), iters),
@@ -1469,11 +1809,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     k2_by_row = {tuple(r["shape"]) + (r["affine_silu"], r["residual"]): r for r in k2_rows}
 
-    def k2_window_sums(full, overlapped):
+    def k2_window_sums(full, overlapped, hw=(size, size),
+                       keys=("ms", "plain_ms", "library_ms", "bound_ms")):
         """K2's per-launch times summed over one window's launches."""
-        weights = expected_k2_launches(models.vae, size, frames_n, overlap, full, overlapped)
-        return {key: sum(n * k2_by_row[k][key] for k, n in weights.items())
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        weights = expected_k2_launches(models.vae, hw, frames_n, overlap, full, overlapped)
+        return {key: sum(n * k2_by_row[k][key] for k, n in weights.items()) for key in keys}
 
     # the GroupNorm fold before K2, at the largest input the path folds
     B, H, W, Cin = max((key[:4] for key in k2_by_shape if key[5]), key=math.prod)
@@ -1486,7 +1826,9 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
     phase("kernels_k2", t0, shapes=len(k2_rows), per_full_window=k2_window_sums(1, 0),
-          per_overlap_window=k2_window_sums(0, 1))
+          per_overlap_window=k2_window_sums(0, 1),
+          per_full_window_512x768=k2_window_sums(1, 0, (height_768, size), UNTIMED_PLAIN),
+          per_overlap_window_512x768=k2_window_sums(0, 1, (height_768, size), UNTIMED_PLAIN))
 
     # -- K3 at every shape the window_motion_kernel phase launched it with --
     t0 = time.perf_counter()

@@ -269,11 +269,9 @@ _TUPLE_KEYS = frozenset({
 })
 
 
-def require_ported(cfg: RunConfig, *, disk_build: bool = False) -> None:
+def require_ported(cfg: RunConfig) -> None:
     """Raise NotImplementedError, naming the key, for any setting whose
-    behaviour the port lacks (the facade and the vid2vid loop both call this).
-    `textual_inversion_paths` is read only by a disk build, so it is checked
-    only when `disk_build` is set."""
+    behaviour the port lacks (the facade and the vid2vid loop both call this)."""
     unported = {
         "use_face_enhancer": (cfg.use_face_enhancer, "face restoration (M12b)"),
         "parallel_segments": (cfg.parallel_segments > 1, "segment-parallel runs (M15)"),
@@ -282,8 +280,6 @@ def require_ported(cfg: RunConfig, *, disk_build: bool = False) -> None:
         "do_initial_generation": (cfg.do_initial_generation, "IP-Adapter (M11)"),
         "controlnets": (bool(cfg.controlnets), "ControlNets (M9)"),
         "loop_back_frames": (cfg.loop_back_frames, "ControlNet loop-back (M9)"),
-        "textual_inversion_paths": (disk_build and bool(cfg.textual_inversion_paths),
-                                    "textual inversion (M8b)"),
         "temporal_band": (bool(cfg.temporal_band), "banded motion attention (M14)"),
         "token_merge_ratio": (bool(cfg.token_merge_ratio), "token merging (M14)"),
         "encoder_reuse_every": (bool(cfg.encoder_reuse_every), "encoder reuse (M14)"),

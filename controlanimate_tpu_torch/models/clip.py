@@ -32,6 +32,21 @@ class CLIPTextConfig:
     eos_token_id: int = 49407
     num_extra_embeddings: int = 0  # textual-inversion rows
 
+    @staticmethod
+    def from_json(cfg: dict, num_extra_embeddings: int = 0) -> "CLIPTextConfig":
+        """From an HF text_encoder config.json (the JAX `from_json`)."""
+        return CLIPTextConfig(
+            vocab_size=cfg.get("vocab_size", 49408),
+            hidden_size=cfg.get("hidden_size", 768),
+            num_layers=cfg.get("num_hidden_layers", 12),
+            num_heads=cfg.get("num_attention_heads", 12),
+            intermediate_size=cfg.get("intermediate_size", 3072),
+            max_position_embeddings=cfg.get("max_position_embeddings", 77),
+            layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
+            eos_token_id=cfg.get("eos_token_id", 49407),
+            num_extra_embeddings=num_extra_embeddings,
+        )
+
 
 def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..config import MotionModuleConfig
+from ..config import ArchConfig, MotionModuleConfig
 from .layers import TimestepEmbedding, timestep_embedding
 from .motion_module import MotionModule
 from .resnet3d import Downsample3D, InflatedConv, ResnetBlock3D, Upsample3D, VideoGroupNorm
@@ -62,6 +62,31 @@ class UNet3DConfig:
     temporal_attention: bool = False
     token_merge_ratio: float = 0.0
     token_merge_motion: bool = False
+
+    @staticmethod
+    def from_arch(arch: ArchConfig, unet_json: Optional[dict] = None) -> "UNet3DConfig":
+        """A diffusers unet config.json combined with the AnimateDiff
+        inference yaml's architecture (the JAX `UNet3DConfig.from_arch`)."""
+        j = unet_json or {}
+        return UNet3DConfig(
+            in_channels=j.get("in_channels", 4),
+            out_channels=j.get("out_channels", 4),
+            block_out_channels=tuple(j.get("block_out_channels", (320, 640, 1280, 1280))),
+            layers_per_block=j.get("layers_per_block", 2),
+            attention_heads=j.get("attention_head_dim", 8),
+            cross_attention_dim=j.get("cross_attention_dim", 768),
+            norm_num_groups=j.get("norm_num_groups", 32),
+            time_cond_proj_dim=j.get("time_cond_proj_dim"),
+            upcast_attention=bool(j.get("upcast_attention") or False),
+            use_motion_module=arch.use_motion_module,
+            use_inflated_groupnorm=arch.use_inflated_groupnorm,
+            motion_module_resolutions=arch.motion_module_resolutions,
+            motion_module_mid_block=arch.motion_module_mid_block,
+            motion_module_decoder_only=arch.motion_module_decoder_only,
+            motion=arch.motion_module,
+            cross_frame_attention=arch.unet_use_cross_frame_attention,
+            temporal_attention=arch.unet_use_temporal_attention,
+        )
 
 
 class _Block(nn.Module):

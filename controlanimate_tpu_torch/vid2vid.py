@@ -7,7 +7,8 @@ device stitch (color match, overlap blend, I420) -> deferred emit to the
 sink, with checkpoint / resume, cooperative cancel and txt2vid up to
 `total_frames`. Frames stay on the device from the decode to the emit; each
 window is read back once, into pinned host memory, while the next window
-computes.
+computes. Without an injected pipeline the models are built from the model
+zoo the config names (`pipelines/facade.py` `build_from_disk`).
 
 With `upscale` > 1 each emitted window goes through the RealESRGAN
 `Upscaler` (`models/upscaler.py`, its x4 tail on K4) on the device right
@@ -186,6 +187,7 @@ def vid2vid(
     max_windows: Optional[int] = None,
     progress=None,
     should_stop=None,
+    device="cuda",
 ) -> dict:
     """Run the vid2vid loop; returns a summary dict (frames written, seed,
     output path, windows, canceled, phase timers).
@@ -193,8 +195,9 @@ def vid2vid(
     `pipeline` needs `animate(input_frames, last_output_frames, *, overlaps,
     strength, seed, epoch)` returning a window's (F, H, W, 3) uint8 frames on
     its device, and a `device` attribute; None builds
-    `ControlAnimatePipeline(config)`, which needs the disk build (not ported
-    yet). `upscaler` needs `upscale_batch_device(frames)` mapping (F, H, W, 3)
+    `ControlAnimatePipeline(config, device=device)` from the model zoo on
+    disk, timed as the `build_pipeline` phase (`device` is used for nothing
+    else). `upscaler` needs `upscale_batch_device(frames)` mapping (F, H, W, 3)
     uint8 device frames to upscaled ones; None builds
     `Upscaler(config.upscale, ...)` from `upscaler_model_path` when
     `upscale` > 1. `progress`, if given, is called after every window with
@@ -221,10 +224,12 @@ def vid2vid(
     resumed = _load_state(out_dir) if cfg.resume else None
 
     # the models first: a missing weights file raises before any file opens
+    timers = PhaseTimers()
     if pipeline is None:
         from .pipelines.facade import ControlAnimatePipeline
 
-        pipeline = ControlAnimatePipeline(cfg)
+        with timers.phase("build_pipeline"):
+            pipeline = ControlAnimatePipeline(cfg, device=device)
     device = torch.device(getattr(pipeline, "device", "cuda"))
     if upscaler is None and upscale > 1.0:
         from .models.upscaler import Upscaler
@@ -268,7 +273,6 @@ def vid2vid(
                 str(out_dir / "frames"), start_index=resumed[2] if resumed else 0)
     sink_pix_fmt = getattr(frame_sink, "pix_fmt", "rgb24")
 
-    timers = PhaseTimers()
     with contextlib.ExitStack() as cleanup:
         if own_source and frame_source is not None:
             cleanup.callback(frame_source.close)

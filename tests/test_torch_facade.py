@@ -94,8 +94,9 @@ def test_default_noise_is_seeded(pipelines):
 
 
 def test_unported_facade_paths_raise():
-    with pytest.raises(NotImplementedError):
-        tfacade.ControlAnimatePipeline(RunConfig(**CFG))
+    # the disk build too rejects a run without use_lcm, before it reads a file
+    with pytest.raises(NotImplementedError, match="use_lcm"):
+        tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, "use_lcm": False}))
     _, _, tunet = unet_pair()
     _, _, tvae = vae_pair()
     _, _, tclip = clip_pair()

@@ -1,7 +1,8 @@
 """The port on a CUDA card: K1, K2, K3 and K4 against their plain versions, a
 small pipeline on the card against the same pipeline on the CPU (without
-the optional kernels, with K2, and with K3), and a small RealESRGAN upscaler
-(its x4 tail on K4) on the card against the CPU.
+the optional kernels, with K2, and with K3), a small pipeline built from
+disk against the injected one, and a small RealESRGAN upscaler (its x4 tail
+on K4) on the card against the CPU.
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -100,6 +101,16 @@ def test_small_pipeline_card_matches_cpu(cuda):
 
     ref = chip_smoke.small_reference(torch)
     assert ref["max_lsb"] <= 1, ref
+
+
+def test_small_disk_built_pipeline_equals_injected(cuda, tmp_path):
+    """A small bf16 pipeline built from a snapshot on disk (safetensors
+    components, a motion checkpoint with its PE tables) against the injected
+    pipeline of the same weights, both on the card: frames equal."""
+    import chip_smoke
+
+    ref = chip_smoke.small_disk_reference(torch, tmp_path / "snapshot")
+    assert ref["max_lsb"] == 0 and ref["config_equal"], ref
 
 
 @pytest.mark.parametrize("shape", [

@@ -1,7 +1,8 @@
 """The port stands alone: no file of controlanimate_tpu_torch/, nor
-chip_smoke.py or k4_split.py, imports jax, flax, the JAX package or cv2
-(the card's machine has no OpenCV), nor yaml at module level; and the
-package imports in a process where none of them can be imported."""
+chip_smoke.py or k4_split.py, imports jax, flax, the JAX package, cv2 (the
+card's machine has no OpenCV) or safetensors (the port reads the format
+itself), nor yaml at module level; and the package imports in a process
+where none of them can be imported."""
 
 import ast
 import subprocess
@@ -13,7 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "controlanimate_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                    ROOT / "k4_split.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "controlanimate_tpu", "cv2"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "controlanimate_tpu", "cv2", "safetensors"}
 
 
 def _imports(tree):
@@ -39,7 +40,8 @@ def test_no_forbidden_imports(path):
 def test_package_imports_without_jax():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'yaml', 'controlanimate_tpu', 'cv2'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'yaml', 'controlanimate_tpu', 'cv2',\n"
+        "             'safetensors'):\n"
         "    sys.modules[name] = None  # any import of these now raises\n"
         "import importlib, pkgutil, controlanimate_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"

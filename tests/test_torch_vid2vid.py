@@ -14,6 +14,7 @@ package's, and NotImplementedError for each setting the port lacks."""
 
 import dataclasses
 import glob
+import json
 
 import jax
 import jax.numpy as jnp
@@ -455,10 +456,21 @@ def test_unported_settings_raise(tmp_path, key):
             text_stack=tfacade.TextStack(CLIPTokenizer.tiny(), tclip), device="cpu")
 
 
-def test_textual_inversion_raises_only_for_a_disk_build():
-    cfg = RunConfig()
+def test_textual_inversion_raises_only_for_a_disk_build(tmp_path):
+    """The default TI path names a file that is not in the repo: a disk build
+    raises FileNotFoundError for it, a run on an injected pipeline never reads
+    it."""
+    cfg = RunConfig(**{**BASE, "output_video_dir": str(tmp_path)})
     assert cfg.textual_inversion_paths  # the default is not empty
     require_ported(cfg)
-    with pytest.raises(NotImplementedError, match="textual_inversion_paths"):
-        require_ported(cfg, disk_build=True)
-    require_ported(cfg.replace(textual_inversion_paths=()), disk_build=True)
+    sink = tmedia.ArrayFrameSink()
+    tv2v.vid2vid(config=cfg, pipeline=StubPipeline(16), frame_sink=sink, max_windows=1)
+    assert sink.frames
+    tokenizer = tmp_path / "snapshot" / "tokenizer"
+    tokenizer.mkdir(parents=True)
+    (tokenizer / "vocab.json").write_text(json.dumps(CLIPTokenizer.tiny().vocab))
+    (tokenizer / "merges.txt").write_text("#version: 0.2\n")
+    with pytest.raises(FileNotFoundError, match="easynegative"):
+        tv2v.vid2vid(config=cfg.replace(use_lcm=True,
+                                        pretrained_lcm_model_path=str(tokenizer.parent)),
+                     device="cpu")
