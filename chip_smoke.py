@@ -31,9 +31,12 @@ Phases, each printed as one JSON line with its seconds:
              (64 features, 1 block, 2 frames of 64x64) on the card against
              the same on the CPU, at scale 4 and at scale 2 (the x4 network
              then Lanczos4): uint8 within 1 LSB, K4's launches nonzero;
-             then a small bf16 pipeline built from disk (a snapshot written
-             from seeded weights, inference-v2.yaml) against the injected
-             pipeline of the same weights, both on the card: frames equal.
+             then the face step (`small_face_reference`: a tiny GFPGAN and
+             the real-architecture RetinaFace on a 96x80 frame, two faces
+             given by landmarks) on the card against the CPU: the
+             detector's outputs within 1e-3 of their largest value, the
+             aligned crops equal, the restored crops and the frame pasted
+             at 2x within 1 LSB.
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -93,23 +96,42 @@ Phases, each printed as one JSON line with its seconds:
              text_encoder/ as config.json + safetensors written by
              `save_safetensors`, tokenizer/ with the tiny vocabulary, and
              AnimateDiff v2 and v1 motion checkpoints with their PE tables
-             by torch.save) and the 40 frames as PNG directories; runs
+             by torch.save), the upscaler and face models (below), and the
+             frames of each run as PNG directories; runs
              `python -m controlanimate_tpu_torch --config` in-process on
              it, frames from the PNG directory and PNGs out (no ffmpeg):
              at 512x512 on inference-v2.yaml with K2 off, whose frames must
              equal the vid2vid_plain_conv phase's (same bf16 weights, noise
              and kernels; when they do not, the injected loop runs again
-             and the difference may not exceed that rerun's); then at
-             512x768 on inference-v1.yaml (no mid-block motion module,
-             non-inflated GroupNorm, PE 24 long) with K2 on, 40 frames of
-             (768, 512), whose K1 and K2 launches by shape must equal what
-             the UNet and the VAE imply at 96x64 latents, and whose first
-             window's unblended frames must equal the injected pipeline's
-             on inference-v1.yaml with the same weights. Prints the
+             and the difference may not exceed that rerun's); then the
+             whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
+             inference-v1.yaml (no mid-block motion module, non-inflated
+             GroupNorm, PE 24 long) with K2 on, `upscale` 2 (the
+             vid2vid_upscale phase's RealESRGAN, its tail on K4, then
+             Lanczos4), the face enhancer with `upscale_first` 1 (a
+             full-width GFPGANv1.3 and RetinaFace-ResNet50, seeded, written
+             into the snapshot in their release layouts), over 24 frames
+             (one whole and one overlap-8 window) to (1536, 1024) PNGs.
+             Its K1, K2 and K4 launches by shape must equal what the UNet,
+             the VAE and the upscaler's chunking imply, and its frames must
+             equal those of the injected pipeline on inference-v1.yaml with
+             the same weights through an Upscaler read from the same files
+             (difference 0). The seeded detector finds no face at 0.97
+             (`retinaface_checkpoint`), so nothing is restored there; the
+             run reports the faces found and the detector's time a frame
+             (CUDA events). Prints the
              snapshot's write seconds and bytes, each run's disk-build
              seconds (the loop's `build_pipeline` timer), loop seconds and
              new frames/s (the PNG source and sink included), peak memory
              and timers; deletes the snapshot.
+  face       the face step at full width on the card, on the disk phase's
+             upscaled (1536, 1024) frames: the GFPGANv1.3 and RetinaFace of
+             the snapshot, three faces a frame given by landmarks (widths
+             0.45, 0.3 and 0.18 of the frame, rotated), one warm-up frame
+             and FACE_FRAMES timed ones. Each stage timed by CUDA events:
+             the detector, the alignment, GFPGAN and the paste; peak
+             memory. Fails if GFPGAN's fp32 output is not finite, or a
+             paste leaves its face's centre unchanged.
   kernels    K1 against its plain version at every shape the window phase
              and the disk phase's 512x768 run launched it with, plus odd
              lengths, in bf16 and fp32 (`k1_mismatch` states the gates),
@@ -141,7 +163,10 @@ Phases, each printed as one JSON line with its seconds:
              activity, without the waits for the host that the CUDA-event
              times include).
   kernels_k4 K4 against its plain version at every shape vid2vid_upscale
-             launched it with (bf16 as launched, fp32 at batch 1), plus odd
+             launched it with and at the disk phase's 512x768 run's (bf16
+             as launched, there each frame of the batch against the plain
+             version on that frame alone; fp32 at batch 1; the plain
+             version not timed at the 512x768 shapes), plus odd
              shapes in both modes (H and W off the tiles, H = 1,
              Ci = Co = 32, B = 3, Ci = 128), in bf16 and fp32 (`k4_mismatch`
              states the gates), each called with the weights folded in the
@@ -217,6 +242,7 @@ K4_ODD_SHAPES = [(2, 9, 37, 64, 64), (1, 1, 16, 64, 64), (1, 13, 21, 32, 32), (3
 RRDB_LAST_GAIN = 0.3
 WINDOWS = 4  # timed windows of each kind
 V2V_OVERLAP_WINDOWS = 3  # overlap windows after the vid2vid phase's first window
+FACE_FRAMES = 3  # the face phase's timed frames (after one warm-up frame)
 # what the kernels phases sum at the 512x768 shapes, whose plain versions
 # are checked but not timed
 UNTIMED_PLAIN = ("ms", "library_ms", "bound_ms")
@@ -649,25 +675,31 @@ def k4_inputs(torch, shape, dtype, gen):
     return x, w, bias
 
 
-def check_k4(torch, uk, shape, upsample: bool, dtype, gen) -> float:
+def check_k4(torch, uk, shape, upsample: bool, dtype, gen, by_frame: bool = False) -> float:
     """K4 at (B, H, W, Ci, Co) in one mode, with leaky ReLU, against its
     plain version, called with the weights folded in the call and with them
     folded once (`packed`, as the upscaler and the timed call pass them):
-    both within the gates and equal bit for bit; max abs error."""
+    equal bit for bit, and within the gates; max abs error. With `by_frame`
+    the plain version runs on one frame at a time and each frame of the
+    batched call is held to the gates on its own."""
     x, w, bias = k4_inputs(torch, shape, dtype, gen)
-    ref = uk.upconv3x3_plain(x, w, bias, upsample=upsample, act="lrelu")
     out = uk.upconv3x3(x, w, bias, upsample=upsample, act="lrelu")
     packed = uk.kernel_weights(w, dtype, upsample)
-    for name, got in (("folded in the call", out),
-                      ("packed", uk.upconv3x3(x, w, bias, upsample=upsample, act="lrelu",
-                                              packed=packed))):
-        bad = k4_mismatch(torch, got, ref)
+    got = uk.upconv3x3(x, w, bias, upsample=upsample, act="lrelu", packed=packed)
+    if not torch.equal(got, out):
+        raise AssertionError(f"K4 {shape} upsample={upsample} {dtype}: packed weights "
+                             f"give another output than weights folded in the call")
+    del got
+    err = 0.0
+    for i in range(shape[0]) if by_frame else [None]:
+        part = slice(None) if i is None else slice(i, i + 1)
+        ref = uk.upconv3x3_plain(x[part], w, bias, upsample=upsample, act="lrelu")
+        bad = k4_mismatch(torch, out[part], ref)
         if bad:
-            raise AssertionError(f"K4 {shape} upsample={upsample} {dtype}, weights {name}: {bad}")
-        if not torch.equal(got, out):
-            raise AssertionError(f"K4 {shape} upsample={upsample} {dtype}: packed weights "
-                                 f"give another output than weights folded in the call")
-    return (out.float() - ref.float()).abs().max().item()
+            raise AssertionError(f"K4 {shape} upsample={upsample} {dtype}, frame {i}: {bad}")
+        err = max(err, (out[part].float() - ref.float()).abs().max().item())
+        del ref
+    return err
 
 
 def init_rrdbnet_(torch, net, gen, last_gain: float) -> None:
@@ -703,20 +735,220 @@ def small_upscaler_reference(torch, scale: float) -> dict:
     return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.mean())}
 
 
-def expected_k4_launches(upscaler, emits: list[int], size: int) -> dict:
+def expected_k4_launches(upscaler, emits: list[int], hw: tuple[int, int]) -> dict:
     """K4 launches by (B, H, W, Ci, Co, upsample) for emits of `emits`
-    frames of size x size: each chunk of the upscaler's runs up1 and up2
-    (upsample) and conv_hr (conv)."""
+    frames of hw = (height, width): each chunk of the upscaler's runs up1
+    and up2 (upsample) and conv_hr (conv)."""
     from collections import Counter
 
     nf = upscaler.model.conv_hr.out_channels
+    h, w = hw
     out = Counter()
     for n in emits:
-        for c in upscaler.chunk_sizes(n, size, size):
-            out[(c, size, size, nf, nf, True)] += 1
-            out[(c, 2 * size, 2 * size, nf, nf, True)] += 1
-            out[(c, 4 * size, 4 * size, nf, nf, False)] += 1
+        for c in upscaler.chunk_sizes(n, h, w):
+            out[(c, h, w, nf, nf, True)] += 1
+            out[(c, 2 * h, 2 * w, nf, nf, True)] += 1
+            out[(c, 4 * h, 4 * w, nf, nf, False)] += 1
     return dict(out)
+
+
+def face_landmarks(np, h: int, w: int, faces) -> list:
+    """5-point landmarks of faces at (centre x, centre y, width, angle), the
+    first three in fractions of the frame: the FFHQ template scaled to the
+    face's width (its eyes 126 px apart at 512) and rotated."""
+    from controlanimate_tpu_torch.models.face_align import FFHQ_TEMPLATE_512
+
+    out = []
+    for cx, cy, fw, angle in faces:
+        c, s = math.cos(angle), math.sin(angle)
+        pts = (FFHQ_TEMPLATE_512 - 256.0) * (fw * w / 512.0)
+        pts = pts @ np.array([[c, s], [-s, c]], np.float32)
+        out.append((pts + np.array([cx * w, cy * h], np.float32)).astype(np.float32))
+    return out
+
+
+# the face phase's faces, a frame: (centre x, centre y, width) in fractions of
+# the frame, and the angle
+FACES = ((0.3, 0.35, 0.45, 0.1), (0.72, 0.3, 0.3, -0.25), (0.55, 0.75, 0.18, 0.4))
+
+
+def init_gfpgan_(torch, model, gen) -> None:
+    """Seeded weights for a GFPGANv1Clean on its device: `init_weights_`,
+    then each modulated conv's weight N(0, 1 / (C k k)) (its fan-in), the
+    modulations' biases 1 (as upstream initialises them) and the noise
+    weights 0.1."""
+    init_weights_(torch, model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim == 5:
+                p.normal_(0.0, 1.0 / math.sqrt(p[0, 0].numel()), generator=gen)
+            elif name.endswith("modulation.bias"):
+                p.fill_(1.0)
+            elif p.ndim == 1 and name.endswith(".weight") and p.numel() == 1:
+                p.fill_(0.1)
+
+
+def gfpgan_checkpoint(torch, model) -> dict:
+    """`model`'s weights in the GFPGANv1.3 release layout, on the CPU:
+    `params_ema`, with the style MLP and the training-only `toRGB` heads an
+    upstream checkpoint carries (the port's loader drops them)."""
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    style = model.num_style_feat
+    for i in range(1, 17, 2):
+        sd[f"stylegan_decoder.style_mlp.{i}.weight"] = torch.zeros(style, style)
+        sd[f"stylegan_decoder.style_mlp.{i}.bias"] = torch.zeros(style)
+    for i, block in enumerate(model.conv_body_up):
+        c = block.conv2.out_channels
+        sd[f"toRGB.{i}.weight"] = torch.zeros(3, c, 1, 1)
+        sd[f"toRGB.{i}.bias"] = torch.zeros(3)
+    return {"params_ema": sd}
+
+
+def retinaface_checkpoint(torch, gen) -> dict:
+    """A seeded detection_Resnet50_Final state dict in facexlib's layout, on
+    the CPU: each conv without bias (lecun-normal) followed by a BatchNorm
+    with its running statistics (weight 1 + N(0, 0.01), bias, mean N(0,
+    0.01), var 1 + U(0, 0.1)), and the heads' biased 1x1 convs, the class
+    head's weights 1e-4 of lecun-normal: its logits stay near its biases,
+    so no anchor's score reaches 0.97 and the detector finds no face (with
+    a lecun-normal class head it fires on many anchors, and the profile
+    would restore dozens of faces a frame)."""
+    from controlanimate_tpu_torch.models.retinaface import RetinaFaceNet
+
+    with torch.device("meta"):
+        folded = RetinaFaceNet().state_dict()
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=gen.device).mul_(std).cpu()
+
+    def bn_name(conv: str) -> str:
+        if conv == "body.conv1":
+            return "body.bn1"
+        if conv.endswith(".0"):  # downsample.0, fpn.*.0, ssh*.*.0
+            return conv[:-2] + ".1"
+        return conv[:-len("conv1")] + "bn" + conv[-1]  # body.layerL.B.convC
+
+    sd = {}
+    for key, t in folded.items():
+        conv = key.rsplit(".", 1)[0]
+        if key.endswith(".bias") and "Head" in key:
+            sd[key] = randn(*t.shape, std=0.01)
+        elif key.endswith(".weight"):
+            gain = 1e-4 if key.startswith("ClassHead") else 1.0
+            sd[key] = randn(*t.shape, std=gain / math.sqrt(t[0].numel()))
+            if "Head" not in key:
+                c, bn = t.shape[0], bn_name(conv)
+                sd[f"{bn}.weight"] = 1.0 + randn(c, std=0.01)
+                sd[f"{bn}.bias"] = randn(c, std=0.01)
+                sd[f"{bn}.running_mean"] = randn(c, std=0.01)
+                sd[f"{bn}.running_var"] = 1.0 + 0.1 * torch.rand(c, generator=gen,
+                                                                 device=gen.device).cpu()
+                sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def small_face_reference(torch) -> dict:
+    """The face step on the card against the CPU, same weights and noise: a
+    tiny GFPGAN (out 64, style 32, narrow 1/8, seeded) and the
+    real-architecture RetinaFace (seeded, BN folded) on a 96x80 frame with
+    two faces given by landmarks. Gates, each in fp32 with TF32 off: the
+    detector's three outputs within 1e-3 of their largest value; the
+    aligned crops equal (the warp's float64 arithmetic is exact on both);
+    the restored crops within 1 LSB (GFPGAN's convs sum in another order);
+    the frame with both faces pasted into its 2x Lanczos4 resize within
+    1 LSB."""
+    import copy
+
+    import numpy as np
+
+    from controlanimate_tpu_torch.models import face_align
+    from controlanimate_tpu_torch.models.gfpgan import FaceEnhancer, GFPGANv1Clean, SeededNoise
+    from controlanimate_tpu_torch.models.retinaface import (BGR_MEAN, RetinaFaceDetector,
+                                                            RetinaFaceNet, fp32_convs,
+                                                            retinaface_state_dict)
+
+    gen = torch.Generator().manual_seed(SEED)
+    gfp = GFPGANv1Clean(out_size=64, num_style_feat=32, narrow=0.125)
+    init_gfpgan_(torch, gfp, gen)
+    net = RetinaFaceNet()
+    net.load_state_dict(retinaface_state_dict(retinaface_checkpoint(torch, gen)))
+    noise = SeededNoise(SEED, "cpu")
+    frame = synthetic_video(np, 1, 96, 80, SEED)[0]
+    lms = face_landmarks(np, 96, 80, FACES[:2])
+    out, sides = {}, {}
+    for device in ("cpu", "cuda"):
+        fe = FaceEnhancer(face_size=64, model=copy.deepcopy(gfp),
+                          detector=RetinaFaceDetector(model=copy.deepcopy(net), device=device),
+                          noise=_DeviceNoise(noise, device), device=device)
+        f = torch.from_numpy(frame).to(device)
+        x = (f.flip(-1).float() - torch.tensor(BGR_MEAN, device=device)).permute(2, 0, 1)[None]
+        with torch.no_grad(), fp32_convs():
+            heads = [t.cpu() for t in fe.detector.model(x)]
+        crops = [face_align.align_face(f, lm, 64) for lm in lms]
+        restored = [fe.restore_aligned(c) for c, _ in crops]
+        fe.detect_landmarks = lambda frame, **kw: lms  # the faces are given
+        pasted = fe.enhance(f, upscale=2.0)
+        sides[device] = (heads, [c.cpu() for c, _ in crops], [r.cpu() for r in restored],
+                         pasted.cpu())
+    (h_cpu, c_cpu, r_cpu, p_cpu), (h_gpu, c_gpu, r_gpu, p_gpu) = sides["cpu"], sides["cuda"]
+    out["detector_rel_err"] = max(float((a - b).abs().max() / a.abs().max())
+                                  for a, b in zip(h_cpu, h_gpu))
+    out["crop_max_lsb"] = max(int((a.int() - b.int()).abs().max()) for a, b in zip(c_cpu, c_gpu))
+    out["restore_max_lsb"] = max(int((a.int() - b.int()).abs().max())
+                                 for a, b in zip(r_cpu, r_gpu))
+    diff = (p_cpu.int() - p_gpu.int()).abs()
+    out["paste_max_lsb"], out["paste_mean_lsb"] = int(diff.max()), float(diff.float().mean())
+    return out
+
+
+class _DeviceNoise:
+    """A `FaceNoise` drawn on the CPU and moved to `device`, so a CPU and a
+    CUDA run see the same numbers."""
+
+    def __init__(self, src, device):
+        self.src, self.device = src, device
+
+    def draw(self, number, shape):
+        return self.src.draw(number, shape).to(self.device)
+
+
+def time_face_steps(torch, np, fe, frames) -> dict:
+    """The face step's stages on each (H, W, 3) uint8 card frame, timed by
+    CUDA events: the detector (`detect_landmarks`, its readback included),
+    then for each of the FACES, given by landmarks, the alignment, GFPGAN
+    and the paste into the frame at 1x. Fails if a paste leaves the 16 x 16
+    pixels around its face's centre unchanged or the frame goes
+    non-finite. Returns each stage's ms summed over the frames, and the
+    faces the detector found."""
+    from controlanimate_tpu_torch.models.face_align import align_face, paste_face
+
+    events = {"detect": [], "align": [], "gfpgan": [], "paste": []}
+
+    def timed(stage, fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        events[stage].append((a, b))
+        return out
+
+    found = 0
+    for f in frames:
+        found += len(timed("detect", lambda: fe.detect_landmarks(f)))
+        bg = f.float()
+        for lm in face_landmarks(np, f.shape[0], f.shape[1], FACES):
+            crop, affine = timed("align", lambda: align_face(f, lm, fe.face_size))
+            restored = timed("gfpgan", lambda: fe.restore_aligned(crop))
+            pasted = timed("paste", lambda: paste_face(bg, restored, affine))
+            cx, cy = (int(v) for v in lm.mean(0))
+            if torch.equal(pasted[cy - 8:cy + 8, cx - 8:cx + 8], bg[cy - 8:cy + 8, cx - 8:cx + 8]):
+                raise AssertionError(f"the paste left the face at ({cx}, {cy}) unchanged")
+            bg = pasted
+        if not bool(torch.isfinite(bg).all()):
+            raise AssertionError("the face step made non-finite values")
+    torch.cuda.synchronize()
+    return {"ms": {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()},
+            "faces_found": found}
 
 
 def unet_k3_calls(unet, latent: int):
@@ -1232,12 +1464,13 @@ def main() -> int:
     ref_up4 = small_upscaler_reference(torch, 4.0)
     ref_up2 = small_upscaler_reference(torch, 2.0)
     k4_ref_launches = uk.upconv3x3.launches
+    ref_face = small_face_reference(torch)
     phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
           k2_launches=k2_ref_launches, k3_max_lsb=ref_k3["max_lsb"],
           k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches,
           upscale4_max_lsb=ref_up4["max_lsb"], upscale4_mean_lsb=ref_up4["mean_lsb"],
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
-          k4_launches=k4_ref_launches)
+          k4_launches=k4_ref_launches, face=ref_face)
     for r in (ref, ref_k2, ref_k3):
         if r["max_lsb"] > 1:
             raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB")
@@ -1250,6 +1483,9 @@ def main() -> int:
         raise AssertionError(f"the reference with {MOTION_ENV}=1 launched no K3")
     if k4_ref_launches == 0:
         raise AssertionError("the reference upscalers launched no K4")
+    if (ref_face["detector_rel_err"] > 1e-3 or ref_face["crop_max_lsb"]
+            or ref_face["restore_max_lsb"] > 1 or ref_face["paste_max_lsb"] > 1):
+        raise AssertionError(f"the card's face step differs from the CPU's: {ref_face}")
 
     # -- the main path ----------------------------------------------------
     t0 = time.perf_counter()
@@ -1528,7 +1764,7 @@ def main() -> int:
     if any(f.shape != (up_size, up_size, 3) or f.dtype != np.uint8 for f in up_frames):
         raise AssertionError(f"upscaled frames are not ({up_size}, {up_size}, 3) uint8")
     emits = [frames_n - overlap] * v2v_windows + [overlap]
-    k4_expected = expected_k4_launches(upscaler, emits, size)
+    k4_expected = expected_k4_launches(upscaler, emits, (size, size))
     k4_by_shape = counts["k4_by_shape"]
     if k4_by_shape != k4_expected:
         raise AssertionError(f"vid2vid_upscale K4 launches {k4_by_shape}, expected {k4_expected}")
@@ -1584,8 +1820,28 @@ def main() -> int:
     snapshot_bytes = write_snapshot(torch, SNAPSHOT, models, text, SD15_LCM_UNET_JSON,
                                     SD_VAE_JSON, {"mm_v2.ckpt": (True, 32),
                                                   "mm_v1.ckpt": (False, 24)})
+    # the shipped LCM profile's upscaler and face models: the vid2vid_upscale
+    # phase's RealESRGAN, a full-width GFPGANv1.3 (out 512, channel
+    # multiplier 2, style 512) and RetinaFace-ResNet50 with BN statistics
+    from controlanimate_tpu_torch.models.gfpgan import GFPGANv1Clean
+
+    fgen = torch.Generator(device="cuda")
+    fgen.manual_seed(SEED)
+    with torch.device("cuda"):
+        gfpgan = GFPGANv1Clean()
+    init_gfpgan_(torch, gfpgan, fgen)
+    retina_ckpt = retinaface_checkpoint(torch, fgen)
+    for fname, obj in (("RealESRGAN_x4plus_anime_6B.pth", {"params_ema": rrdb.state_dict()}),
+                       ("GFPGANv1.3.pth", gfpgan_checkpoint(torch, gfpgan)),
+                       ("detection_Resnet50_Final.pth", retina_ckpt)):
+        torch.save(obj, SNAPSHOT / fname)
+        snapshot_bytes[fname] = (SNAPSHOT / fname).stat().st_size
+    face_paths = {"upscaler_model_path": str(SNAPSHOT / "RealESRGAN_x4plus_anime_6B.pth"),
+                  "face_enhancer_model_path": str(SNAPSHOT / "GFPGANv1.3.pth"),
+                  "face_detector_model_path": str(SNAPSHOT / "detection_Resnet50_Final.pth")}
     height_768 = 768
-    video_768 = synthetic_video(np, len(video), height_768, size, SEED)
+    # one whole window and one overlap-8 window
+    video_768 = synthetic_video(np, 2 * frames_n - overlap, height_768, size, SEED)
     write_frames(np, SNAPSHOT / "frames_512x512", video)
     write_frames(np, SNAPSHOT / "frames_512x768", video_768)
     write_seconds = time.perf_counter() - t1
@@ -1618,7 +1874,8 @@ def main() -> int:
         seconds = time.perf_counter() - t1
         counts = {"k1_by_shape": dict(fa.flash_attention.launches_by_shape),
                   "k2_by_shape": dict(ck.conv3x3_fused.launches_by_shape),
-                  "k3": mk.motion_module_fused.launches, "k4": uk.upconv3x3.launches}
+                  "k3": mk.motion_module_fused.launches, "k4": uk.upconv3x3.launches,
+                  "k4_by_shape": dict(uk.upconv3x3.launches_by_shape)}
         return (summary, read_frames(np, out_dir / "frames"), seconds, counts,
                 torch.cuda.max_memory_allocated())
 
@@ -1654,68 +1911,129 @@ def main() -> int:
     fields_512.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del disk_frames, diff
 
-    # 512x768 with inference-v1.yaml (the shipped LCM profile's geometry and
-    # architecture: no mid-block motion module, PE 24 long), K2 on
+    # the whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
+    # inference-v1.yaml (no mid-block motion module, PE 24 long), K2 on,
+    # upscale 2 (RealESRGAN x4 with its tail on K4, then Lanczos4 to
+    # 1024x1536), the face enhancer with upscale_first 1
     latent = (height_768 // 8, size // 8)
+    up_h, up_w = 2 * height_768, 2 * size
     summary, frames_768, seconds, counts, peak = run_cli(
         "disk_512x768", input_video_path=str(SNAPSHOT / "frames_512x768"), width=size,
         height=height_768, inference_config_path=str(INFERENCE_V1),
-        motion_module=str(SNAPSHOT / "mm_v1.ckpt"), use_pallas_conv=1)
-    if summary["frames_written"] != len(video) or len(frames_768) != len(video):
+        motion_module=str(SNAPSHOT / "mm_v1.ckpt"), use_pallas_conv=1, upscale=2,
+        use_face_enhancer=1, upscale_first=1, **face_paths)
+    if summary["frames_written"] != len(video_768) or len(frames_768) != len(video_768):
         raise AssertionError(f"the 512x768 CLI run wrote {summary['frames_written']} frames "
-                             f"({len(frames_768)} PNGs) of {len(video)}")
-    if any(f.shape != (height_768, size, 3) for f in frames_768):
-        raise AssertionError("the 512x768 CLI run's frames are not (768, 512, 3)")
+                             f"({len(frames_768)} PNGs) of {len(video_768)}")
+    if any(f.shape != (up_h, up_w, 3) for f in frames_768):
+        raise AssertionError(f"the 512x768 CLI run's frames are not ({up_h}, {up_w}, 3)")
     if float(np.stack(frames_768).std()) == 0.0:
         raise AssertionError("the 512x768 CLI run's frames are constant")
+    if summary["faces"]["frames_searched"] != len(video_768):
+        raise AssertionError(f"the face detector searched {summary['faces']} frames")
     k1_768 = counts["k1_by_shape"]
-    k1_768_expected = expected_k1_launches(1, V2V_OVERLAP_WINDOWS, steps, frames_n, overlap,
-                                           latent=latent)
+    k1_768_expected = expected_k1_launches(1, 1, steps, frames_n, overlap, latent=latent)
     if k1_768 != k1_768_expected:
         raise AssertionError(f"512x768 K1 launches {k1_768}, expected {k1_768_expected}")
     k2_768 = counts["k2_by_shape"]
-    k2_768_expected = expected_k2_launches(models.vae, (height_768, size), frames_n, overlap, 1,
-                                           V2V_OVERLAP_WINDOWS)
+    k2_768_expected = expected_k2_launches(models.vae, (height_768, size), frames_n, overlap, 1, 1)
     if k2_768 != k2_768_expected:
         raise AssertionError(f"512x768 K2 launches {k2_768}, expected {k2_768_expected}")
-    if counts["k3"] or counts["k4"]:
-        raise AssertionError(f"the 512x768 CLI run launched K3 or K4: {counts}")
-    # its first window against the injected pipeline of the same weights on
-    # inference-v1.yaml: the window phase's UNet without the mid block's
-    # motion module (parameters shared), same settings and noise
+    if counts["k3"]:
+        raise AssertionError(f"the 512x768 CLI run launched K3: {counts}")
+    # the injected pipeline of the same weights on inference-v1.yaml (the
+    # window phase's UNet without the mid block's motion module, parameters
+    # shared), same settings and noise, through an Upscaler read from the
+    # same files: every frame equal
     arch_v1 = ArchConfig.from_yaml(INFERENCE_V1)
     with torch.device("meta"):
         unet_v1 = UNet3DConditionModel(UNet3DConfig.from_arch(arch_v1, SD15_LCM_UNET_JSON))
     v2_state = models.unet.state_dict()
     unet_v1.load_state_dict({k: v2_state[k] for k in unet_v1.state_dict()}, assign=True)
     v1_cfg = cfg.replace(use_pallas_conv=True, seed=SEED, overlap_strength=cfg.strength,
-                         width=size, height=height_768, upscale=1.0,
+                         width=size, height=height_768, upscale=2.0, use_face_enhancer=True,
+                         upscale_first=True,
                          output_video_dir=str(ROOT / "build" / "chip_smoke_vid2vid" / "v1"))
     v1_pipe = ControlAnimatePipeline(
         v1_cfg, models=EngineModels(unet=unet_v1.to("cuda"), vae=models.vae),
         text_stack=text, arch=arch_v1, device="cuda")
+    v1_upscaler = Upscaler(2.0, model_path=face_paths["upscaler_model_path"],
+                           dtype=torch.bfloat16, device="cuda", use_face_enhancer=True,
+                           upscale_first=True,
+                           face_enhancer_model_path=face_paths["face_enhancer_model_path"],
+                           face_detector_model_path=face_paths["face_detector_model_path"])
+    k4_768 = counts["k4_by_shape"]
+    k4_768_expected = expected_k4_launches(v1_upscaler, [frames_n - overlap] * 3,
+                                           (height_768, size))
+    if k4_768 != k4_768_expected:
+        raise AssertionError(f"512x768 K4 launches {k4_768}, expected {k4_768_expected}")
     v1_sink = ArrayFrameSink()
     v2v.vid2vid(config=v1_cfg, pipeline=v1_pipe, frame_source=ArrayFrameSource(video_768),
-                frame_sink=v1_sink, max_windows=1)
-    head = frames_n - overlap  # window 1's frames that window 2 does not blend
-    if len(v1_sink.frames) != head:
-        raise AssertionError(f"one injected v1 window wrote {len(v1_sink.frames)} frames")
-    diff_v1 = np.abs(np.stack(frames_768[:head]).astype(np.int16)
-                     - np.stack(v1_sink.frames[:head]).astype(np.int16))
-    if diff_v1.max():
-        raise AssertionError(f"the 512x768 CLI run's first window differs from the injected "
-                             f"v1 pipeline's by {int(diff_v1.max())}")
-    del unet_v1, v2_state, v1_pipe, v1_sink, diff_v1
+                frame_sink=v1_sink, upscaler=v1_upscaler)
+    if len(v1_sink.frames) != len(frames_768):
+        raise AssertionError(f"the injected v1 run wrote {len(v1_sink.frames)} frames")
+    diff_v1 = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                  for a, b in zip(frames_768, v1_sink.frames))
+    if diff_v1:
+        raise AssertionError(f"the 512x768 CLI run's frames differ from the injected v1 "
+                             f"pipeline's through the same upscaler by {diff_v1}")
+    # the detector alone on an upscaled frame, by CUDA events
+    detector = v1_upscaler.face_enhancer.detector
+    frame_up = torch.from_numpy(frames_768[0]).cuda()
+    detector_ms = cuda_ms(torch, lambda: detector.detect_faces(frame_up), 5)
+    del unet_v1, v2_state, v1_pipe, v1_sink, v1_upscaler, detector, frame_up
     shutil.rmtree(SNAPSHOT)
     phase("disk", t0, snapshot_write_seconds=round(write_seconds, 4),
           snapshot_bytes=snapshot_bytes, cli_512x512=fields_512,
-          cli_512x768={**loop_fields(summary, seconds, peak),
-                       "uint8_diff_vs_injected_v1_first_window_max": 0,
+          cli_512x768={**loop_fields(summary, seconds, peak), "frame_shape": [up_h, up_w, 3],
+                       "uint8_diff_vs_injected_v1_max": 0,
+                       "upscale_seconds": summary["timers"]["upscale"]["total_s"],
+                       "detector_ms_per_frame": detector_ms, "faces": summary["faces"],
                        "k1_launches": sum(k1_768.values()), "k2_launches": sum(k2_768.values()),
+                       "k4_launches": sum(k4_768.values()),
                        "k1_launches_by_shape": {str(k): n for k, n in sorted(k1_768.items())},
                        "k2_launches_by_shape": {str(k): n for k, n in sorted(k2_768.items())},
+                       "k4_launches_by_shape": {str(k): n for k, n in sorted(k4_768.items())},
                        "timers": summary["timers"]})
-    del frames_768, video_768, plain_frames
+    del plain_frames
+    torch.cuda.empty_cache()
+
+    # -- the face step at full width on the upscaled frames -----------------
+    from controlanimate_tpu_torch.models import face_align
+    from controlanimate_tpu_torch.models.gfpgan import FaceEnhancer
+    from controlanimate_tpu_torch.models.retinaface import (RetinaFaceDetector, RetinaFaceNet,
+                                                            fp32_convs, retinaface_state_dict)
+
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        retina = RetinaFaceNet()
+    retina.load_state_dict(retinaface_state_dict(retina_ckpt))
+    fe = FaceEnhancer(model=gfpgan, detector=RetinaFaceDetector(model=retina, device="cuda"),
+                      device="cuda")
+    face_frames = [torch.from_numpy(f).cuda() for f in frames_768[:FACE_FRAMES + 1]]
+    with torch.no_grad():  # GFPGAN's fp32 output on one crop, before the uint8 rounding
+        crop, _ = face_align.align_face(face_frames[0], face_landmarks(
+            np, up_h, up_w, FACES)[0], fe.face_size)
+        with fp32_convs():
+            y = fe.model((crop.float() / 127.5 - 1.0).permute(2, 0, 1)[None], fe.noise)
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("GFPGAN's output is not finite")
+    time_face_steps(torch, np, fe, face_frames[:1])  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps_ms = time_face_steps(torch, np, fe, face_frames[1:])
+    n_faces = FACE_FRAMES * len(FACES)
+    phase("face", t0, frame_shape=[up_h, up_w, 3], frames=FACE_FRAMES,
+          faces_given_per_frame=len(FACES), faces_found=steps_ms["faces_found"],
+          detector_ms_per_frame=steps_ms["ms"]["detect"] / FACE_FRAMES,
+          align_ms_per_face=steps_ms["ms"]["align"] / n_faces,
+          gfpgan_ms_per_face=steps_ms["ms"]["gfpgan"] / n_faces,
+          paste_ms_per_face=steps_ms["ms"]["paste"] / n_faces,
+          ms_per_frame=sum(steps_ms["ms"].values()) / FACE_FRAMES,
+          gfpgan_params=sum(p.numel() for p in gfpgan.parameters()),
+          gfpgan_output_abs_max=float(y.abs().max()),
+          max_memory_allocated=torch.cuda.max_memory_allocated())
+    del fe, gfpgan, retina, retina_ckpt, face_frames, frames_768, crop, y
     torch.cuda.empty_cache()
 
     # -- K1 at every shape the window phase launched it with --------------
@@ -1878,10 +2196,15 @@ def main() -> int:
     F = torch.nn.functional
     k4_rows = []
     launched = sorted(k4_by_shape)
+    launched_768 = sorted(set(k4_768) - set(k4_by_shape))
     odd = [shape + (up,) for shape in K4_ODD_SHAPES for up in (True, False)]
-    for key in launched + odd:
+    for key in launched + launched_768 + odd:
         shape, upsample = key[:5], key[5]
-        err_bf16 = check_k4(torch, uk, shape, upsample, torch.bfloat16, gen)
+        # bf16 as launched; at the 512x768 run's shapes the plain version
+        # runs a frame at a time (its fp32 copies of 8 frames at 3072x2048
+        # would hold about 40 GB)
+        err_bf16 = check_k4(torch, uk, shape, upsample, torch.bfloat16, gen,
+                            by_frame=key in launched_768)
         torch.cuda.empty_cache()
         # fp32 at batch 1 of a launched shape: the batch of 8 at 2048^2 with
         # the plain version's fp32 copies would hold about 40 GB
@@ -1902,13 +2225,16 @@ def main() -> int:
         packed = uk.kernel_weights(w, x.dtype, upsample)  # folded once, as the upscaler does
         row = {
             "shape": list(shape), "upsample": upsample, "launches": k4_by_shape.get(key, 0),
+            "launches_512x768": k4_768.get(key, 0),
             "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
             "ms": cuda_ms(torch, lambda: uk.upconv3x3(x, w, bias, upsample=upsample,
                                                       act="lrelu", packed=packed), 10),
             "unpacked_ms": cuda_ms(torch, lambda: uk.upconv3x3(x, w, bias, upsample=upsample,
                                                                act="lrelu"), 10),
-            "plain_ms": cuda_ms(torch, lambda: uk.upconv3x3_plain(x, w, bias, upsample=upsample,
-                                                                  act="lrelu"), iters),
+            # the plain version is timed on the main path's shapes only
+            "plain_ms": None if key in launched_768 else cuda_ms(
+                torch, lambda: uk.upconv3x3_plain(x, w, bias, upsample=upsample, act="lrelu"),
+                iters),
             "library_ms": cuda_ms(torch, library, iters),
         }
         row["ops_ms"], row["bytes_ms"], row["folded_gflop"] = upconv_bound_ms(shape, upsample, 2)
@@ -1918,7 +2244,7 @@ def main() -> int:
         row["tflops"] = row["useful_gflop"] / row["ms"]
         row["gbs"] = row["bytes_ms"] * PEAK_BYTES / 1e9 / row["ms"]
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        if key in k4_by_shape:
+        if key in k4_by_shape or key in k4_768:
             row["plan"] = uk.kernel_plan(*shape, upsample)
         k4_rows.append(row)
         print(json.dumps({"k4": row}), flush=True)
@@ -1928,7 +2254,10 @@ def main() -> int:
     per_frame = {k: sum(n * k4_by_row[key][k] for key, n in k4_by_shape.items()) / len(video)
                  for k in ("ms", "unpacked_ms", "plain_ms", "library_ms", "bound_ms",
                            "folded_gflop", "useful_gflop")}
-    phase("kernels_k4", t0, shapes=len(k4_rows), per_frame=per_frame)
+    per_frame_768 = {k: sum(n * k4_by_row[key][k] for key, n in k4_768.items()) / len(video_768)
+                     for k in ("ms", "unpacked_ms", "library_ms", "bound_ms", "useful_gflop")}
+    phase("kernels_k4", t0, shapes=len(k4_rows), per_frame=per_frame,
+          per_frame_512x768=per_frame_768)
 
     def path_sum(by_row, by_shape, key):
         """`key` summed over one path's launches (launches x per-launch value

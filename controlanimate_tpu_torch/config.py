@@ -273,7 +273,6 @@ def require_ported(cfg: RunConfig) -> None:
     """Raise NotImplementedError, naming the key, for any setting whose
     behaviour the port lacks (the facade and the vid2vid loop both call this)."""
     unported = {
-        "use_face_enhancer": (cfg.use_face_enhancer, "face restoration (M12b)"),
         "parallel_segments": (cfg.parallel_segments > 1, "segment-parallel runs (M15)"),
         "mesh_shape": (bool(cfg.mesh_shape), "device meshes (M15)"),
         "use_ipadapter": (cfg.use_ipadapter, "IP-Adapter (M11)"),

@@ -1,9 +1,9 @@
 """RealESRGAN x4 (RRDBNet, the anime_6B variant) and the `Upscaler` facade.
 
-Counterpart of `controlanimate_tpu/models/upscaler.py` without the face
-enhancer. `RRDBNet` keeps basicsr's module names (`conv_first`,
-`body.{i}.rdb{r}.conv{c}`, `conv_body`, `conv_up1`, `conv_up2`, `conv_hr`,
-`conv_last`), so a RealESRGAN `.pth` loads with plain `load_state_dict`. The
+Counterpart of `controlanimate_tpu/models/upscaler.py`. `RRDBNet` keeps
+basicsr's module names (`conv_first`, `body.{i}.rdb{r}.conv{c}`,
+`conv_body`, `conv_up1`, `conv_up2`, `conv_hr`, `conv_last`), so a
+RealESRGAN `.pth` loads with plain `load_state_dict`. The
 body runs the torch-literal concat dataflow of the dense blocks on
 `F.conv2d` (the JAX package's `sum` and `s2d` forms are TPU layout choices);
 the x4 tail (nearest-2x + conv_up1, nearest-2x + conv_up2, conv_hr, each with
@@ -15,6 +15,14 @@ dtype of its input, which the `Upscaler` sets to the run dtype (the flax
 policy the JAX package follows), so K4's folded weights are bf16(w1 + w2) of
 the fp32 weights. `RRDBNet` folds and casts them once per parameter version
 and dtype, not once per call.
+
+With `use_face_enhancer` the `Upscaler` runs GFPGAN's `FaceEnhancer`
+(`models/gfpgan.py`) after the network, frame by frame on the device, in
+the JAX `process_batch`'s two orders: `upscale_first` finds and restores
+faces at 1x on the upscaled frame; otherwise faces are found on the input
+frame and pasted into the upscaled background at `scale`. JAX behaviour not
+copied: a missing GFPGAN file raises FileNotFoundError (the JAX `Upscaler`
+drops the face enhancer and upscales only).
 """
 
 from __future__ import annotations
@@ -152,18 +160,25 @@ def realesrgan_state_dict(obj) -> dict:
 
 class Upscaler:
     """RealESRGAN x4 on uint8 frames, then a Lanczos4 resize to `scale` when
-    it is not 4 (reference: modules/upscaler.py; the JAX `Upscaler` without
-    the face enhancer, which is not ported).
+    it is not 4, then the face enhancer when asked for (reference:
+    modules/upscaler.py; the JAX `Upscaler`).
 
     `model` is an `RRDBNet` to use as it is (moved to `device`); without one,
     the network is read from `model_path` (RealESRGAN_x4plus_anime_6B by
     default) with `torch.load(weights_only=True)`, and a missing file raises
     FileNotFoundError. `dtype` is the compute dtype (the run dtype); the
-    parameters stay fp32 on `device`."""
+    parameters stay fp32 on `device`. With `use_face_enhancer`, a
+    `FaceEnhancer` is read from `face_enhancer_model_path` and
+    `face_detector_model_path` (`face_enhancer_kwargs`: its `face_size`,
+    `model_kwargs`, `noise`); a missing file raises FileNotFoundError."""
 
     def __init__(self, scale: float, model: Optional[RRDBNet] = None,
                  model_path: Optional[str] = None, num_block: int = 6,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                 dtype: torch.dtype = torch.bfloat16, device="cuda",
+                 use_face_enhancer: bool = False, upscale_first: bool = False,
+                 face_enhancer_model_path: Optional[str] = None,
+                 face_detector_model_path: Optional[str] = None,
+                 face_enhancer_kwargs: Optional[dict] = None):
         if not (1 < scale < 8):
             raise ValueError("upscale must be within (1, 8) (reference: upscaler.py:64)")
         self.scale = float(scale)
@@ -177,6 +192,15 @@ class Upscaler:
             sd = torch.load(str(path), map_location="cpu", weights_only=True)
             model.load_state_dict(realesrgan_state_dict(sd))
         self.model = model.to(self.device).eval()
+        self.upscale_first = bool(upscale_first)
+        self.face_enhancer = None
+        if use_face_enhancer:
+            from .gfpgan import FaceEnhancer
+
+            self.face_enhancer = FaceEnhancer(face_enhancer_model_path,
+                                              detector_path=face_detector_model_path,
+                                              device=self.device,
+                                              **(face_enhancer_kwargs or {}))
 
     def chunk_frames(self, n: int, h: int, w: int) -> int:
         """Frames a pass through the network takes. The tail holds two
@@ -203,12 +227,13 @@ class Upscaler:
     @torch.no_grad()
     def upscale_batch_device(self, frames: torch.Tensor) -> torch.Tensor:
         """(F, H, W, 3) uint8 -> (F, int(H * scale), int(W * scale), 3) uint8
-        on the upscaler's device, with no host round trip: x / 255 in fp32,
-        the network in the compute dtype, clip(y * 255 + 0.5, 0, 255)
-        truncated to uint8 (the JAX `_jit_tail_u8` formula, here in fp32; the
-        JAX package evaluates it in the compute dtype, which in bf16 rounds
-        y * 255 to 1 LSB steps above 128), then Lanczos4 when the scale is
-        not 4."""
+        on the upscaler's device, with no host round trip of the frames: x /
+        255 in fp32, the network in the compute dtype, clip(y * 255 + 0.5, 0,
+        255) truncated to uint8 (the JAX `_jit_tail_u8` formula, here in
+        fp32; the JAX package evaluates it in the compute dtype, which in
+        bf16 rounds y * 255 to 1 LSB steps above 128), then Lanczos4 when the
+        scale is not 4, then the face enhancer, frame by frame (only the
+        detector's anchors over its threshold come back to the host)."""
         frames = torch.as_tensor(frames).to(self.device)
         n, h, w = (int(s) for s in frames.shape[:3])
         out, i = [], 0
@@ -220,7 +245,15 @@ class Upscaler:
             if abs(self.scale - NET_SCALE) > 1e-6:
                 u8 = resize_lanczos4(u8, int(h * self.scale), int(w * self.scale))
             out.append(u8)
-        return out[0] if len(out) == 1 else torch.cat(out)
+        up = out[0] if len(out) == 1 else torch.cat(out)
+        if self.face_enhancer is not None:
+            for k in range(n):
+                if self.upscale_first:
+                    up[k] = self.face_enhancer.enhance(up[k])
+                else:
+                    up[k] = self.face_enhancer.enhance(frames[k], background=up[k],
+                                                       upscale=self.scale)
+        return up
 
     def upscale_batch(self, frames: np.ndarray) -> np.ndarray:
         """(F, H, W, 3) uint8 on the host -> upscaled uint8 on the host."""
@@ -228,7 +261,7 @@ class Upscaler:
         return self.upscale_batch_device(frames).cpu().numpy()
 
     def process_batch(self, frames: np.ndarray) -> np.ndarray:
-        """The JAX `process_batch` without a face enhancer: `upscale_batch`."""
+        """The JAX `process_batch`: `upscale_batch`, the face step included."""
         return self.upscale_batch(frames)
 
     def __call__(self, frame: np.ndarray) -> np.ndarray:

@@ -11,11 +11,13 @@ computes. Without an injected pipeline the models are built from the model
 zoo the config names (`pipelines/facade.py` `build_from_disk`).
 
 With `upscale` > 1 each emitted window goes through the RealESRGAN
-`Upscaler` (`models/upscaler.py`, its x4 tail on K4) on the device right
-after the stitch, and is packed to I420 there when the sink takes yuv420p
-(upscale 1 or 4, as in the JAX loop), before its readback starts; the tail
-flush after the loop goes through it too. The sink is opened at the
-upscaled size.
+`Upscaler` (`models/upscaler.py`, its x4 tail on K4; with
+`use_face_enhancer`, GFPGAN's face restoration after it, in the
+`upscale_first` order the config names) on the device right after the
+stitch, and is packed to I420 there when the sink takes yuv420p (upscale 1,
+or 4 without the face enhancer, as in the JAX loop), before its readback
+starts; the tail flush after the loop goes through it too. The sink is
+opened at the upscaled size.
 
 Host / device overlap, as in the JAX loop: with `overlap_host_work` a worker
 thread reads window N+1 and uploads it on a side CUDA stream while window N
@@ -23,8 +25,8 @@ runs; the main stream waits on that upload's event. The checkpoint worker
 reads the stitch state back on its own thread; the stitch returns new tensors
 and nothing writes into them, so a snapshot may hold references.
 
-Not ported yet, and rejected by `config.require_ported`: the face enhancer,
-segment-parallel runs, ControlNets, IP-Adapter. The C++ ring buffer frame
+Not ported yet, and rejected by `config.require_ported`: segment-parallel
+runs, ControlNets, IP-Adapter. The C++ ring buffer frame
 pipe (`use_native_framepipe`) is not ported: the loop takes the Python
 ffmpeg pipe, as the JAX loop does where that pipe cannot be built. JAX
 behaviours not copied: a missing RealESRGAN file raises FileNotFoundError
@@ -199,9 +201,11 @@ def vid2vid(
     disk, timed as the `build_pipeline` phase (`device` is used for nothing
     else). `upscaler` needs `upscale_batch_device(frames)` mapping (F, H, W, 3)
     uint8 device frames to upscaled ones; None builds
-    `Upscaler(config.upscale, ...)` from `upscaler_model_path` when
-    `upscale` > 1. `progress`, if given, is called after every window with
-    {"windows", "frames_written", "frames_generated"}. `should_stop`, if
+    `Upscaler(config.upscale, ...)` from `upscaler_model_path` (and the face
+    models' paths with `use_face_enhancer`) when `upscale` > 1; with a face
+    enhancer the summary counts the faces its detector found. `progress`, if
+    given, is called after every window with {"windows", "frames_written",
+    "frames_generated"}. `should_stop`, if
     given, is polled at every window boundary; a truthy return stops the run
     as a `max_windows` interruption does (pending emits flush, a resumable
     checkpoint is saved) and the summary says `canceled`."""
@@ -235,7 +239,11 @@ def vid2vid(
         from .models.upscaler import Upscaler
 
         upscaler = Upscaler(upscale, model_path=cfg.upscaler_model_path,
-                            dtype=torch_dtype(cfg.dtype), device=device)
+                            dtype=torch_dtype(cfg.dtype), device=device,
+                            use_face_enhancer=cfg.use_face_enhancer,
+                            upscale_first=cfg.upscale_first,
+                            face_enhancer_model_path=cfg.face_enhancer_model_path,
+                            face_detector_model_path=cfg.face_detector_model_path)
 
     # frame source and sink
     own_source = frame_source is None
@@ -261,8 +269,11 @@ def vid2vid(
     if frame_sink is None:
         if media.ffmpeg_available(cfg.ffmpeg_path):
             # I420 halves the readback; the JAX loop packs it only at scale
-            # 1 or 4 (its device upscale path), and the port keeps that rule
-            pix_fmt = "yuv420p" if upscale == 1.0 or abs(upscale - 4.0) < 1e-6 else "rgb24"
+            # 1, or 4 without the face enhancer (its device upscale path), and
+            # the port keeps that rule
+            device_path = upscale == 1.0 or (abs(upscale - 4.0) < 1e-6
+                                             and not cfg.use_face_enhancer)
+            pix_fmt = "yuv420p" if device_path else "rgb24"
             frame_sink = media.FFMPEGFrameSink(
                 str(raw_video_path), out_w, out_h, cfg.fps,
                 crf=cfg.crf, ffmpeg_path=cfg.ffmpeg_path, pix_fmt=pix_fmt,
@@ -302,6 +313,9 @@ def vid2vid(
         output_path = frame_sink.dir
     else:
         output_path = final_path if final_path.exists() else raw_video_path
+    fe = getattr(upscaler, "face_enhancer", None)
+    if fe is not None:  # the detector's work, for the run's report
+        summary["faces"] = {"found": fe.faces_found, "frames_searched": fe.frames_searched}
     return {**summary, "output": str(output_path), "timers": timers.summary()}
 
 

@@ -6,19 +6,25 @@ UNet, the VAE, the CLIP text model or the RealESRGAN RRDBNet. The port's
 modules use the diffusers / HF / basicsr checkpoint key names, so the tables
 below are the inverse of the JAX package's checkpoint loaders
 (`controlanimate_tpu/weights/unet_weights.py`, `vae_weights.py`,
-`clip_weights.py`, `models/upscaler.py` `rrdbnet_params_from_torch`), copied
-here so the port never imports that package. Kinds: "conv" HWIO -> OIHW, "dense" (in, out) -> (out, in),
-"raw" as is.
+`clip_weights.py`, `models/upscaler.py` `rrdbnet_params_from_torch`,
+`models/gfpgan.py` `gfpgan_params_from_torch`, `models/retinaface.py`
+`retinaface_params_from_torch`), copied here so the port never imports that
+package. Kinds: "conv" HWIO -> OIHW, "dense" (in, out) -> (out, in), "raw"
+as is, "nchw" (1, H, W, C) -> (1, C, H, W), "lead1" with a leading axis of
+1 (a modulated conv's weight), "chan" (C,) -> (1, C, 1, 1), "vec1" () ->
+(1,).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Iterator
 
 import numpy as np
 import torch
 
 from ..models.clip import CLIPTextConfig
+from ..models.retinaface import RESNET50_STAGES, SSH_BRANCHES
 from ..models.unet3d import UNet3DConfig
 
 Entry = tuple[str, str, str]  # (torch key, flax path, kind)
@@ -215,6 +221,69 @@ def rrdbnet_mapping(num_block: int) -> Iterator[Entry]:
                 yield from _conv(f"body.{i}.rdb{r}.conv{c}", f"body_{i}/rdb{r}/conv{c}")
 
 
+def gfpgan_mapping(out_size: int) -> Iterator[Entry]:
+    """`GFPGANv1Clean`'s keys; the JAX tree has no style MLP either."""
+    log_size = int(math.log2(out_size))
+
+    def resblock(t, f):
+        yield from _conv(f"{t}.conv1", f"{f}/conv1")
+        yield from _conv(f"{t}.conv2", f"{f}/conv2")
+        yield f"{t}.skip.weight", f"{f}/skip/kernel", "conv"
+
+    def modconv(t, f):
+        yield f"{t}.weight", f"{f}/weight", "lead1"
+        yield from _dense(f"{t}.modulation", f"{f}/modulation")
+
+    def styleconv(t, f):
+        yield from modconv(f"{t}.modulated_conv", f"{f}/modulated_conv")
+        yield f"{t}.weight", f"{f}/noise_weight", "vec1"
+        yield f"{t}.bias", f"{f}/bias", "chan"
+
+    def torgb(t, f):
+        yield from modconv(f"{t}.modulated_conv", f"{f}/modulated_conv")
+        yield f"{t}.bias", f"{f}/bias", "chan"
+
+    yield from _conv("conv_body_first", "conv_body_first")
+    yield from _conv("final_conv", "final_conv")
+    yield from _dense("final_linear", "final_linear")
+    for i in range(log_size - 2):
+        yield from resblock(f"conv_body_down.{i}", f"conv_body_down_{i}")
+        yield from resblock(f"conv_body_up.{i}", f"conv_body_up_{i}")
+        for cond in ("condition_scale", "condition_shift"):
+            yield from _conv(f"{cond}.{i}.0", f"{cond}_{i}_0")
+            yield from _conv(f"{cond}.{i}.2", f"{cond}_{i}_2")
+    d = "stylegan_decoder"
+    yield f"{d}.constant_input.weight", f"{d}/constant_input", "nchw"
+    yield from styleconv(f"{d}.style_conv1", f"{d}/style_conv1")
+    yield from torgb(f"{d}.to_rgb1", f"{d}/to_rgb1")
+    for i in range((log_size - 2) * 2):
+        yield from styleconv(f"{d}.style_convs.{i}", f"{d}/style_convs_{i}")
+    for i in range(log_size - 2):
+        yield from torgb(f"{d}.to_rgbs.{i}", f"{d}/to_rgbs_{i}")
+
+
+def retinaface_mapping() -> Iterator[Entry]:
+    """`RetinaFaceNet`'s keys: its folded convs hold the checkpoint's conv
+    names, the JAX tree the flax module names."""
+    yield from _conv("body.conv1", "body/conv1")
+    for li, (_, blocks) in enumerate(RESNET50_STAGES, start=1):
+        for b in range(blocks):
+            t, f = f"body.layer{li}.{b}", f"body/layer{li}_{b}"
+            for c in (1, 2, 3):
+                yield from _conv(f"{t}.conv{c}", f"{f}/conv{c}")
+            if b == 0:
+                yield from _conv(f"{t}.downsample.0", f"{f}/downsample")
+    for name in ("output1", "output2", "output3", "merge1", "merge2"):
+        yield from _conv(f"fpn.{name}.0", f"fpn_{name}")
+    for i in (1, 2, 3):
+        for branch in SSH_BRANCHES:
+            yield from _conv(f"ssh{i}.{branch}.0", f"ssh{i}/{branch}")
+    for i in range(3):
+        for head, f in (("ClassHead", "class_head"), ("BboxHead", "bbox_head"),
+                        ("LandmarkHead", "landmark_head")):
+            yield from _conv(f"{head}.{i}.conv1x1", f"{f}_{i}")
+
+
 def _get(tree: dict, path: str):
     node = tree
     for part in path.split("/"):
@@ -230,6 +299,14 @@ def _state_dict(params: dict, mapping: Iterator[Entry]) -> dict[str, torch.Tenso
             arr = np.transpose(arr, (3, 2, 0, 1))
         elif kind == "dense":
             arr = arr.T
+        elif kind == "nchw":
+            arr = np.transpose(arr, (0, 3, 1, 2))
+        elif kind == "lead1":
+            arr = arr[None]
+        elif kind == "chan":
+            arr = arr.reshape(1, -1, 1, 1)
+        elif kind == "vec1":
+            arr = arr.reshape(1)
         out[tkey] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
 
@@ -248,3 +325,11 @@ def clip_text_state_dict(params: dict, cfg: CLIPTextConfig) -> dict[str, torch.T
 
 def rrdbnet_state_dict(params: dict, num_block: int) -> dict[str, torch.Tensor]:
     return _state_dict(params, rrdbnet_mapping(num_block))
+
+
+def gfpgan_state_dict(params: dict, out_size: int) -> dict[str, torch.Tensor]:
+    return _state_dict(params, gfpgan_mapping(out_size))
+
+
+def retinaface_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(params, retinaface_mapping())

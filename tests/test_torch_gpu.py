@@ -1,8 +1,10 @@
 """The port on a CUDA card: K1, K2, K3 and K4 against their plain versions, a
 small pipeline on the card against the same pipeline on the CPU (without
 the optional kernels, with K2, and with K3), a small pipeline built from
-disk against the injected one, and a small RealESRGAN upscaler (its x4 tail
-on K4) on the card against the CPU.
+disk against the injected one, a small RealESRGAN upscaler (its x4 tail
+on K4) on the card against the CPU, and the face step (RetinaFace, the
+aligned crop, GFPGAN, the paste, and the OpenCV stand-ins under them) on
+the card against the CPU.
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -362,3 +364,34 @@ def test_small_upscaler_card_matches_cpu(cuda, scale):
     ref = chip_smoke.small_upscaler_reference(torch, scale)
     assert ref["max_lsb"] <= 1, ref
     assert uk.upconv3x3.launches == 3
+
+
+def test_small_face_step_card_matches_cpu(cuda):
+    """`chip_smoke.small_face_reference`'s gates: the detector's outputs
+    within 1e-3 of their largest value, the crops equal, the restored crops
+    and the pasted frame within 1 LSB."""
+    import chip_smoke
+
+    ref = chip_smoke.small_face_reference(torch)
+    assert ref["detector_rel_err"] <= 1e-3 and ref["crop_max_lsb"] == 0, ref
+    assert ref["restore_max_lsb"] <= 1 and ref["paste_max_lsb"] <= 1, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_warp_ops_card_match_cpu(cuda, dtype):
+    """The OpenCV stand-ins compute the same on the card as on the CPU (the
+    warp's fused multiply-adds in float64; the blur two fp32 convolutions,
+    TF32 off)."""
+    import numpy as np
+
+    from controlanimate_tpu_torch.ops.warp import erode, gaussian_blur, warp_affine
+
+    g = torch.Generator().manual_seed(3)
+    src = (torch.rand((70, 90, 3), generator=g) * 255).to(dtype)
+    M = np.array([[0.9, -0.35, 12.5], [0.4, 1.1, -7.25]], np.float32)
+    want = warp_affine(src, M, (101, 77), (135, 133, 132))
+    assert torch.equal(warp_affine(src.to(cuda), M, (101, 77), (135, 133, 132)).cpu(), want)
+    mask = torch.rand((60, 80), generator=g)
+    assert torch.equal(erode(mask.to(cuda), 6).cpu(), erode(mask, 6))
+    torch.testing.assert_close(gaussian_blur(mask.to(cuda), 15).cpu(), gaussian_blur(mask, 15),
+                               atol=1e-6, rtol=0)

@@ -365,6 +365,54 @@ def test_loop_builds_the_upscaler_from_its_weights_file(tmp_path):
     np.testing.assert_array_equal(np.stack(sink.frames), want)
 
 
+def test_face_enhanced_stream_matches_jax(tmp_path, monkeypatch):
+    """`upscale: 2`, the face enhancer, `upscale_first: 1`, as
+    SampleConfigLCM.yaml sets them: 24 frames through both loops, each with
+    its package's Upscaler on the same RealESRGAN, GFPGAN and RetinaFace
+    files (tests/test_torch_face_enhance.py, which also runs the other
+    order), two faces given a frame."""
+    from test_torch_face_enhance import face_landmarks, face_upscaler_pair, write_face_checkpoints
+
+    from controlanimate_tpu.models import gfpgan as jg
+    from controlanimate_tpu_torch.models import gfpgan as tg
+
+    for cls in (jg.FaceEnhancer, tg.FaceEnhancer):
+        monkeypatch.setattr(cls, "detect_landmarks", lambda self, frame, **kw: face_landmarks(frame))
+    rrdb = tmp_path / "realesrgan.pth"
+    torch.save({"params_ema": seeded_rrdbnet(num_feat=64, num_block=1, seed=17).state_dict()}, rrdb)
+    ups = face_upscaler_pair((*write_face_checkpoints(tmp_path), str(rrdb)), 2.0, True)
+    j, t = _pair(tmp_path, _video(18, 24), upscalers=ups, upscale=2.0, use_face_enhancer=True,
+                 upscale_first=True)
+    _assert_same(j, t)
+    assert len(t[1]) == 24 and all(f.shape == (128, 128, 3) for f in t[1])
+    assert "faces" in t[0]  # the detector's counts (its search is replaced here)
+
+
+def test_loop_builds_the_face_enhancer_from_its_files(tmp_path):
+    """With `use_face_enhancer` the loop's Upscaler reads
+    `face_enhancer_model_path` and `face_detector_model_path`: a missing
+    file raises FileNotFoundError (the JAX loop upscales only, or falls
+    back to a Haar cascade)."""
+    from test_retinaface import synth_retinaface_sd
+
+    torch.save({"params_ema": seeded_rrdbnet(num_feat=64, num_block=6, seed=16).state_dict()},
+               tmp_path / "x4.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in synth_retinaface_sd().items()},
+               tmp_path / "retinaface.pth")
+    cfg = RunConfig(**{**BASE, "output_video_dir": str(tmp_path / "out"), "upscale": 2.0,
+                       "frame_count": 2, "overlap_length": 0, "dtype": "float32",
+                       "upscaler_model_path": str(tmp_path / "x4.pth"), "use_face_enhancer": True})
+    require_ported(cfg)
+    absent = str(tmp_path / "absent.pth")
+    for paths, what in (({"face_detector_model_path": absent}, "RetinaFace"),
+                        ({"face_detector_model_path": str(tmp_path / "retinaface.pth"),
+                          "face_enhancer_model_path": absent}, "GFPGAN")):
+        with pytest.raises(FileNotFoundError, match=what):
+            tv2v.vid2vid(config=cfg.replace(**paths), pipeline=StubPipeline(2),
+                         frame_source=tmedia.ArrayFrameSource(_video(19, 2)),
+                         frame_sink=tmedia.ArrayFrameSink())
+
+
 def test_tiny_real_pipeline_matches_jax(tmp_path):
     """The port's facade and loop against the JAX ones on the same tiny
     models and JAX noise: 8 frames, 3 windows (4 frames, overlap 2), LCM,
@@ -436,7 +484,7 @@ def test_unknown_keys_land_in_extras():
 
 
 UNPORTED = {
-    "use_face_enhancer": True, "parallel_segments": 4, "mesh_shape": (4, 2),
+    "parallel_segments": 4, "mesh_shape": (4, 2),
     "use_ipadapter": True, "do_initial_generation": True,
     "controlnets": ("lllyasviel/sd-controlnet-canny",), "loop_back_frames": True,
 }
