@@ -36,7 +36,15 @@ Phases, each printed as one JSON line with its seconds:
              given by landmarks) on the card against the CPU: the
              detector's outputs within 1e-3 of their largest value, the
              aligned crops equal, the restored crops and the frame pasted
-             at 2x within 1 LSB.
+             at 2x within 1 LSB; then canny on the card against canny on
+             the CPU on 2 synthetic frames at 512x512 and at 512x768, as
+             they are and with a hard-edged checkerboard added (`edge_rich`):
+             equal maps; the full HED network (seeded by `init_hed_`) on 2
+             frames of 64x80, card against CPU in fp32: within 1 LSB after
+             the uint8 quantisation; and the small pipeline with two
+             ControlNets of its UNet's down path (canny at 1.0, HED at 0.5)
+             on the card against the CPU in fp32: uint8 within 1 LSB, and
+             changed by the ControlNets.
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -78,8 +86,22 @@ Phases, each printed as one JSON line with its seconds:
              the same loop with `use_pallas_conv` off (time and uint8
              difference reported, not gated); then one line with both
              phases' peak memory and their difference (reported).
+  controlnet this slice's path: the same loop (K2 off) with two full-width
+             SD1.5 ControlNets (`lllyasviel/sd-controlnet-canny` at 1.0,
+             `lllyasviel/sd-controlnet-hed` at 0.5; seeded by
+             `init_weights_`, so their zero-conv heads are not zero) and a
+             full-width HED seeded by `init_hed_`: each window annotated on
+             the card, both nets run each step, their residuals summed into
+             the UNet. Checks 40 frames written, frames that differ from
+             vid2vid_plain_conv's, and K1's launches by shape: the UNet's,
+             the VAE's and each ControlNet's 7 self-attentions a step (488
+             at 512x512). Prints new frames/s beside vid2vid_plain_conv's,
+             peak memory, the loop's timers (`annotate` among them), and by
+             CUDA events each annotator's time on a 16-frame window and
+             each ControlNet's forwards of a window (also on the card
+             alone).
   vid2vid_upscale
-             this slice's path: the same loop (K2 off) with `upscale` 4 and
+             the upscale path: the same loop (K2 off) with `upscale` 4 and
              a full-width RealESRGAN x4 RRDBNet (64 features, 6 blocks,
              random weights seeded on the card, run in bf16), its tail on K4.
              Checks 40 frames of (2048, 2048, 3) uint8 written and K4's
@@ -104,6 +126,13 @@ Phases, each printed as one JSON line with its seconds:
              equal the vid2vid_plain_conv phase's (same bf16 weights, noise
              and kernels; when they do not, the injected loop runs again
              and the difference may not exceed that rerun's); then the
+             controlnet phase's profile: its two ControlNets written as
+             diffusers folders (config.json + safetensors) under the
+             snapshot's models/ControlNet/ and its HED as
+             models/annotators/ControlNetHED.pth, the CLI run from the
+             snapshot root, which finds them there: its frames must equal
+             the controlnet phase's (the same rerun rule) and its K1
+             launches by shape the same 488; then the
              whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
              inference-v1.yaml (no mid-block motion module, non-inflated
              GroupNorm, PE 24 long) with K2 on, `upscale` 2 (the
@@ -146,7 +175,8 @@ Phases, each printed as one JSON line with its seconds:
              time, its plain version's (at the 512x512 shapes only), one
              PyTorch call's (SDPA for K1, `F.conv2d` on the activated input
              for K2: yardsticks the port never calls) and the bound, and
-             their sums over a window at both geometries.
+             their sums over a window at both geometries, and K1's over the
+             vid2vid and controlnet phases' launches.
   kernels_k3 K3 against its plain version at every shape the
              window_motion_kernel phase launched it with, plus odd shapes
              (N = 37, F = 8 and 24, PE off, C = 64), in bf16 and fp32
@@ -194,7 +224,7 @@ import shutil
 import subprocess
 import sys
 import time
-from contextlib import contextmanager, redirect_stdout
+from contextlib import chdir, contextmanager, redirect_stdout
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -206,6 +236,12 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # count divisor against the latent, head dim, transformer blocks): 5 at each
 # of the full, 1/2 and 1/4 levels, 1 in the 1/8 mid block; 8 heads
 UNET_LEVELS = ((1, 40, 5), (4, 80, 5), (16, 160, 5), (64, 160, 1))
+# the same for one SD1.5 ControlNet (its down path and mid block): 2 at each
+# of the full, 1/2 and 1/4 levels, 1 in the mid block
+CONTROLNET_LEVELS = ((1, 40, 2), (4, 80, 2), (16, 160, 2), (64, 160, 1))
+# the controlnet phase's nets (their names pick canny and HED) and scales
+CN_NAMES = ("lllyasviel/sd-controlnet-canny", "lllyasviel/sd-controlnet-hed")
+CN_SCALES = (1.0, 0.5)
 
 
 def unet_k1_shapes(frames_n: int, latent: tuple[int, int]) -> dict:
@@ -1192,6 +1228,35 @@ def write_snapshot(torch, root: Path, models, text, unet_json: dict, vae_json: d
     return sizes
 
 
+def write_controlnets(torch, root: Path, nets: dict, hed) -> dict:
+    """The ControlNets `nets` (name -> model) as diffusers folders under
+    root/models/ControlNet/<last part of the name> (config.json with the
+    architecture fields and a safetensors file, in the models' dtype), and
+    `hed`'s weights as root/models/annotators/ControlNetHED.pth, where the
+    port looks for them from the working directory `root`. Returns the bytes
+    of each file."""
+    sizes = {}
+    for name, net in nets.items():
+        c = net.config
+        folder = root / "models" / "ControlNet" / name.split("/")[-1]
+        folder.mkdir(parents=True)
+        (folder / "config.json").write_text(json.dumps({
+            "block_out_channels": list(c.block_out_channels),
+            "layers_per_block": c.layers_per_block, "attention_head_dim": c.attention_heads,
+            "cross_attention_dim": c.cross_attention_dim, "norm_num_groups": c.norm_num_groups,
+            "down_block_types": [t.replace("3D", "2D") for t in c.down_block_types],
+            "conditioning_embedding_out_channels": [
+                net.controlnet_cond_embedding.conv_in.out_channels]
+            + [b.out_channels for b in net.controlnet_cond_embedding.blocks[1::2]]}))
+        path = folder / "diffusion_pytorch_model.safetensors"
+        sizes[str(path.relative_to(root))] = save_safetensors(torch, path, net.state_dict())
+    path = root / "models" / "annotators" / "ControlNetHED.pth"
+    path.parent.mkdir(parents=True)
+    torch.save({k: v.cpu() for k, v in hed.state_dict().items()}, path)
+    sizes[str(path.relative_to(root))] = path.stat().st_size
+    return sizes
+
+
 def write_frames(np, directory: Path, frames) -> None:
     """Frames as numbered PNGs (a frame directory the loop reads without
     ffmpeg)."""
@@ -1247,24 +1312,18 @@ def small_disk_reference(torch, root: Path) -> dict:
             "config_equal": disk.models.unet.config == models.unet.config}
 
 
-def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = False) -> dict:
-    """The same small pipeline (fp32, same weights and noise) on the CPU and
-    on the card: uint8 frames must agree within 1 LSB. Head dims 40/80 (UNet)
-    and 512 (VAE) put K1 on the card's path; with `conv_kernel` the VAE's
-    levels are 128 channels wide and `use_pallas_conv` is on, which puts K2
-    on it too; with `motion_kernel` both pipelines are built with
-    CONTROLANIMATE_PALLAS_MOTION=1, which puts the motion modules (80 and 160
-    channels, 2 heads) on K3."""
-    import copy
-
+def small_models(torch, dtype: str, conv_kernel: bool):
+    """The small pipeline's run config and its seeded models on the CPU: a
+    2-level UNet (80 and 160 channels, 2 heads: head dims 40 and 80), a VAE
+    whose mid block has 512 channels (128-channel levels with
+    `conv_kernel`), and a 2-layer text model; 4 frames of 64x64, 2 LCM steps."""
     from controlanimate_tpu_torch.config import MotionModuleConfig, RunConfig
     from controlanimate_tpu_torch.models.clip import CLIPTextConfig
     from controlanimate_tpu_torch.models.unet3d import UNet3DConfig
-    from controlanimate_tpu_torch.pipelines.facade import ControlAnimatePipeline
 
     cfg = RunConfig(width=64, height=64, frame_count=4, overlap_length=2, use_lcm=True,
                     steps=2, strength=0.9, lcm_origin_steps=8, prompt="a (red fox)+",
-                    dtype="float32", use_pallas_conv=conv_kernel)
+                    dtype=dtype, use_pallas_conv=conv_kernel)
     ucfg = UNet3DConfig(
         block_out_channels=(80, 160), layers_per_block=1,
         down_block_types=("CrossAttnDownBlock3D", "DownBlock3D"),
@@ -1276,6 +1335,22 @@ def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = Fals
                           intermediate_size=64, eos_token_id=513)
     vae_channels = (128, 128, 128, 512) if conv_kernel else (32, 64, 64, 512)
     models, text = build_models(torch, ucfg, vae_channels, ccfg, "cpu", SEED, vae_groups=8)
+    return cfg, models, text
+
+
+def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = False) -> dict:
+    """The same small pipeline (fp32, same weights and noise) on the CPU and
+    on the card: uint8 frames must agree within 1 LSB. Head dims 40/80 (UNet)
+    and 512 (VAE) put K1 on the card's path; with `conv_kernel` the VAE's
+    levels are 128 channels wide and `use_pallas_conv` is on, which puts K2
+    on it too; with `motion_kernel` both pipelines are built with
+    CONTROLANIMATE_PALLAS_MOTION=1, which puts the motion modules (80 and 160
+    channels, 2 heads) on K3."""
+    import copy
+
+    from controlanimate_tpu_torch.pipelines.facade import ControlAnimatePipeline
+
+    cfg, models, text = small_models(torch, "float32", conv_kernel)
     with motion_env(motion_kernel):
         cpu = ControlAnimatePipeline(cfg, models=models, text_stack=text, device="cpu")
         gpu = ControlAnimatePipeline(cfg, models=copy.deepcopy(models),
@@ -1286,6 +1361,125 @@ def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = Fals
     out_gpu = gpu.animate(frames, None, seed=SEED, noise=HostNoise(SEED, "cuda"))
     diff = (out_cpu.int() - out_gpu.cpu().int()).abs()
     return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.float().mean())}
+
+
+def init_hed_(torch, net, gen) -> None:
+    """Seeded HED weights whose edge maps stay off 0 and 1 on 0..255 frames:
+    the offset near the frames' mean, the first conv scaled down by 64,
+    kernels N(0, 2/fan_in) (ReLU), projections N(0, 1/fan_in), biases
+    N(0, 0.05^2); in place on the network's device."""
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name == "norm":
+                p.copy_(torch.tensor([120.0, 110.0, 100.0]).reshape(1, 3, 1, 1))
+            elif p.ndim == 4:
+                gain = 1.0 if "projection" in name else 2.0
+                p.normal_(0.0, math.sqrt(gain / p[0].numel()), generator=gen)
+                if name == "block1.convs.0.weight":
+                    p.div_(64.0)
+            else:
+                p.normal_(0.0, 0.05, generator=gen)
+
+
+def edge_rich(np, frames):
+    """`frames` with a hard-edged 32-px checkerboard added (the synthetic
+    video is smooth: canny finds few edges in it)."""
+    h, w = frames.shape[1:3]
+    yy, xx = np.mgrid[0:h, 0:w]
+    board = (((yy // 32 + xx // 32) % 2) * 70)[None, :, :, None]
+    return np.clip(frames.astype(np.int16) + board, 0, 255).astype(np.uint8)
+
+
+def canny_reference(torch, np, frames) -> dict:
+    """Canny on the card against canny on the CPU on the same uint8 frames:
+    the maps must be equal; returns the share of edge pixels."""
+    from controlanimate_tpu_torch.ops.canny import canny
+
+    host = torch.from_numpy(np.ascontiguousarray(frames))
+    cpu = canny(host)
+    card = canny(host.cuda()).cpu()
+    if not torch.equal(cpu, card):
+        raise AssertionError(f"canny on the card differs from the CPU in "
+                             f"{int((cpu != card).sum())} values at {tuple(frames.shape)}")
+    return {"shape": list(frames.shape), "edge_share": float(cpu[..., 0].mean())}
+
+
+def small_hed_reference(torch) -> dict:
+    """The full HED network (seeded by `init_hed_`) on 2 frames of 64x80 on
+    the card and on the CPU, fp32: the maps' difference, and the uint8
+    difference after the facade's quantisation (must be within 1 LSB)."""
+    import copy
+
+    import numpy as np
+
+    from controlanimate_tpu_torch.models.annotators.edge_nets import ControlNetHED, HEDAnnotator
+
+    net = ControlNetHED()
+    init_hed_(torch, net, torch.Generator().manual_seed(SEED))
+    frames = torch.from_numpy(edge_rich(np, synthetic_video(np, 2, 64, 80, SEED)))
+    cpu = HEDAnnotator(net)(frames)
+    card = HEDAnnotator(copy.deepcopy(net).cuda())(frames.cuda()).cpu()
+    q = lambda m: (m * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+    return {"max_abs_err": float((cpu - card).abs().max()),
+            "max_lsb": int((q(cpu) - q(card)).abs().max()), "std": float(cpu.std())}
+
+
+def seeded_controlnets(torch, unet_cfg, n: int, device, gen) -> list:
+    """`n` ControlNets of `unet_cfg`'s down path, seeded by `init_weights_`
+    (the zero-conv heads then are not zero), made on `device`."""
+    from dataclasses import replace
+
+    from controlanimate_tpu_torch.models.controlnet import ControlNetModel
+
+    with torch.device(device):
+        nets = [ControlNetModel(replace(unet_cfg, use_motion_module=False)) for _ in range(n)]
+    for net in nets:
+        init_weights_(torch, net, gen)
+        heads = list(net.controlnet_down_blocks) + [net.controlnet_mid_block]
+        if not all(bool(h.weight.abs().sum()) for h in heads):
+            raise AssertionError("a ControlNet head is zero: its residual would prove nothing")
+    return nets
+
+
+def small_controlnet_reference(torch) -> dict:
+    """The small pipeline of `small_reference` (fp32) with two ControlNets of
+    its UNet's down path, canny at 1.0 and HED (`init_hed_`) at 0.5, on the
+    CPU and on the card with the same weights and noise, on edge-rich frames:
+    the uint8 frames must agree within 1 LSB, and differ from the window
+    without ControlNets."""
+    import copy
+
+    import numpy as np
+
+    from controlanimate_tpu_torch.models.annotators.edge_nets import ControlNetHED, HEDAnnotator
+    from controlanimate_tpu_torch.ops.canny import canny
+    from controlanimate_tpu_torch.pipelines.engine import EngineModels
+    from controlanimate_tpu_torch.pipelines.facade import ControlAnimatePipeline
+
+    cfg, models, text = small_models(torch, "float32", False)
+    cfg = cfg.replace(controlnets=("lllyasviel/sd-controlnet-canny",
+                                   "lllyasviel/sd-controlnet-hed"), cond_scale=(1.0, 0.5))
+    nets = seeded_controlnets(torch, models.unet.config, 2, "cpu",
+                              torch.Generator().manual_seed(SEED + 1))
+    hed = ControlNetHED()
+    init_hed_(torch, hed, torch.Generator().manual_seed(SEED + 2))
+    frames = torch.from_numpy(edge_rich(np, synthetic_video(np, 4, 64, 64, SEED)))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        m = models if device == "cpu" else copy.deepcopy(models)
+        pipe = ControlAnimatePipeline(
+            cfg, models=EngineModels(
+                unet=m.unet, vae=m.vae,
+                controlnets=nets if device == "cpu" else copy.deepcopy(nets),
+                annotators=[canny, HEDAnnotator(copy.deepcopy(hed).to(device))]),
+            text_stack=text if device == "cpu" else copy.deepcopy(text), device=device)
+        outs[device] = pipe.animate(frames, None, seed=SEED, noise=HostNoise(SEED, device)).cpu()
+    plain = ControlAnimatePipeline(cfg.replace(controlnets=(), cond_scale=()), models=models,
+                                   text_stack=text, device="cpu")
+    out_plain = plain.animate(frames, None, seed=SEED, noise=HostNoise(SEED, "cpu"))
+    diff = (outs["cpu"].int() - outs["cuda"].int()).abs()
+    return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.float().mean()),
+            "controlnet_change_max": int((outs["cpu"].int() - out_plain.int()).abs().max())}
 
 
 def device_activities(prof) -> tuple:
@@ -1372,16 +1566,21 @@ def plain_attention(attention_module, plain):
 
 
 def expected_k1_launches(full_windows: int, overlap_windows: int, steps: int,
-                         frames_n: int, overlap: int, latent=(64, 64)) -> dict:
+                         frames_n: int, overlap: int, latent=(64, 64),
+                         controlnets: int = 0) -> dict:
     """K1 launches by shape that windows on `latent` (h, w) imply: the UNet's
-    self-attention `steps` times a window, one VAE mid-block attention in the
-    decode (all frames) and one in the encode (all frames, or only the new
-    ones when the overlap latents are reused)."""
+    self-attention `steps` times a window, each ControlNet's (its down and
+    mid path) as often, one VAE mid-block attention in the decode (all
+    frames) and one in the encode (all frames, or only the new ones when the
+    overlap latents are reused)."""
     windows = full_windows + overlap_windows
     expected = {shape: n * steps * windows
                 for shape, n in unet_k1_shapes(frames_n, latent).items()}
-    # the VAE's mid block sees the latent grid with one head of 512
     n = latent[0] * latent[1]
+    for div, D, blocks in CONTROLNET_LEVELS:
+        key = (frames_n, n // div, n // div, 8, D)
+        expected[key] += controlnets * blocks * steps * windows
+    # the VAE's mid block sees the latent grid with one head of 512
     expected[(frames_n, n, n, 1, 512)] = windows + full_windows
     if overlap_windows:
         expected[(frames_n - overlap, n, n, 1, 512)] = overlap_windows
@@ -1389,6 +1588,7 @@ def expected_k1_launches(full_windows: int, overlap_windows: int, steps: int,
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1465,12 +1665,17 @@ def main() -> int:
     ref_up2 = small_upscaler_reference(torch, 2.0)
     k4_ref_launches = uk.upconv3x3.launches
     ref_face = small_face_reference(torch)
+    ref_canny = [canny_reference(torch, np, f(synthetic_video(np, 2, h, 512, SEED)))
+                 for h in (512, 768) for f in (lambda v: v, lambda v: edge_rich(np, v))]
+    ref_hed = small_hed_reference(torch)
+    ref_cn = small_controlnet_reference(torch)
     phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
           k2_launches=k2_ref_launches, k3_max_lsb=ref_k3["max_lsb"],
           k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches,
           upscale4_max_lsb=ref_up4["max_lsb"], upscale4_mean_lsb=ref_up4["mean_lsb"],
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
-          k4_launches=k4_ref_launches, face=ref_face)
+          k4_launches=k4_ref_launches, face=ref_face, canny=ref_canny, hed=ref_hed,
+          controlnet=ref_cn)
     for r in (ref, ref_k2, ref_k3):
         if r["max_lsb"] > 1:
             raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB")
@@ -1483,6 +1688,11 @@ def main() -> int:
         raise AssertionError(f"the reference with {MOTION_ENV}=1 launched no K3")
     if k4_ref_launches == 0:
         raise AssertionError("the reference upscalers launched no K4")
+    if ref_hed["max_lsb"] > 1:
+        raise AssertionError(f"HED on the card differs from the CPU by {ref_hed['max_lsb']} LSB")
+    if ref_cn["max_lsb"] > 1 or not ref_cn["controlnet_change_max"]:
+        raise AssertionError(f"the card's ControlNet window differs from the CPU's, or the "
+                             f"ControlNets changed nothing: {ref_cn}")
     if (ref_face["detector_rel_err"] > 1e-3 or ref_face["crop_max_lsb"]
             or ref_face["restore_max_lsb"] > 1 or ref_face["paste_max_lsb"] > 1):
         raise AssertionError(f"the card's face step differs from the CPU's: {ref_face}")
@@ -1598,7 +1808,7 @@ def main() -> int:
         t_stream / WINDOWS)
     phase("profile", t0, **profile)
 
-    # -- this slice's path: the overlap windows with the motion modules on K3
+    # -- K3's path: the overlap windows with the motion modules on K3
     t0 = time.perf_counter()
     with motion_env(True):
         pipe_k3 = ControlAnimatePipeline(cfg, models=models, text_stack=text, device="cuda")
@@ -1637,8 +1847,6 @@ def main() -> int:
     del diff, out_k3
 
     # -- the main path: the vid2vid loop with K2 on ------------------------
-    import numpy as np
-
     from controlanimate_tpu_torch import vid2vid as v2v
     from controlanimate_tpu_torch.io.media import ArrayFrameSink, ArrayFrameSource
     from controlanimate_tpu_torch.ops.blending import blend_overlap_u8
@@ -1659,12 +1867,17 @@ def main() -> int:
                 self.raw.append(out.clone())
             return out
 
-    def run_vid2vid(conv_kernel: bool, tag: str, upscaler=None):
+        def prepare_cond_images(self, *args, **kw):
+            return self.pipe.prepare_cond_images(*args, **kw)
+
+    def run_vid2vid(conv_kernel: bool, tag: str, upscaler=None, engine_models=None,
+                    **settings):
         vcfg = cfg.replace(use_pallas_conv=conv_kernel, seed=SEED, overlap_strength=cfg.strength,
                            upscale=1.0 if upscaler is None else upscaler.scale,
-                           output_video_dir=str(ROOT / "build" / "chip_smoke_vid2vid" / tag))
-        rec = Recording(ControlAnimatePipeline(vcfg, models=models, text_stack=text,
-                                               device="cuda"))
+                           output_video_dir=str(ROOT / "build" / "chip_smoke_vid2vid" / tag),
+                           **settings)
+        rec = Recording(ControlAnimatePipeline(vcfg, models=engine_models or models,
+                                               text_stack=text, device="cuda"))
         sink = ArrayFrameSink()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1741,7 +1954,88 @@ def main() -> int:
                                       "difference": v2v_peak - plain_peak}}), flush=True)
     del diff, raw, matched
 
-    # -- this slice's path: the loop with the x4 upscaler, its tail on K4 ---
+    # -- this slice's path: the loop with two ControlNets -------------------
+    from controlanimate_tpu_torch.models.annotators.edge_nets import ControlNetHED, HEDAnnotator
+    from controlanimate_tpu_torch.ops.canny import canny
+
+    t0 = time.perf_counter()
+    cgen = torch.Generator(device="cuda")
+    cgen.manual_seed(SEED + 1)
+    cn_nets = seeded_controlnets(torch, models.unet.config, len(CN_NAMES), "cuda", cgen)
+    with torch.device("cuda"):
+        hed_net = ControlNetHED()
+    init_hed_(torch, hed_net, cgen)
+    hed = HEDAnnotator(hed_net)
+    cn_settings = {"controlnets": CN_NAMES, "cond_scale": CN_SCALES}
+    cn_models = EngineModels(unet=models.unet, vae=models.vae, controlnets=cn_nets,
+                             annotators=[canny, hed])
+    torch.cuda.synchronize()
+    t_cn_build = time.perf_counter() - t0
+    summary_cn, cn_frames, cn_seconds, _, counts, cn_peak = run_vid2vid(
+        False, "controlnet", engine_models=cn_models, **cn_settings)
+    if summary_cn["frames_written"] != len(video) or len(cn_frames) != len(video):
+        raise AssertionError(f"the ControlNet loop wrote {summary_cn['frames_written']} frames")
+    if any(f.shape != (size, size, 3) or f.dtype != np.uint8 for f in cn_frames):
+        raise AssertionError("the ControlNet loop's frames are not (512, 512, 3) uint8")
+    cn_change = np.abs(np.stack(cn_frames).astype(np.int16)
+                       - np.stack(plain_frames).astype(np.int16))
+    if not cn_change.max():
+        raise AssertionError("the ControlNets left vid2vid_plain_conv's frames unchanged")
+    if counts["k2"] or counts["k4"]:
+        raise AssertionError("the ControlNet loop launched K2 or K4")
+    cn_k1 = counts["k1_by_shape"]
+    cn_k1_expected = expected_k1_launches(1, V2V_OVERLAP_WINDOWS, steps, frames_n, overlap,
+                                          controlnets=len(CN_NAMES))
+    cn_blocks = sum(isinstance(m, BasicTransformerBlock) for m in cn_nets[0].modules())
+    if cn_k1 != cn_k1_expected or cn_blocks != sum(n for *_, n in CONTROLNET_LEVELS):
+        raise AssertionError(f"ControlNet loop K1 launches {cn_k1}, expected {cn_k1_expected} "
+                             f"({cn_blocks} transformer blocks a ControlNet)")
+    # a window's parts alone, by CUDA events: each annotator on 16 frames,
+    # each ControlNet's
+    # forwards of a window (`steps` of them, bf16), these also on the card
+    # alone (torch.profiler's summed activity, without waits for the host)
+    window_frames = torch.from_numpy(video[:frames_n]).cuda()
+    canny_ms = cuda_ms(torch, lambda: canny(window_frames), 3)
+    hed_ms = cuda_ms(torch, lambda: hed(window_frames), 2)
+    ctx = text.encode(cfg.prompt)
+    lat = torch.randn((1, frames_n, size // 8, size // 8, 4), generator=cgen, device="cuda",
+                      dtype=torch.bfloat16)
+    cond = [(a(window_frames) * 255.0 + 0.5).to(torch.uint8)[None].float() / 255.0
+            for a in (canny, hed)]
+    t_step = torch.tensor(500, device="cuda")
+
+    def net_window(net, c, scale):
+        with torch.no_grad():
+            for _ in range(steps):
+                net(lat, t_step, ctx, c, conditioning_scale=scale)
+
+    cn_ms = [cuda_ms(torch, lambda: net_window(net, c, sc), 2)
+             for net, c, sc in zip(cn_nets, cond, CN_SCALES)]
+    cn_device_ms = [device_busy_ms(torch, lambda: net_window(net, c, sc), 2)
+                    for net, c, sc in zip(cn_nets, cond, CN_SCALES)]
+    del window_frames, cond, lat
+    phase("controlnet", t0, build_seconds=round(t_cn_build, 4), nets=list(CN_NAMES),
+          cond_scale=list(CN_SCALES),
+          controlnet_params=sum(p.numel() for p in cn_nets[0].parameters()),
+          hed_params=sum(p.numel() for p in hed_net.parameters()),
+          windows=summary_cn["windows"],
+          frames_written=summary_cn["frames_written"], loop_seconds=round(cn_seconds, 4),
+          new_frames_per_second_first_window_included=round(
+              summary_cn["frames_written"] / cn_seconds, 4),
+          vid2vid_plain_conv_new_frames_per_second=round(
+              summary_plain["frames_written"] / plain_seconds, 4),
+          uint8_change_vs_plain_conv_mean=float(cn_change.mean()),
+          uint8_change_vs_plain_conv_max=int(cn_change.max()),
+          controlnet_ms_per_window=cn_ms, controlnet_device_ms_per_window=cn_device_ms,
+          canny_ms_per_window=canny_ms,
+          hed_ms_per_window=hed_ms,
+          max_memory_allocated=cn_peak, k1_launches=sum(cn_k1.values()),
+          k1_launches_by_shape={str(k): n for k, n in sorted(cn_k1.items())},
+          timers=summary_cn["timers"])
+    del cn_change
+    torch.cuda.empty_cache()
+
+    # -- K4's path: the loop with the x4 upscaler, its tail on K4 ----------
     from controlanimate_tpu_torch.models.upscaler import RRDBNet, Upscaler
 
     t0 = time.perf_counter()
@@ -1911,6 +2205,41 @@ def main() -> int:
     fields_512.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del disk_frames, diff
 
+    # the controlnet phase's profile from disk: its two ControlNets found
+    # under models/ControlNet/ and its HED under models/annotators/ from the
+    # snapshot root as the working directory
+    t1 = time.perf_counter()
+    snapshot_bytes.update(write_controlnets(torch, SNAPSHOT, dict(zip(CN_NAMES, cn_nets)),
+                                            hed_net))
+    cn_write_seconds = time.perf_counter() - t1
+    with chdir(SNAPSHOT):
+        summary, disk_cn_frames, seconds, counts, peak = run_cli(
+            "disk_controlnet", input_video_path=str(SNAPSHOT / "frames_512x512"), width=size,
+            height=size, inference_config_path=str(INFERENCE_V2),
+            motion_module=str(SNAPSHOT / "mm_v2.ckpt"), use_pallas_conv=0, **cn_settings)
+    if summary["frames_written"] != len(video) or len(disk_cn_frames) != len(video):
+        raise AssertionError(f"the ControlNet CLI run wrote {summary['frames_written']} frames")
+    if counts["k1_by_shape"] != cn_k1_expected:
+        raise AssertionError(f"ControlNet CLI K1 launches {counts['k1_by_shape']}, expected "
+                             f"{cn_k1_expected}")
+    diff = np.abs(np.stack(disk_cn_frames).astype(np.int16)
+                  - np.stack(cn_frames).astype(np.int16))
+    fields_cn = {"controlnet_write_seconds": round(cn_write_seconds, 4),
+                 "uint8_diff_vs_controlnet_max": int(diff.max()),
+                 "uint8_diff_vs_controlnet_mean": float(diff.mean())}
+    if diff.max():
+        _, again, _, _, _, _ = run_vid2vid(False, "controlnet_again", engine_models=cn_models,
+                                           **cn_settings)
+        rerun = np.abs(np.stack(again).astype(np.int16) - np.stack(cn_frames).astype(np.int16))
+        fields_cn["injected_rerun_diff_max"] = int(rerun.max())
+        if diff.max() > rerun.max():
+            raise AssertionError(f"the ControlNet CLI run's frames differ from the controlnet "
+                                 f"phase's by {int(diff.max())}, two injected runs by "
+                                 f"{int(rerun.max())}")
+    fields_cn.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
+    del disk_cn_frames, diff, cn_frames, cn_models, cn_nets, hed, hed_net
+    torch.cuda.empty_cache()
+
     # the whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
     # inference-v1.yaml (no mid-block motion module, PE 24 long), K2 on,
     # upscale 2 (RealESRGAN x4 with its tail on K4, then Lanczos4 to
@@ -1984,7 +2313,7 @@ def main() -> int:
     del unet_v1, v2_state, v1_pipe, v1_sink, v1_upscaler, detector, frame_up
     shutil.rmtree(SNAPSHOT)
     phase("disk", t0, snapshot_write_seconds=round(write_seconds, 4),
-          snapshot_bytes=snapshot_bytes, cli_512x512=fields_512,
+          snapshot_bytes=snapshot_bytes, cli_512x512=fields_512, cli_controlnet=fields_cn,
           cli_512x768={**loop_fields(summary, seconds, peak), "frame_shape": [up_h, up_w, 3],
                        "uint8_diff_vs_injected_v1_max": 0,
                        "upscale_seconds": summary["timers"]["upscale"]["total_s"],
@@ -2080,7 +2409,15 @@ def main() -> int:
         return {key: sum(n * by_row[shape][key] for shape, n in weights.items())
                 for key in keys}
 
+    def launched_sums(launches, keys=("ms", "plain_ms", "library_ms", "bound_ms")):
+        """K1's per-launch times summed over one run's launches by shape."""
+        return {key: sum(n * by_row[shape][key] for shape, n in launches.items())
+                for key in keys}
+
     phase("kernels", t0, shapes=len(rows), per_full_window=window_sums(1, 0),
+          vid2vid_path={"launches": sum(v2v_counts["k1_by_shape"].values()),
+                        **launched_sums(v2v_counts["k1_by_shape"])},
+          controlnet_path={"launches": sum(cn_k1.values()), **launched_sums(cn_k1)},
           per_overlap_window=window_sums(0, 1),
           per_full_window_512x768=window_sums(1, 0, latent, UNTIMED_PLAIN),
           per_overlap_window_512x768=window_sums(0, 1, latent, UNTIMED_PLAIN))

@@ -271,14 +271,18 @@ _TUPLE_KEYS = frozenset({
 
 def require_ported(cfg: RunConfig) -> None:
     """Raise NotImplementedError, naming the key, for any setting whose
-    behaviour the port lacks (the facade and the vid2vid loop both call this)."""
+    behaviour the port lacks (the facade and the vid2vid loop both call
+    this), and for a ControlNet whose annotator is not ported yet (M13;
+    KeyError for a name that selects no annotator)."""
+    from .models.annotators import annotator_name
+
+    for name in cfg.controlnets:
+        annotator_name(name)
     unported = {
         "parallel_segments": (cfg.parallel_segments > 1, "segment-parallel runs (M15)"),
         "mesh_shape": (bool(cfg.mesh_shape), "device meshes (M15)"),
         "use_ipadapter": (cfg.use_ipadapter, "IP-Adapter (M11)"),
         "do_initial_generation": (cfg.do_initial_generation, "IP-Adapter (M11)"),
-        "controlnets": (bool(cfg.controlnets), "ControlNets (M9)"),
-        "loop_back_frames": (cfg.loop_back_frames, "ControlNet loop-back (M9)"),
         "temporal_band": (bool(cfg.temporal_band), "banded motion attention (M14)"),
         "token_merge_ratio": (bool(cfg.token_merge_ratio), "token merging (M14)"),
         "encoder_reuse_every": (bool(cfg.encoder_reuse_every), "encoder reuse (M14)"),

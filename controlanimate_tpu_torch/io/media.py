@@ -17,6 +17,8 @@ import queue
 import shutil
 import subprocess
 import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -235,23 +237,46 @@ class ArrayFrameSink(FrameSink):
         self.frames.append(np.asarray(frame, np.uint8))
 
 
+def _save_png(frame: np.ndarray, path: Path) -> None:
+    from PIL import Image
+
+    Image.fromarray(frame).save(path, compress_level=1)
+
+
 class DirectoryFrameSink(FrameSink):
     """Numbered-PNG sink (ffmpeg-less output). `start_index` lets a resumed
     run append after the frames its previous segment already wrote — the
     directory plays the role the per-segment mp4 files + concat play on the
     ffmpeg path; without it a resume would overwrite 0001..N with the
-    post-checkpoint frames."""
+    post-checkpoint frames. PNGs are written at zlib level 1 (the same
+    pixels as PIL's default level 6, in larger files, faster) by
+    `ENCODERS` worker threads (PIL releases the interpreter lock while it
+    compresses), at most 2 x `ENCODERS` frames in flight; `close` waits for
+    every file and raises the first failure."""
+
+    ENCODERS = 4
 
     def __init__(self, directory: str, start_index: int = 0):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self._i = int(start_index)
+        self._pool = ThreadPoolExecutor(max_workers=self.ENCODERS, thread_name_prefix="png")
+        self._pending: deque = deque()
 
     def write(self, frame: np.ndarray) -> None:
-        from PIL import Image
-
         self._i += 1
-        Image.fromarray(np.asarray(frame, np.uint8)).save(self.dir / f"{self._i:04d}.png")
+        # a copy: the caller may reuse its buffer before the worker runs
+        self._pending.append(self._pool.submit(
+            _save_png, np.array(frame, np.uint8), self.dir / f"{self._i:04d}.png"))
+        while len(self._pending) > 2 * self.ENCODERS:
+            self._pending.popleft().result()
+
+    def close(self) -> None:
+        try:
+            while self._pending:
+                self._pending.popleft().result()
+        finally:
+            self._pool.shutdown(wait=True)
 
 
 def concat_videos(segments: list[str], output_path: str, ffmpeg_path: str = "ffmpeg") -> None:

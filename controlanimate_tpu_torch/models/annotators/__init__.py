@@ -1,0 +1,76 @@
+"""Condition-map annotators for the ControlNets, on the frames' device.
+
+Counterpart of `controlanimate_tpu/models/annotators/__init__.py`: the
+ControlNet's model name picks its annotator by substring, in the JAX
+package's order (`ANNOTATOR_ORDER`). An annotator maps (F, H, W, 3) uint8
+frames to (F, H, W, 3) float32 condition maps in [0, 1] on the same device.
+Ported: `canny` (`ops/canny.py`, bit for bit as OpenCV) and `hed`
+(`edge_nets.py`, ControlNetHED read from `ControlNetHED.pth` in
+CONTROLANIMATE_ANNOTATOR_DIR, default `models/annotators`). Every other
+annotator of the zoo is M13 and raises NotImplementedError when the pipeline
+is built; `softedge` does not fall back to HED as the JAX package does when
+its PidiNet weights are absent. A name that matches no annotator raises
+KeyError, as in JAX (there at the first window, here at the build).
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+from ...ops.canny import canny
+from .edge_nets import HEDAnnotator
+
+# (substring of the lower-cased model name, annotator), first match wins
+ANNOTATOR_ORDER = (
+    ("canny", "canny"),
+    ("mlsd", "mlsd"),
+    ("openpose", "openpose"),
+    ("hed", "hed"),
+    ("lineart_anime", "lineart_anime"),
+    ("anime", "lineart_anime"),
+    ("lineart", "lineart"),
+    ("normalbae", "normalbae"),
+    ("softedge", "softedge"),
+    ("pidi", "softedge"),
+    ("depth", "depth"),
+    ("scribble", "hed"),
+)
+PORTED = ("canny", "hed")
+ANNOTATOR_ENV = "CONTROLANIMATE_ANNOTATOR_DIR"
+
+Annotator = Callable[[torch.Tensor], torch.Tensor]
+
+
+def annotator_name(controlnet_name: str) -> str:
+    """The ported annotator a ControlNet's name selects; NotImplementedError
+    (M13) for one not yet ported, KeyError for a name that selects none."""
+    n = controlnet_name.lower()
+    for sub, key in ANNOTATOR_ORDER:
+        if sub in n:
+            if key not in PORTED:
+                raise NotImplementedError(
+                    f"ControlNet {controlnet_name!r} needs the {key!r} annotator, which is "
+                    f"not ported yet (M13); ported: {list(PORTED)}")
+            return key
+    raise KeyError(f"no annotator for ControlNet {controlnet_name!r}; "
+                   f"names: {sorted({k for _, k in ANNOTATOR_ORDER})}")
+
+
+def resolve_annotator(controlnet_name: str, device="cuda") -> Annotator:
+    """The annotator for a ControlNet (the JAX `resolve_annotator`), its
+    weights (if any) read now and placed on `device`."""
+    if annotator_name(controlnet_name) == "canny":
+        return canny
+    weights = Path(os.environ.get(ANNOTATOR_ENV, "models/annotators")) / "ControlNetHED.pth"
+    return HEDAnnotator.from_file(weights, device=device)
+
+
+def annotate_frames(controlnet_name: str, frames) -> torch.Tensor:
+    """(F, H, W, 3) uint8 frames -> (F, H, W, 3) float32 maps in [0, 1], on
+    the frames' device (the JAX `annotate_frames`)."""
+    frames = torch.as_tensor(frames)
+    return resolve_annotator(controlnet_name, frames.device)(frames)

@@ -6,8 +6,10 @@ ResnetBlock3D -> SpatialTransformer -> MotionModule; the LCM guidance
 embedding enters through the time embedding's `cond_proj`. Module names follow
 the diffusers checkpoint keys (`down_blocks.0.resnets.0.conv1.weight`, ...).
 `set_motion_kernel(True)` puts the motion modules on K3 (the facade does so
-under CONTROLANIMATE_PALLAS_MOTION=1). ControlNet residuals and encoder reuse
-are not in this slice and raise.
+under CONTROLANIMATE_PALLAS_MOTION=1). ControlNet residuals (`models/controlnet.py`)
+enter as in the JAX model: each down residual is added to its skip in the
+skip's dtype, the mid residual after the mid block. Encoder reuse is not in
+this slice.
 """
 
 from __future__ import annotations
@@ -223,8 +225,6 @@ class UNet3DConditionModel(nn.Module):
         down_block_additional_residuals=None,
         mid_block_additional_residual=None,
     ) -> torch.Tensor:
-        if down_block_additional_residuals is not None or mid_block_additional_residual is not None:
-            raise NotImplementedError("ControlNet residuals are not ported yet")
         cfg = self.config
         B = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -254,6 +254,15 @@ class UNet3DConditionModel(nn.Module):
         if hasattr(mid, "motion_modules"):
             sample = mid.motion_modules[0](sample)
         sample = mid.resnets[1](sample, temb)
+
+        # ControlNet residuals
+        if down_block_additional_residuals is not None:
+            if len(down_block_additional_residuals) != len(skips):
+                raise ValueError(f"{len(down_block_additional_residuals)} ControlNet down "
+                                 f"residuals for {len(skips)} skips")
+            skips = [s + r.to(s.dtype) for s, r in zip(skips, down_block_additional_residuals)]
+        if mid_block_additional_residual is not None:
+            sample = sample + mid_block_additional_residual.to(sample.dtype)
 
         for blk in self.up_blocks:
             for j, resnet in enumerate(blk.resnets):

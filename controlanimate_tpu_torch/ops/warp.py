@@ -32,6 +32,7 @@ functions in plain PyTorch, on uint8 or float32 images (H, W, C):
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -45,18 +46,25 @@ _SMALL_GAUSSIAN = {1: (1.0,), 3: (0.25, 0.5, 0.25), 5: (0.0625, 0.25, 0.375, 0.2
                        0.1171875, 0.05078125, 0.015625)}
 
 
+# the backend flags are process-wide: blocks on two threads (the loop's
+# annotating prefetch worker and its face step) take turns, so that each
+# restores what it found
+_FLAGS_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def fp32_convs(cudnn: bool = True):
     """Convolutions and matmuls in full fp32 (no TF32) inside the block, the
     settings restored after it; with `cudnn` False, PyTorch's own im2col +
     GEMM convolutions instead of cuDNN's."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+    with _FLAGS_LOCK:
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+                yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _inverse_float32(M) -> np.ndarray:

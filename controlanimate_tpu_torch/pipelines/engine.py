@@ -13,18 +13,26 @@ Every random draw comes from one `NoiseSource`, whose key tree follows the JAX
 engine's: (k_prep, k_loop) = split(key); (k_noise, k_in, k_out) =
 split(k_prep, 3); step i draws from fold_in(k_loop, i). `TorchNoise` draws
 each stream from its own seeded `torch.Generator` on the run's device; the
-tests pass the JAX engine's own draws instead. ControlNets and CFG samplers
-are not in this slice (a window without `use_lcm` raises).
+tests pass the JAX engine's own draws instead.
+
+ControlNets run as in the JAX engine's LCM path: the window's condition maps
+(one (B, F, H, W, 3) tensor a net, uint8 divided by 255 on the device) go
+with the step's LCM input, its timestep and the text embeddings (cond-only:
+there is no CFG batch) through each net, each net applies its own
+conditioning scale and the window's guess mode, and the residuals summed over
+the nets enter the UNet. CFG samplers (a window without `use_lcm`) and
+IP-Adapter tokens are not in this slice and raise.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Protocol
+from typing import Callable, Optional, Protocol, Sequence
 
 import torch
 
+from ..models.controlnet import ControlNetModel, sum_controlnet_residuals
 from ..models.unet3d import UNet3DConditionModel
 from ..models.vae import AutoencoderKL
 from ..schedulers import DiffusionSchedule, Scheduler, make_scheduler
@@ -83,10 +91,15 @@ class TorchNoise:
 
 @dataclass
 class EngineModels:
-    """The modules the engine drives (ControlNets are not in this slice)."""
+    """The modules the engine drives; `cond_scales` and `annotators` (an
+    annotator maps (F, H, W, 3) uint8 frames to float maps in [0, 1]) go
+    with `controlnets`, one each."""
 
     unet: UNet3DConditionModel
     vae: AutoencoderKL
+    controlnets: Sequence[ControlNetModel] = ()
+    cond_scales: Sequence[float] = ()
+    annotators: Sequence[Callable[[torch.Tensor], torch.Tensor]] = ()
 
 
 @dataclass(frozen=True)
@@ -99,6 +112,8 @@ class WindowStatic:
     guidance_scale: float = 7.5  # enters as the LCM w-embedding
     use_lcm: bool = True
     lcm_origin_steps: int = 50
+    guess_mode: bool = False  # ControlNet residuals scaled by logspace(-1, 0)
+    ip_tokens: int = 0  # IP-Adapter image tokens (not in this slice)
     frame_count: int = 16  # txt2vid geometry (no input frames to infer it from)
     height: int = 512
     width: int = 512
@@ -180,8 +195,27 @@ class AnimationEngine:
         return noised
 
     # -- denoise -------------------------------------------------------------
+    def controlnet_residuals(self, st: WindowStatic, latents: torch.Tensor, t: torch.Tensor,
+                             text_embeds: torch.Tensor, cond_images: Sequence[torch.Tensor]):
+        """Each net on the step's LCM input with the cond-only text, its own
+        scale and the window's guess mode; the residuals summed over the nets
+        ((None, None) without nets)."""
+        return sum_controlnet_residuals([
+            net(latents, t, text_embeds, cond, conditioning_scale=float(scale),
+                guess_mode=st.guess_mode)
+            for net, scale, cond in zip(self.m.controlnets, self.m.cond_scales, cond_images)])
+
     def denoise(self, st: WindowStatic, sched: Scheduler, text_embeds: torch.Tensor,
-                latents: torch.Tensor, noise: NoiseSource) -> torch.Tensor:
+                latents: torch.Tensor, noise: NoiseSource,
+                cond_images: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        n_cn = len(self.m.controlnets)
+        if st.ip_tokens:
+            raise NotImplementedError("IP-Adapter tokens are not ported yet (M11)")
+        if len(cond_images) != n_cn or len(self.m.cond_scales) != n_cn:
+            raise ValueError(f"{n_cn} ControlNets, {len(self.m.cond_scales)} conditioning "
+                             f"scales and {len(cond_images)} condition maps")
+        # condition maps arrive as uint8 (the annotators' quantised output)
+        cond_images = [c.float() / 255.0 if c.dtype == torch.uint8 else c for c in cond_images]
         B = latents.shape[0]
         w_dim = self.m.unet.config.time_cond_proj_dim or 256
         w_emb = get_w_embedding(
@@ -189,7 +223,11 @@ class AnimationEngine:
         )
         ts = torch.as_tensor(sched.timesteps.round().astype("int64"), device=latents.device)
         for i in range(sched.num_steps):
-            model_out = self.m.unet(latents, ts[i], text_embeds, timestep_cond=w_emb)
+            down_res, mid_res = self.controlnet_residuals(st, latents, ts[i], text_embeds,
+                                                          cond_images)
+            model_out = self.m.unet(latents, ts[i], text_embeds, timestep_cond=w_emb,
+                                    down_block_additional_residuals=down_res,
+                                    mid_block_additional_residual=mid_res)
             model_out = model_out.to(latents.dtype)
             step_noise = None
             if i < sched.num_steps - 1:
@@ -207,9 +245,11 @@ class AnimationEngine:
         input_frames: Optional[torch.Tensor] = None,
         last_output_frames: Optional[torch.Tensor] = None,
         head_latents: Optional[torch.Tensor] = None,
+        cond_images: Sequence[torch.Tensor] = (),
     ):
         """One window: (B, F, H, W, 3) frames in [0, 1] (uint8 when
-        st.output_uint8), plus the clean tail latents when st.tail_latents."""
+        st.output_uint8), plus the clean tail latents when st.tail_latents.
+        `cond_images` holds one (B, F, H, W, 3) condition map a ControlNet."""
         sched = self.build_scheduler(st)
         if sched.num_steps == 0:
             raise ValueError(
@@ -228,6 +268,6 @@ class AnimationEngine:
         tail = None
         if st.tail_latents:
             latents, tail = latents
-        latents = self.denoise(st, sched, text_embeds, latents, noise)
+        latents = self.denoise(st, sched, text_embeds, latents, noise, cond_images)
         out = self.decode_latents(latents, st.output_uint8)
         return (out, tail) if st.tail_latents else out

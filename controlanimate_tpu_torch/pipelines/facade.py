@@ -9,22 +9,37 @@ With `reuse_overlap_latents` the clean latents of a window's last
 `overlap_length` input frames are cached, and the next window (`epoch + 1`,
 `overlaps` = that length) encodes only its new frames.
 
+ControlNets (`controlnets`, `cond_scale`, `guess_mode`): `prepare_cond_images`
+annotates a window's uint8 frames on the device (one annotator a net,
+`models/annotators`), quantises each map to uint8 as the JAX facade does
+(`map * 255 + 0.5`, truncated; the engine divides by 255), and with
+`save_frames` dumps them as PNGs under
+`<output_video_dir>/controlnet_outputs_<time>/<net>/`. `animate` stages them
+itself when the caller passes none. An empty `cond_scale` means 1.0 for
+every net; a `cond_scale` of another length than `controlnets` raises
+ValueError (the JAX facade fails mid-trace).
+
 The disk build follows the JAX `_build_from_disk`: the tokenizer, text
 encoder (with textual-inversion rows), VAE (the snapshot's, a single-file
 LDM `vae_path`, or a DreamBooth file's) and UNet (the snapshot's 2D weights,
 or a DreamBooth file's, with LoRAs fused, plus the motion-module checkpoint
 with motion LoRAs fused) of the snapshot at `pretrained_lcm_model_path`
 under `use_lcm` (`pretrained_model_path` otherwise), with the architecture
-from `inference_config_path`. Each module is made on the meta device and
-takes its weights, cast to the run dtype on the target device, by
-`load_state_dict(assign=True)`: no fp32 copy of a model is made on the card.
+from `inference_config_path`, and each ControlNet from
+`models/ControlNet/<last part of its name>`, else its name as a path (a
+diffusers folder: config.json and one weights file set). Each module is
+made on the meta device and takes its weights, cast to the run dtype on the
+target device, by `load_state_dict(assign=True)`: no fp32 copy of a model
+is made on the card.
 JAX behaviours not copied: every path the build reads must exist
 (FileNotFoundError; JAX skips or falls back), a UNet with motion modules
 needs a motion-module file (JAX initialises them at random), a missing
 `inference_config_path` raises (JAX takes the default architecture), and
 so does a LoRA file of which no layer matches (JAX fuses nothing). The
 motion checkpoint's `module.` prefix is stripped before its LoRAs fuse
-(JAX strips it after, so it drops a LoRA's deltas for prefixed blocks).
+(JAX strips it after, so it drops a LoRA's deltas for prefixed blocks), and
+a ControlNet's architecture comes from its config.json (JAX builds the SD1.5
+defaults whatever the file says; they agree for every SD1.5 ControlNet).
 
 The run dtype comes from `RunConfig.dtype` ("float16"/"fp16" mean bf16, as
 in the JAX package); models are moved to `device` in that dtype.
@@ -33,13 +48,15 @@ CONTROLANIMATE_PALLAS_MOTION=1 (the JAX package's opt-in, read when the
 pipeline is built) puts the UNet's motion modules on K3.
 `RunConfig.use_pallas_attention` has no effect: K1 runs every unmasked
 self-attention whatever it says, and the build warns so. Every setting
-`config.require_ported` rejects (ControlNets, IP-Adapter, meshes, the face
-enhancer, ...) raises, and so does a run without `use_lcm`.
+`config.require_ported` rejects (IP-Adapter, meshes, an annotator of M13,
+...) raises, and so does a run without `use_lcm`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
 import warnings
 from dataclasses import dataclass
 from pathlib import Path
@@ -49,13 +66,16 @@ import torch
 from torch import nn
 
 from ..config import ArchConfig, RunConfig, require_ported, torch_dtype
+from ..models.annotators import resolve_annotator
 from ..models.clip import CLIPTextConfig, CLIPTextModel
+from ..models.controlnet import ControlNetModel, controlnet_config_from_json
 from ..models.tokenizer import CLIPTokenizer
 from ..models.unet3d import UNet3DConditionModel, UNet3DConfig
 from ..models.vae import AutoencoderKL
 from ..schedulers import make_schedule
 from ..weights import ingest
 from ..weights.clip_weights import text_state_dict_from_torch
+from ..weights.controlnet_weights import controlnet_state_dict_from_torch
 from ..weights.ldm_conversion import convert_ldm_vae, split_ldm_checkpoint
 from ..weights.lora import fuse_lora, split_lora_by_component
 from ..weights.textual_inversion import register_textual_inversions
@@ -99,6 +119,7 @@ class ControlAnimatePipeline:
         if not config.use_lcm:
             raise NotImplementedError("only the native-LCM window (use_lcm) is ported")
         require_ported(config)
+        cond_scales = controlnet_scales(config)
         if (models is None) != (text_stack is None):
             raise ValueError("pass both models= and text_stack=, or neither for a disk build")
         if models is None:
@@ -114,6 +135,17 @@ class ControlAnimatePipeline:
         models.vae.to(device=self.device, dtype=self.dtype).eval()
         models.vae.set_conv_kernel(config.use_pallas_conv)
         models.unet.set_motion_kernel(os.environ.get(MOTION_ENV, "0") == "1")
+        if len(models.controlnets) != len(config.controlnets):
+            raise ValueError(f"{len(models.controlnets)} ControlNet models for the "
+                             f"{len(config.controlnets)} of RunConfig.controlnets")
+        for net in models.controlnets:
+            net.to(device=self.device, dtype=self.dtype).eval()
+        annotators = list(models.annotators) or [
+            resolve_annotator(name, self.device) for name in config.controlnets]
+        if len(annotators) != len(config.controlnets):
+            raise ValueError(f"{len(annotators)} annotators for the "
+                             f"{len(config.controlnets)} of RunConfig.controlnets")
+        models = dataclasses.replace(models, cond_scales=cond_scales, annotators=annotators)
         warnings.warn(
             f"RunConfig.use_pallas_attention={config.use_pallas_attention!r} has no effect in "
             "the PyTorch port: the flash-attention kernel (K1) runs every unmasked "
@@ -131,6 +163,7 @@ class ControlAnimatePipeline:
         self._prompt_cache: dict = {}
         # (expected epoch, clean tail latents) from the previous window
         self._overlap_latent_cache: Optional[tuple] = None
+        self._cn_dump_root: Optional[Path] = None
 
     def _encode_prompts(self, prompt: str, n_prompt: str, clip_skip: int = 0):
         key = (prompt, n_prompt, clip_skip)
@@ -168,6 +201,7 @@ class ControlAnimatePipeline:
             guidance_scale=float(cfg.guidance_scale),
             use_lcm=cfg.use_lcm,
             lcm_origin_steps=cfg.lcm_origin_steps,
+            guess_mode=cfg.guess_mode,
             frame_count=frame_count or cfg.frame_count,
             height=cfg.height,
             width=cfg.width,
@@ -184,6 +218,39 @@ class ControlAnimatePipeline:
             raise TypeError(f"frames must be uint8, got {t.dtype}")
         return t.to(self.device)[None]
 
+    def _dump_condition_maps(self, net_name: str, maps: torch.Tensor, epoch: int) -> None:
+        """save_frames: a window's uint8 maps of one net as PNGs under
+        controlnet_outputs_<time>/<last part of the net's name>/, named
+        <epoch>_<frame>.png (the JAX facade's dumps)."""
+        from PIL import Image
+
+        if self._cn_dump_root is None:
+            self._cn_dump_root = (Path(self.config.output_video_dir)
+                                  / f"controlnet_outputs_{time.strftime('%Y%m%d-%H%M%S')}")
+        d = self._cn_dump_root / net_name.split("/")[-1]
+        d.mkdir(parents=True, exist_ok=True)
+        for i, m in enumerate(maps.cpu().numpy()):
+            Image.fromarray(m).save(d / f"{epoch:04d}_{i:02d}.png")
+
+    @torch.no_grad()
+    def prepare_cond_images(self, input_frames, epoch: int = 0) -> list[torch.Tensor]:
+        """The window's condition maps, one (1, F, H, W, 3) uint8 tensor on the
+        device a ControlNet, annotated on the device from the (F, H, W, 3)
+        uint8 input frames (numpy or tensor); [] without ControlNets."""
+        if not self.models.controlnets:
+            return []
+        if input_frames is None:
+            raise ValueError("ControlNets need input frames to annotate")
+        frames = self._to_device(input_frames)[0]
+        cond_images = []
+        for name, annotate in zip(self.config.controlnets, self.models.annotators):
+            maps = annotate(frames)
+            maps_u8 = (maps.float() * 255.0 + 0.5).to(torch.uint8)
+            if self.config.save_frames:
+                self._dump_condition_maps(name, maps_u8, epoch)
+            cond_images.append(maps_u8[None])
+        return cond_images
+
     def animate(
         self,
         input_frames,  # (F, H, W, 3) uint8, or None for txt2vid
@@ -195,11 +262,13 @@ class ControlAnimatePipeline:
         epoch: int = 0,
         frame_count: Optional[int] = None,
         noise: Optional[NoiseSource] = None,
+        cond_images: Optional[list] = None,
     ) -> torch.Tensor:
         """Generate one window; returns its (F, H, W, 3) uint8 frames on the
         device. Every call with the same seed draws the same noise (the
         reference re-seeds per window); `noise` overrides the default
-        `TorchNoise(seed, device)`."""
+        `TorchNoise(seed, device)`. `cond_images` are the window's condition
+        maps from `prepare_cond_images`, staged here when not given."""
         cfg = self.config
         pos, _neg = self._encode_prompts(cfg.prompt, cfg.n_prompt, cfg.clip_skip)
 
@@ -210,6 +279,8 @@ class ControlAnimatePipeline:
             if cache_epoch == epoch and cached_tail.shape[1] == overlaps:
                 head_latents = cached_tail
 
+        if cond_images is None:
+            cond_images = self.prepare_cond_images(input_frames, epoch)
         st = self.window_static(strength=strength, has_input_frames=input_frames is not None,
                                 frame_count=frame_count)
         out = self.engine.generate_window(
@@ -217,11 +288,37 @@ class ControlAnimatePipeline:
             input_frames=self._to_device(input_frames),
             last_output_frames=self._to_device(last_output_frames),
             head_latents=head_latents,
+            cond_images=cond_images,
         )
         if st.tail_latents:
             out, tail = out
             self._overlap_latent_cache = (epoch + 1, tail)
         return out[0]
+
+
+def controlnet_scales(cfg: RunConfig) -> list[float]:
+    """One conditioning scale a ControlNet: `cond_scale`, or 1.0 for each net
+    when it is empty; ValueError when its length differs."""
+    n = len(cfg.controlnets)
+    if not cfg.cond_scale:
+        return [1.0] * n
+    if len(cfg.cond_scale) != n:
+        raise ValueError(f"RunConfig.cond_scale has {len(cfg.cond_scale)} values for "
+                         f"{n} ControlNets")
+    return [float(c) for c in cfg.cond_scale]
+
+
+def controlnet_dir(name: str) -> Path:
+    """A ControlNet's folder: models/ControlNet/<last part of the name>, else
+    the name as a path (the JAX facade's rule); FileNotFoundError if neither
+    exists."""
+    path = Path("models/ControlNet") / name.split("/")[-1]
+    if not path.exists():
+        path = Path(name)
+    if not path.exists():
+        raise FileNotFoundError(f"ControlNet {name!r}: neither models/ControlNet/"
+                                f"{name.split('/')[-1]} nor {name} exists")
+    return path
 
 
 def _existing(path, key: str) -> Path:
@@ -256,8 +353,9 @@ def _load(make: Callable[[], nn.Module], state: dict[str, torch.Tensor], device,
 def build_from_disk(cfg: RunConfig, arch: ArchConfig, device="cuda",
                     dtype: torch.dtype = torch.bfloat16) -> tuple[EngineModels, TextStack]:
     """The pipeline's models from the model zoo named by `cfg`, on `device` in
-    `dtype` (the JAX `_build_from_disk`, without ControlNets, IP-Adapter
-    tokens and token merging, which `require_ported` rejects)."""
+    `dtype` (the JAX `_build_from_disk`, without IP-Adapter tokens and token
+    merging, which `require_ported` rejects). The annotators are built by the
+    pipeline."""
     base = Path(cfg.pretrained_lcm_model_path if cfg.use_lcm else cfg.pretrained_model_path)
     if not base.is_dir():
         raise FileNotFoundError(f"model snapshot {base} not found")
@@ -323,4 +421,12 @@ def build_from_disk(cfg: RunConfig, arch: ArchConfig, device="cuda",
         vae_state_dict_from_torch)
     unet = _load(lambda: UNet3DConditionModel(ucfg), unet_sd, device, dtype,
                  lambda sd, keys: unet_state_dict_from_torch(sd, keys, motion_sd))
-    return EngineModels(unet=unet, vae=vae), TextStack(tokenizer, text_model)
+    controlnets = []
+    for name in cfg.controlnets:
+        cn_json, cn_sd = ingest.load_hf_component(controlnet_dir(name), "")
+        cn_cfg, cond_channels = controlnet_config_from_json(cn_json)
+        controlnets.append(_load(
+            lambda: ControlNetModel(cn_cfg, cond_channels), cn_sd, device, dtype,
+            lambda sd, keys: controlnet_state_dict_from_torch(sd, cn_cfg, len(cond_channels))))
+    return (EngineModels(unet=unet, vae=vae, controlnets=controlnets),
+            TextStack(tokenizer, text_model))

@@ -25,8 +25,18 @@ runs; the main stream waits on that upload's event. The checkpoint worker
 reads the stitch state back on its own thread; the stitch returns new tensors
 and nothing writes into them, so a snapshot may hold references.
 
+With ControlNets each window's condition maps are annotated on the device
+(`pipeline.prepare_cond_images`, timed as `annotate`) before the window runs:
+by the prefetch worker on its side stream for the window it uploads, as the
+JAX loop pre-annotates, else on the main thread (the first window, runs
+without `overlap_host_work`, and loop-back). With `loop_back_frames` the
+overlap slots of a window's input hold the previous window's generated
+overlap frames, for the annotators and the VAE encode alike (as in the JAX
+loop); the staged upload is copied before they go in, and overlap-latent
+reuse is off (the facade's rule).
+
 Not ported yet, and rejected by `config.require_ported`: segment-parallel
-runs, ControlNets, IP-Adapter. The C++ ring buffer frame
+runs, IP-Adapter, the annotators of M13. The C++ ring buffer frame
 pipe (`use_native_framepipe`) is not ported: the loop takes the Python
 ffmpeg pipe, as the JAX loop does where that pipe cannot be built. JAX
 behaviours not copied: a missing RealESRGAN file raises FileNotFoundError
@@ -133,31 +143,35 @@ def _round64(x: int) -> int:
 
 
 class _Stager:
-    """Uploads a prefetched window to the device. On CUDA the copy runs on a
-    side stream from pinned memory, and the main stream waits on its event
-    before it uses the frames; on the CPU the frames are used as they are."""
+    """Uploads a prefetched window to the device and, given an `annotate`
+    function, computes its condition maps there. On CUDA both run on a side
+    stream (the copy from pinned memory), and the main stream waits on their
+    event before it uses them; on the CPU they are used as they are."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-    def upload(self, batch: np.ndarray):
+    def upload(self, batch: np.ndarray, annotate=None):
         host = torch.from_numpy(batch)
         if self.stream is None:
-            return host, None
+            return host, None, None if annotate is None else annotate(host)
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             staged = host.pin_memory().to(self.device, non_blocking=True)
+            cond = None if annotate is None else annotate(staged)
             ready = torch.cuda.Event()
             ready.record(self.stream)
-        return staged, ready
+        return staged, ready, cond
 
-    def claim(self, staged: torch.Tensor, ready) -> torch.Tensor:
-        """Make the main stream wait for the upload and own the tensor."""
+    def claim(self, staged: torch.Tensor, ready, cond=None):
+        """Make the main stream wait for the upload (and the annotation) and
+        own the tensors; returns (frames, condition maps or None)."""
         if ready is not None:
             main = torch.cuda.current_stream(self.device)
             main.wait_event(ready)
-            staged.record_stream(main)
-        return staged
+            for t in [staged, *(cond or ())]:
+                t.record_stream(main)
+        return staged, cond
 
 
 class _Readback:
@@ -369,9 +383,22 @@ def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt
 
         ckpt_futures.append(ckpt_executor.submit(run))
 
-    def prefetch(tail: list):
+    # the prefetch worker annotates the window it uploads (its annotators'
+    # host syncs then wait only for the side stream), except under
+    # loop-back, where the overlap slots wait for the window before
+    annotates = bool(cfg.controlnets) and hasattr(pipeline, "prepare_cond_images")
+    pre_annotate = annotates and not cfg.loop_back_frames
+
+    def prefetch(tail: list, epoch: int):
         new = read_n(window - len(tail))
-        return (new, stager.upload(np.stack(tail + new)) if new else None)
+        if not new:
+            return new, None
+
+        def annotate(frames):
+            with timers.phase("annotate"):
+                return pipeline.prepare_cond_images(frames, epoch)
+
+        return new, stager.upload(np.stack(tail + new), annotate if pre_annotate else None)
 
     def upscaled(frames: torch.Tensor) -> torch.Tensor:
         if upscaler is None:
@@ -416,12 +443,12 @@ def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt
             if max_windows is not None and windows_run >= max_windows:
                 break
             overlap_inputs = list(state.overlap_input_frames)
-            staged_input = None
+            staged_input = cond_images = None
             if pending_prefetch is not None:
                 new_frames, upload = pending_prefetch.result()
                 pending_prefetch = None
                 if upload is not None:
-                    staged_input = stager.claim(*upload)
+                    staged_input, cond_images = stager.claim(*upload)
             elif frame_source is not None:
                 new_frames = read_n(window - len(overlap_inputs))
             else:
@@ -444,6 +471,13 @@ def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt
 
             batch = overlap_inputs + new_frames
             overlaps = state.overlap_length
+            if overlaps and cfg.loop_back_frames:
+                # the previous window's generated overlap frames in the overlap slots
+                prev = state.overlap_frames
+                batch[:overlaps] = list(_host(prev))
+                if staged_input is not None:
+                    staged_input = staged_input.clone()  # the stager's buffer stays as it is
+                    staged_input[:overlaps] = torch.as_tensor(prev).to(staged_input.device)
             input_frames = staged_input if staged_input is not None else (
                 np.stack(batch) if batch else None)
             strength = cfg.overlap_strength if overlaps else cfg.strength
@@ -452,12 +486,16 @@ def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt
             # start the next window's read and upload before this window runs
             if executor is not None:
                 tail = list(batch[-overlap_length:]) if overlap_length > 0 else []
-                pending_prefetch = executor.submit(prefetch, tail)
+                pending_prefetch = executor.submit(prefetch, tail, state.epoch + 1)
 
+            if annotates and cond_images is None and input_frames is not None:
+                with timers.phase("annotate"):
+                    cond_images = pipeline.prepare_cond_images(input_frames, state.epoch)
+            cond_kw = {} if cond_images is None else {"cond_images": cond_images}
             with timers.phase("animate_window"):
                 frames_dev = pipeline.animate(
                     input_frames, last_out, overlaps=overlaps, strength=strength,
-                    seed=seed, epoch=state.epoch,
+                    seed=seed, epoch=state.epoch, **cond_kw,
                 )
 
             # the previous window's emit, while this window computes

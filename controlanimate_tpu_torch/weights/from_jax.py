@@ -8,7 +8,9 @@ below are the inverse of the JAX package's checkpoint loaders
 (`controlanimate_tpu/weights/unet_weights.py`, `vae_weights.py`,
 `clip_weights.py`, `models/upscaler.py` `rrdbnet_params_from_torch`,
 `models/gfpgan.py` `gfpgan_params_from_torch`, `models/retinaface.py`
-`retinaface_params_from_torch`), copied here so the port never imports that
+`retinaface_params_from_torch`, `weights/controlnet_weights.py`
+`controlnet_params_from_torch`, `models/annotators/edge_nets.py`
+`hed_params_from_torch`), copied here so the port never imports that
 package. Kinds: "conv" HWIO -> OIHW, "dense" (in, out) -> (out, in), "raw"
 as is, "nchw" (1, H, W, C) -> (1, C, H, W), "lead1" with a leading axis of
 1 (a modulated conv's weight), "chan" (C,) -> (1, C, 1, 1), "vec1" () ->
@@ -145,6 +147,51 @@ def unet_mapping(cfg: UNet3DConfig) -> Iterator[Entry]:
                              f"up_blocks_{i}_upsamplers_0/conv/conv")
     yield from _norm("conv_norm_out", "conv_norm_out/norm")
     yield from _conv("conv_out", "conv_out/conv")
+
+
+def controlnet_mapping(cfg: UNet3DConfig, cond_levels: int = 4) -> Iterator[Entry]:
+    """The ControlNet's keys (diffusers layout) and Flax paths; `cond_levels`
+    is the length of the condition embedding's `block_out_channels`."""
+    yield from _conv("conv_in", "conv_in/conv")
+    yield from _dense("time_embedding.linear_1", "time_embedding/linear_1")
+    yield from _dense("time_embedding.linear_2", "time_embedding/linear_2")
+    ce = "controlnet_cond_embedding"
+    yield from _conv(f"{ce}.conv_in", f"{ce}/conv_in/conv")
+    for b in range(2 * (cond_levels - 1)):
+        yield from _conv(f"{ce}.blocks.{b}", f"{ce}/blocks_{b}/conv")
+    yield from _conv(f"{ce}.conv_out", f"{ce}/conv_out/conv")
+    n_down, n_res = len(cfg.down_block_types), 0
+    for i, bt in enumerate(cfg.down_block_types):
+        in_ch = cfg.block_out_channels[max(i - 1, 0)]
+        out_ch = cfg.block_out_channels[i]
+        for j in range(cfg.layers_per_block):
+            t, f = f"down_blocks.{i}", f"down_blocks_{i}"
+            yield from _resnet(f"{t}.resnets.{j}", f"{f}_resnets_{j}", j == 0 and in_ch != out_ch)
+            if bt == "CrossAttnDownBlock3D":
+                yield from _spatial(f"{t}.attentions.{j}", f"{f}_attentions_{j}")
+            n_res += 1
+        if i < n_down - 1:
+            yield from _conv(f"down_blocks.{i}.downsamplers.0.conv",
+                             f"down_blocks_{i}_downsamplers_0/conv/conv")
+            n_res += 1
+    yield from _resnet("mid_block.resnets.0", "mid_block_resnets_0", False)
+    yield from _spatial("mid_block.attentions.0", "mid_block_attentions_0")
+    yield from _resnet("mid_block.resnets.1", "mid_block_resnets_1", False)
+    for idx in range(n_res + 1):  # conv_in's residual first
+        yield from _conv(f"controlnet_down_blocks.{idx}", f"controlnet_down_blocks_{idx}/conv")
+    yield from _conv("controlnet_mid_block", "controlnet_mid_block/conv")
+
+
+# ControlNetHED's five VGG stages: (block, convolutions)
+HED_BLOCKS = (("block1", 2), ("block2", 2), ("block3", 3), ("block4", 3), ("block5", 3))
+
+
+def hed_mapping() -> Iterator[Entry]:
+    yield "norm", "norm", "chan"
+    for b, n in HED_BLOCKS:
+        for i in range(n):
+            yield from _conv(f"{b}.convs.{i}", f"{b}/convs_{i}")
+        yield from _conv(f"{b}.projection", f"{b}/projection")
 
 
 def _vae_resnet(t: str, f: str, shortcut: bool) -> Iterator[Entry]:
@@ -333,3 +380,12 @@ def gfpgan_state_dict(params: dict, out_size: int) -> dict[str, torch.Tensor]:
 
 def retinaface_state_dict(params: dict) -> dict[str, torch.Tensor]:
     return _state_dict(params, retinaface_mapping())
+
+
+def controlnet_state_dict(params: dict, cfg: UNet3DConfig,
+                          cond_levels: int = 4) -> dict[str, torch.Tensor]:
+    return _state_dict(params, controlnet_mapping(cfg, cond_levels))
+
+
+def hed_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(params, hed_mapping())

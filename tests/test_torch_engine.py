@@ -1,7 +1,8 @@
 """The port's native-LCM window against `AnimationEngine.generate_window` of
 the JAX package: same weights, the JAX engine's own noise draws injected,
-with and without overlap-latent reuse; gate <= 2e-3 on decoded frames (the
-gate of tests/test_engine.py). Also the LCM tables and the w-embedding."""
+with and without overlap-latent reuse, and with two ControlNets; gate
+<= 2e-3 on decoded frames (the gate of tests/test_engine.py). Also the LCM
+tables and the w-embedding."""
 
 import dataclasses
 
@@ -16,7 +17,9 @@ from controlanimate_tpu.schedulers import make_schedule as jax_make_schedule
 from controlanimate_tpu.schedulers import make_scheduler as jax_make_scheduler
 from controlanimate_tpu_torch.pipelines import engine as tengine
 from controlanimate_tpu_torch.schedulers import make_schedule, make_scheduler
+from controlanimate_tpu_torch.ops.canny import canny
 from test_torch_common import JaxDraws, unet_pair, vae_pair
+from test_torch_controlnet import LCM_CN, controlnet_pair
 
 GATE = 2e-3
 
@@ -111,6 +114,54 @@ def test_lcm_txt2vid_overlap_window_matches_jax(engines):
                                  last_output_frames=torch.from_numpy(last))
     assert out_t.shape == (1, 4, 32, 32, 3)
     assert np.abs(out_t.numpy() - out_j).max() <= GATE
+
+
+@pytest.mark.parametrize("guess_mode", [False, True])
+def test_lcm_window_with_two_controlnets_matches_jax(engines, guess_mode):
+    """Two ControlNets (scales 1.0 and 0.6) on uint8 condition maps, canny
+    edges of the frames and random maps: the residuals summed over the nets
+    enter the UNet at every step, as in the JAX engine's LCM path."""
+    jeng, teng = engines
+    jcn, p1, tcn1 = controlnet_pair(LCM_CN, seed=24)
+    _, p2, tcn2 = controlnet_pair(LCM_CN, seed=25)
+    scales = [1.0, 0.6]
+    jeng_cn = jengine.AnimationEngine(
+        dataclasses.replace(jeng.m, controlnets=[jcn, jcn], controlnet_params=[p1, p2],
+                            cond_scales=scales), jax_make_schedule())
+    teng_cn = tengine.AnimationEngine(
+        dataclasses.replace(teng.m, controlnets=[tcn1, tcn2], cond_scales=scales),
+        make_schedule())
+    frames, ctx = _inputs(12)
+    cond = [(canny(torch.from_numpy(frames[0])).numpy() * 255).astype(np.uint8)[None],
+            np.random.RandomState(13).randint(0, 256, frames.shape, dtype=np.uint8)]
+    jst, tst = _window(guess_mode=guess_mode)
+    key = jax.random.PRNGKey(14)
+    out_j = np.asarray(jeng_cn.generate_window(
+        jst, jnp.asarray(ctx), key, cond_images=[jnp.asarray(c) for c in cond],
+        input_frames=jnp.asarray(frames)))
+    out_t = teng_cn.generate_window(tst, torch.from_numpy(ctx), JaxDraws(key),
+                                    input_frames=torch.from_numpy(frames),
+                                    cond_images=[torch.from_numpy(c) for c in cond])
+    assert out_t.shape == out_j.shape == (1, 4, 32, 32, 3)
+    assert np.abs(out_t.numpy() - out_j).max() <= GATE
+    plain = teng.generate_window(tst, torch.from_numpy(ctx), JaxDraws(key),
+                                 input_frames=torch.from_numpy(frames))
+    assert np.abs(out_t.numpy() - plain.numpy()).max() > 1e-2  # the nets moved the frames
+    with pytest.raises(ValueError, match="condition maps"):
+        teng_cn.generate_window(tst, torch.from_numpy(ctx), JaxDraws(key),
+                                input_frames=torch.from_numpy(frames), cond_images=cond[:1])
+
+
+def test_unported_window_settings_raise(engines):
+    """A window without `use_lcm` (the CFG samplers, M10) or with IP-Adapter
+    tokens (M11) raises."""
+    _, teng = engines
+    frames, ctx = _inputs(15)
+    for bad in ({"use_lcm": False}, {"ip_tokens": 4}):
+        _, tst = _window(**bad)
+        with pytest.raises(NotImplementedError):
+            teng.generate_window(tst, torch.from_numpy(ctx), JaxDraws(jax.random.PRNGKey(0)),
+                                 input_frames=torch.from_numpy(frames))
 
 
 @pytest.mark.parametrize("steps,strength,origin", [(4, 0.9, 50), (2, 0.9, 8), (4, 1.0, 50),

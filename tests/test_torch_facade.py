@@ -102,8 +102,10 @@ def test_unported_facade_paths_raise():
     _, _, tclip = clip_pair()
     models = tengine.EngineModels(unet=tunet, vae=tvae)
     text = tfacade.TextStack(CLIPTokenizer.tiny(), tclip)
-    for bad in ({"use_lcm": False}, {"controlnets": ("lineart",)}, {"use_ipadapter": True}):
-        with pytest.raises(NotImplementedError):
+    for bad, what in (({"use_lcm": False}, "use_lcm"),
+                      ({"controlnets": ("lllyasviel/control_v11p_sd15_openpose",)}, "M13"),
+                      ({"use_ipadapter": True}, "use_ipadapter")):
+        with pytest.raises(NotImplementedError, match=what):
             tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, **bad}), models=models,
                                            text_stack=text, device="cpu")
 

@@ -16,7 +16,12 @@ weights (nothing is downloaded):
   * every path the build reads raises FileNotFoundError when missing, where
     the JAX build skips it or falls back; paths it does not read are not
     checked; a LoRA file that matches no layer raises, and a motion LoRA
-    fuses into the blocks whose checkpoint keys carry `module.`.
+    fuses into the blocks whose checkpoint keys carry `module.`;
+  * a tiny diffusers ControlNet folder, built by the port from its
+    config.json equal bit for bit to the JAX `controlnet_params_from_torch`
+    on the same file, found under models/ControlNet/ or by its path, through
+    the CLI with the canny annotator; a missing folder and a `cond_scale` of
+    the wrong length raise.
 """
 
 import json
@@ -32,12 +37,16 @@ from PIL import Image
 from safetensors.torch import save_file
 
 from controlanimate_tpu.config import RunConfig as JaxRunConfig
+from controlanimate_tpu.models.unet3d import UNet3DConfig as JaxUNetConfig
+from controlanimate_tpu.weights import ingest as jax_ingest
+from controlanimate_tpu.weights.controlnet_weights import controlnet_params_from_torch
 from controlanimate_tpu.pipelines import facade as jfacade
 from controlanimate_tpu_torch import __main__ as cli
 from controlanimate_tpu_torch import vid2vid as tv2v
 from controlanimate_tpu_torch.config import ArchConfig, RunConfig
 from controlanimate_tpu_torch.io import media as tmedia
 from controlanimate_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+from controlanimate_tpu_torch.models.controlnet import ControlNetModel, controlnet_config_from_json
 from controlanimate_tpu_torch.models.tokenizer import CLIPTokenizer
 from controlanimate_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
 from controlanimate_tpu_torch.models.vae import AutoencoderKL
@@ -54,6 +63,7 @@ UNET_JSON = {"in_channels": 4, "out_channels": 4, "block_out_channels": [8, 8, 1
 TINY_VAE = {"block_out_channels": [8, 16, 16, 16], "norm_num_groups": 4,
             "scaling_factor": 0.18215}
 SIZE = 64
+REPO = Path(__file__).resolve().parent.parent  # the ControlNet tests change directory
 
 
 def _seed_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -356,3 +366,88 @@ def test_motion_modules_need_a_checkpoint(zoo):
     pipe = tfacade.ControlAnimatePipeline(RunConfig(**_cfg(zoo, motion_module=None)),
                                           arch=arch, device="cpu")
     assert not any("motion_modules" in k for k in pipe.models.unet.state_dict())
+
+
+# a ControlNet of the zoo UNet's down path (diffusers config.json fields),
+# with a narrow condition embedding of four levels as SD1.5's
+CN_JSON = {"block_out_channels": [8, 8, 16, 16], "layers_per_block": 1, "attention_head_dim": 2,
+           "cross_attention_dim": D_CTX, "norm_num_groups": 4,
+           "conditioning_embedding_out_channels": [4, 8, 8, 16],
+           "down_block_types": ["CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+                                "CrossAttnDownBlock2D", "DownBlock2D"]}
+
+
+@pytest.fixture(scope="module")
+def cn_zoo(tmp_path_factory):
+    """models/ControlNet/sd-controlnet-canny under a fresh directory: the
+    config.json and a safetensors file of a seeded tiny ControlNet."""
+    root = tmp_path_factory.mktemp("cn_zoo")
+    cfg, cond = controlnet_config_from_json(CN_JSON)
+    net = _seed_(ControlNetModel(cfg, cond), 7)
+    _save_component(root / "models" / "ControlNet", "sd-controlnet-canny", CN_JSON,
+                    net.state_dict(), "diffusion_pytorch_model.safetensors")
+    return {"root": root, "folder": root / "models" / "ControlNet" / "sd-controlnet-canny",
+            "net": net}
+
+
+def test_controlnet_disk_build_equals_jax(zoo, cn_zoo, monkeypatch):
+    """The folder found as models/ControlNet/<last part of the name> from the
+    working directory, and by its path: the port's ControlNet equals
+    `from_jax` of the JAX `controlnet_params_from_torch` on the same file."""
+    monkeypatch.chdir(cn_zoo["root"])
+    for name in ("lllyasviel/sd-controlnet-canny", str(cn_zoo["folder"])):
+        cfg = RunConfig(**_cfg(zoo, controlnets=(name,), inference_config_path=str(REPO / V1)))
+        models, _ = tfacade.build_from_disk(cfg, ArchConfig.from_yaml(REPO / V1), "cpu", torch.float32)
+        (net,) = models.controlnets
+        jcfg = JaxUNetConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
+                             attention_heads=2, cross_attention_dim=D_CTX, norm_num_groups=4,
+                             use_motion_module=False)
+        _, sd = jax_ingest.load_hf_component(cn_zoo["folder"], "")
+        params = controlnet_params_from_torch(sd, jcfg)
+        _assert_state_equal(net.state_dict(), from_jax.controlnet_state_dict(params, net.config))
+        _assert_state_equal(net.state_dict(), cn_zoo["net"].state_dict())
+
+
+def test_controlnet_cli_run_equals_the_injected_pipeline(zoo, cn_zoo, tmp_path, monkeypatch):
+    """A profile naming the ControlNet (canny annotator, `cond_scale` 0.7)
+    through `main([...])`: its frames equal the injected pipeline's with the
+    same ControlNet, and differ from a run without it."""
+    monkeypatch.chdir(cn_zoo["root"])
+    profile = _cfg(zoo, inference_config_path=str(REPO / V2), input_video_path=str(zoo["root"] / "frames"),
+                   output_video_dir=str(tmp_path / "cli"), textual_inversion_paths=[],
+                   controlnets=["lllyasviel/sd-controlnet-canny"], cond_scale=[0.7])
+    path = tmp_path / "profile.yaml"
+    path.write_text(yaml.safe_dump({k: list(v) if isinstance(v, tuple) else v
+                                    for k, v in profile.items()}))
+    summary = cli.main(["--config", str(path), "--device", "cpu"])
+    assert summary["frames_written"] == 6 and summary["timers"]["annotate"]["count"] == 2
+    got = [np.asarray(Image.open(p)) for p in sorted((tmp_path / "cli" / "frames").glob("*.png"))]
+
+    cfg = RunConfig.from_yaml(path).replace(output_video_dir=str(tmp_path / "injected"))
+    sinks = []
+    for nets, c in (([cn_zoo["net"]], cfg), ([], cfg.replace(controlnets=(), cond_scale=()))):
+        injected = tfacade.ControlAnimatePipeline(
+            c, models=tengine.EngineModels(unet=zoo["unet"], vae=zoo["vae"], controlnets=nets),
+            text_stack=tfacade.TextStack(CLIPTokenizer.from_pretrained(zoo["snapshot"]),
+                                         zoo["clip"]),
+            arch=ArchConfig.from_yaml(REPO / V2), device="cpu")
+        sinks.append(tmedia.ArrayFrameSink())
+        tv2v.vid2vid(config=c, pipeline=injected, frame_sink=sinks[-1])
+    for a, b in zip(got, sinks[0].frames):
+        np.testing.assert_array_equal(a, b)
+    assert any(not np.array_equal(a, b) for a, b in zip(got, sinks[1].frames))
+
+
+def test_controlnet_settings_that_raise(zoo, cn_zoo):
+    """A missing ControlNet folder raises FileNotFoundError; a `cond_scale`
+    whose length differs from `controlnets` raises ValueError before any
+    file is read (JAX fails with an IndexError mid-trace)."""
+    absent = str(zoo["root"] / "absent-sd-controlnet-canny")
+    with pytest.raises(FileNotFoundError, match="absent-sd-controlnet-canny"):
+        tfacade.ControlAnimatePipeline(RunConfig(**_cfg(zoo, controlnets=(absent,))),
+                                       device="cpu")
+    bad = RunConfig(**_cfg(zoo, controlnets=(str(cn_zoo["folder"]),) * 2, cond_scale=(1.0,),
+                           pretrained_lcm_model_path=str(zoo["root"] / "absent")))
+    with pytest.raises(ValueError, match="cond_scale"):
+        tfacade.ControlAnimatePipeline(bad, device="cpu")
+

@@ -2,9 +2,10 @@
 small pipeline on the card against the same pipeline on the CPU (without
 the optional kernels, with K2, and with K3), a small pipeline built from
 disk against the injected one, a small RealESRGAN upscaler (its x4 tail
-on K4) on the card against the CPU, and the face step (RetinaFace, the
+on K4) on the card against the CPU, the face step (RetinaFace, the
 aligned crop, GFPGAN, the paste, and the OpenCV stand-ins under them) on
-the card against the CPU.
+the card against the CPU, and the ControlNet slice: canny and HED on the
+card against the CPU, and a small pipeline with two ControlNets.
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -395,3 +396,35 @@ def test_warp_ops_card_match_cpu(cuda, dtype):
     assert torch.equal(erode(mask.to(cuda), 6).cpu(), erode(mask, 6))
     torch.testing.assert_close(gaussian_blur(mask.to(cuda), 15).cpu(), gaussian_blur(mask, 15),
                                atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(4, 512, 512), (2, 768, 512), (3, 37, 53), (1, 1, 29)])
+@pytest.mark.parametrize("edges", [False, True], ids=["smooth", "edge_rich"])
+def test_canny_card_matches_cpu(cuda, shape, edges):
+    """Canny's int32 Sobel, fixed-point suppression and label-propagation
+    hysteresis give the same maps on the card as on the CPU."""
+    import numpy as np
+
+    import chip_smoke
+
+    frames = chip_smoke.synthetic_video(np, *shape, chip_smoke.SEED)
+    if edges:
+        frames = chip_smoke.edge_rich(np, frames)
+    chip_smoke.canny_reference(torch, np, frames)
+
+
+def test_small_hed_card_matches_cpu(cuda):
+    import chip_smoke
+
+    ref = chip_smoke.small_hed_reference(torch)
+    assert ref["max_lsb"] <= 1 and ref["std"] > 0.02, ref
+
+
+def test_small_controlnet_window_card_matches_cpu(cuda):
+    """The small fp32 pipeline with two ControlNets (canny and HED) on the
+    card against the CPU: uint8 within 1 LSB, and the nets change the
+    frames."""
+    import chip_smoke
+
+    ref = chip_smoke.small_controlnet_reference(torch)
+    assert ref["max_lsb"] <= 1 and ref["controlnet_change_max"] > 0, ref

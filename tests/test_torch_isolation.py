@@ -53,3 +53,11 @@ def test_package_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_the_controlnet_slice_is_checked():
+    """The ControlNet slice's modules are among the files checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {f"controlanimate_tpu_torch/{m}" for m in (
+        "models/controlnet.py", "ops/canny.py", "models/annotators/__init__.py",
+        "models/annotators/edge_nets.py", "weights/controlnet_weights.py")} <= names

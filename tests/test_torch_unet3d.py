@@ -36,9 +36,12 @@ def test_unet_matches_jax(kw, motion, frames):
 
 
 def test_unported_unet_options_raise():
+    """IP-Adapter tokens are not ported; ControlNet residuals are, and a list
+    that does not match the skips raises (JAX's zip drops the extra ones)."""
     with pytest.raises(NotImplementedError):
         UNet3DConditionModel(UNet3DConfig(**TINY_UNET, ip_tokens=4))
     tmodel = UNet3DConditionModel(UNet3DConfig(**TINY_UNET))
     x = torch.zeros(1, 2, 8, 8, 4)
-    with pytest.raises(NotImplementedError):
-        tmodel(x, torch.tensor([1]), torch.zeros(1, 7, 24), mid_block_additional_residual=x)
+    with pytest.raises(ValueError, match="residuals"):
+        tmodel(x, torch.tensor([1]), torch.zeros(1, 7, 24),
+               down_block_additional_residuals=[torch.zeros(1, 2, 8, 8, 32)])

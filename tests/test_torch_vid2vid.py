@@ -37,6 +37,7 @@ from controlanimate_tpu_torch.pipelines import facade as tfacade
 from scripts.vid2vid import vid2vid as jax_vid2vid
 from test_torch_common import (JaxDraws, clip_pair, seeded_rrdbnet, unet_pair, upscaler_pair,
                                vae_pair)
+from test_torch_controlnet import LCM_CN, controlnet_pair
 
 SIZE = 64
 
@@ -201,6 +202,30 @@ def test_resume_appends_in_directory_sink(tmp_path):
         b = np.asarray(Image.open(tmp_path / "jax" / "frames" / n), np.int64)
         assert_frames_close(a, b)
     assert t[0]["output"] == str(tmp_path / "torch" / "frames")
+
+
+def test_directory_sink_writes_every_frame_and_reports_failures(tmp_path):
+    """The PNG sink's worker threads: every frame lands, numbered in write
+    order, with its pixels (the caller's buffer reused at once); `close`
+    raises a failed write."""
+    from PIL import Image
+
+    sink = tmedia.DirectoryFrameSink(str(tmp_path / "ok"), start_index=3)
+    buf, want = np.empty((24, 40, 3), np.uint8), []
+    for i in range(20):
+        buf[:] = _video(i, 1)[0, :24, :40]
+        want.append(buf.copy())
+        sink.write(buf)
+    sink.close()
+    names = sorted(p.name for p in (tmp_path / "ok").glob("*.png"))
+    assert names == [f"{i:04d}.png" for i in range(4, 24)]
+    for name, frame in zip(names, want):
+        np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "ok" / name)), frame)
+    sink = tmedia.DirectoryFrameSink(str(tmp_path / "gone"))
+    (tmp_path / "gone").rmdir()
+    sink.write(buf)
+    with pytest.raises(FileNotFoundError):
+        sink.close()
 
 
 def test_cooperative_cancel_matches_jax(tmp_path):
@@ -413,43 +438,97 @@ def test_loop_builds_the_face_enhancer_from_its_files(tmp_path):
                          frame_sink=tmedia.ArrayFrameSink())
 
 
+def _tiny_real_loops(tmp_path, frames, controlnet: bool = False, run_jax: bool = True,
+                     **cfg_kw):
+    """The port's facade and loop and the JAX ones (unless not `run_jax`) on
+    the same tiny models and JAX noise (LCM, fp32); with `controlnet`, one
+    canny ControlNet of the tiny UNet's down path at scale 0.8. Returns
+    both summaries and sinks ((None, None) for JAX when it did not run)."""
+    cfg_kw = dict(width=SIZE, height=SIZE, frame_count=4, overlap_length=2, use_lcm=True,
+                  steps=2, strength=0.9, overlap_strength=0.85, lcm_origin_steps=8,
+                  guidance_scale=7.5, dtype="float32", prompt="a (red fox)+", n_prompt="blurry",
+                  seed=5, ffmpeg_path="ffmpeg-absent-here", **cfg_kw)
+    junet, uparams, tunet = unet_pair(seed=41)
+    jvae, vparams, tvae = vae_pair(seed=42)
+    jclip, cparams, tclip = clip_pair(seed=43)
+    jcn = dict(controlnets=[], controlnet_params=[], cond_scales=[])
+    tcn = dict(controlnets=[])
+    if controlnet:
+        jmodel, params, tmodel = controlnet_pair(LCM_CN, seed=44)
+        cfg_kw.update(controlnets=("lllyasviel/sd-controlnet-canny",), cond_scale=(0.8,))
+        jcn = dict(controlnets=[jmodel], controlnet_params=[params], cond_scales=[0.8])
+        tcn = dict(controlnets=[tmodel])
+    jcfg = JaxRunConfig(**cfg_kw, output_video_dir=str(tmp_path / "jax"))
+    jpipe = jfacade.ControlAnimatePipeline(
+        jcfg, models=jengine.EngineModels(unet=junet, unet_params=uparams, vae=jvae,
+                                          vae_params=vparams, **jcn),
+        text_stack=jfacade.TextStack(JaxTokenizer.tiny(), jclip, cparams))
+    tcfg = RunConfig(**cfg_kw, output_video_dir=str(tmp_path / "torch"))
+    tpipe = tfacade.ControlAnimatePipeline(
+        tcfg, models=tengine.EngineModels(unet=tunet, vae=tvae, **tcn),
+        text_stack=tfacade.TextStack(CLIPTokenizer.tiny(), tclip), device="cpu")
+
+    class WithJaxNoise:
+        device = tpipe.device
+        prepare_cond_images = tpipe.prepare_cond_images
+
+        def animate(self, *args, seed, **kw):
+            return tpipe.animate(*args, seed=seed, noise=JaxDraws(jax.random.PRNGKey(seed)), **kw)
+
+    js, ts, j = jmedia.ArrayFrameSink(), tmedia.ArrayFrameSink(), None
+    if run_jax:
+        j = jax_vid2vid(config=jcfg, pipeline=jpipe,
+                        frame_source=jmedia.ArrayFrameSource(frames), frame_sink=js)
+    t = tv2v.vid2vid(config=tcfg, pipeline=WithJaxNoise(),
+                     frame_source=tmedia.ArrayFrameSource(frames), frame_sink=ts)
+    return (j, js), (t, ts)
+
+
 def test_tiny_real_pipeline_matches_jax(tmp_path):
     """The port's facade and loop against the JAX ones on the same tiny
     models and JAX noise: 8 frames, 3 windows (4 frames, overlap 2), LCM,
     fp32. Gate: the windows agree within the facade test's 1 LSB, and the
     stitch's color match then applies `assert_frames_close`."""
-    cfg_kw = dict(width=SIZE, height=SIZE, frame_count=4, overlap_length=2, use_lcm=True,
-                  steps=2, strength=0.9, overlap_strength=0.85, lcm_origin_steps=8,
-                  guidance_scale=7.5, dtype="float32", prompt="a (red fox)+", n_prompt="blurry",
-                  seed=5, ffmpeg_path="ffmpeg-absent-here")
-    junet, uparams, tunet = unet_pair(seed=41)
-    jvae, vparams, tvae = vae_pair(seed=42)
-    jclip, cparams, tclip = clip_pair(seed=43)
-    jcfg = JaxRunConfig(**cfg_kw, output_video_dir=str(tmp_path / "jax"))
-    jpipe = jfacade.ControlAnimatePipeline(
-        jcfg, models=jengine.EngineModels(unet=junet, unet_params=uparams, vae=jvae,
-                                          vae_params=vparams),
-        text_stack=jfacade.TextStack(JaxTokenizer.tiny(), jclip, cparams))
-    tcfg = RunConfig(**cfg_kw, output_video_dir=str(tmp_path / "torch"))
-    tpipe = tfacade.ControlAnimatePipeline(
-        tcfg, models=tengine.EngineModels(unet=tunet, vae=tvae),
-        text_stack=tfacade.TextStack(CLIPTokenizer.tiny(), tclip), device="cpu")
-
-    class WithJaxNoise:
-        device = tpipe.device
-
-        def animate(self, *args, seed, **kw):
-            return tpipe.animate(*args, seed=seed, noise=JaxDraws(jax.random.PRNGKey(seed)), **kw)
-
-    frames = _video(6, 8)
-    js, ts = jmedia.ArrayFrameSink(), tmedia.ArrayFrameSink()
-    j = jax_vid2vid(config=jcfg, pipeline=jpipe, frame_source=jmedia.ArrayFrameSource(frames),
-                    frame_sink=js)
-    t = tv2v.vid2vid(config=tcfg, pipeline=WithJaxNoise(),
-                     frame_source=tmedia.ArrayFrameSource(frames), frame_sink=ts)
+    (j, js), (t, ts) = _tiny_real_loops(tmp_path, _video(6, 8))
     assert t["windows"] == j["windows"] == 3 and t["frames_written"] == j["frames_written"] == 8
     for a, b in zip(ts.frames, js.frames):
         assert_frames_close(a, b)
+
+
+@pytest.mark.parametrize("loop_back", [False, True])
+def test_tiny_controlnet_loop_matches_jax(tmp_path, loop_back):
+    """The same loops with a canny ControlNet, with and without
+    `loop_back_frames` (the previous window's generated overlap frames
+    annotated and encoded in the overlap slots), within the same gates; the
+    loop times the annotation, and loop-back changes the frames."""
+    (j, js), (t, ts) = _tiny_real_loops(tmp_path, _video(6, 8), controlnet=True,
+                                        loop_back_frames=loop_back)
+    assert t["windows"] == j["windows"] == 3 and t["frames_written"] == j["frames_written"] == 8
+    assert t["timers"]["annotate"]["count"] == 3
+    for a, b in zip(ts.frames, js.frames):
+        assert_frames_close(a, b)
+    if loop_back:
+        (_, _), (_, plain) = _tiny_real_loops(tmp_path / "plain", _video(6, 8), controlnet=True,
+                                              run_jax=False)
+        assert any(not np.array_equal(a, b) for a, b in zip(ts.frames, plain.frames))
+
+
+def test_controlnet_dumps_match_jax(tmp_path):
+    """`save_frames` with a ControlNet: each window's condition maps land as
+    PNGs under controlnet_outputs_<time>/<net>/<epoch>_<frame>.png, the
+    same files with the same pixels as the JAX facade's."""
+    from PIL import Image
+
+    _tiny_real_loops(tmp_path, _video(7, 6), controlnet=True, save_frames=True)
+    dumps = {}
+    for name in ("jax", "torch"):
+        (root,) = (tmp_path / name).glob("controlnet_outputs_*")
+        dumps[name] = {p.name: np.asarray(Image.open(p))
+                       for p in sorted((root / "sd-controlnet-canny").glob("*.png"))}
+    assert list(dumps["torch"]) == list(dumps["jax"]) == [
+        f"{e:04d}_{i:02d}.png" for e in range(2) for i in range(4)]
+    for k, v in dumps["jax"].items():
+        np.testing.assert_array_equal(dumps["torch"][k], v)
 
 
 # -- configuration -------------------------------------------------------------
@@ -486,7 +565,7 @@ def test_unknown_keys_land_in_extras():
 UNPORTED = {
     "parallel_segments": 4, "mesh_shape": (4, 2),
     "use_ipadapter": True, "do_initial_generation": True,
-    "controlnets": ("lllyasviel/sd-controlnet-canny",), "loop_back_frames": True,
+    "temporal_band": 4, "token_merge_ratio": 0.5, "encoder_reuse_every": 2,
 }
 
 

@@ -86,3 +86,38 @@ def test_gaussian_kernels_match_cv2():
     for k in range(1, 202, 2):
         want = cv2.getGaussianKernel(k, 0, cv2.CV_32F).ravel()
         np.testing.assert_array_equal(gaussian_kernel(k), want, err_msg=str(k))
+
+
+def test_fp32_convs_restores_the_flags_across_threads():
+    """The backend flags are process-wide: blocks entered on many threads at
+    once (the loop's annotating worker beside its face step) each see TF32
+    off inside and leave the flags as they found them."""
+    import sys
+    import threading
+
+    from controlanimate_tpu_torch.ops.warp import fp32_convs
+
+    saved, interval = torch.backends.cuda.matmul.allow_tf32, sys.getswitchinterval()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    errors = []
+
+    def work():
+        for _ in range(300):
+            with fp32_convs(cudnn=False):
+                if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.enabled:
+                    errors.append("flags changed inside a block")
+
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors
+        assert torch.backends.cuda.matmul.allow_tf32 is True and torch.backends.cudnn.enabled
+    finally:
+        sys.setswitchinterval(interval)
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
