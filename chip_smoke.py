@@ -8,9 +8,12 @@ Phases, each printed as one JSON line with its seconds:
   build      nvcc builds the CUDA kernels (K1 flash attention, K2 fused
              GroupNorm -> SiLU -> conv3x3, K3 fused motion module, K4
              nearest-2x + conv3x3 + leaky ReLU), one compile a source, all
-             in parallel, then one link; prints its time and nvcc's register
-             / spill report, K1's, K2's, K3's and K4's each on a line of its
-             own. K1's line adds the dynamic shared memory of each bf16
+             in parallel, then one link (meanwhile torch.profiler makes
+             its first, slow start on a thread: `profiler_start_seconds`);
+             prints its time and nvcc's register / spill report. After the
+             cfg phase (`cuobjdump -sass` runs on the thread meanwhile)
+             K1's, K2's, K3's and K4's report each on a line of its own.
+             K1's line adds the dynamic shared memory of each bf16
              plan and the tensor-core (HMMA) instructions that `cuobjdump
              -sass` finds in each K1 kernel: every bf16 K1 kernel must have
              some. K2's line adds the HMMA and cp.async (LDGSTS)
@@ -44,7 +47,15 @@ Phases, each printed as one JSON line with its seconds:
              the uint8 quantisation; and the small pipeline with two
              ControlNets of its UNet's down path (canny at 1.0, HED at 0.5)
              on the card against the CPU in fp32: uint8 within 1 LSB, and
-             changed by the ControlNets.
+             changed by the ControlNets; then the multi-step samplers, card
+             against CPU in fp32 within 1 LSB, at 64x64: Euler under CFG 7.5
+             with a canny ControlNet (guess mode off; K1 must run at
+             B*F = 8) and the LCM-LoRA tail (`LCMScheduler` without
+             `use_lcm`, CFG 1.1), two windows each (a whole one at strength
+             1, an overlap one at 0.92 from its last two outputs); Euler
+             under CFG with `use_pallas_conv` (K2) and with
+             CONTROLANIMATE_PALLAS_MOTION=1 (K3, which must run at B = 2),
+             and DPM-Solver, one whole window each.
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -100,6 +111,21 @@ Phases, each printed as one JSON line with its seconds:
              CUDA events each annotator's time on a 16-frame window and
              each ControlNet's forwards of a window (also on the card
              alone).
+  cfg        the multi-step path (SampleConfig.yaml's sampler): the same
+             loop, K2 on, over 24 frames (one whole window at strength 1.0,
+             one overlap-8 window at `overlap_strength` 0.92) with
+             `EulerDiscreteScheduler`, 30 steps, guidance 7.5 over the
+             negative and positive prompts, and the controlnet phase's canny
+             ControlNet at 1.0; the SD1.5 UNet without the LCM w-embedding
+             (`time_cond_proj_dim` None, the window phase's weights). Checks
+             24 frames written, K1's launches by shape (the UNet's 16 and
+             the ControlNet's 7 self-attentions a step at B*F = 32, the
+             VAE's mid attention in each decode and in the second window's
+             encode of the 8 last outputs) and K2's against the VAE's
+             calls, and that the first window differs from the same window
+             without guidance. Prints new frames/s, the unguided window's
+             seconds, one UNet and one ControlNet forward on the doubled
+             batch by CUDA events, peak memory and the loop's timers.
   vid2vid_upscale
              the upscale path: the same loop (K2 off) with `upscale` 4 and
              a full-width RealESRGAN x4 RRDBNet (64 features, 6 blocks,
@@ -121,18 +147,29 @@ Phases, each printed as one JSON line with its seconds:
              by torch.save), the upscaler and face models (below), and the
              frames of each run as PNG directories; runs
              `python -m controlanimate_tpu_torch --config` in-process on
-             it, frames from the PNG directory and PNGs out (no ffmpeg):
-             at 512x512 on inference-v2.yaml with K2 off, whose frames must
-             equal the vid2vid_plain_conv phase's (same bf16 weights, noise
-             and kernels; when they do not, the injected loop runs again
-             and the difference may not exceed that rerun's); then the
-             controlnet phase's profile: its two ControlNets written as
+             it, frames from the PNG directory and PNGs out (no ffmpeg).
+             The controlnet phase's two ControlNets are written as
              diffusers folders (config.json + safetensors) under the
              snapshot's models/ControlNet/ and its HED as
-             models/annotators/ControlNetHED.pth, the CLI run from the
-             snapshot root, which finds them there: its frames must equal
-             the controlnet phase's (the same rerun rule) and its K1
-             launches by shape the same 488; then the
+             models/annotators/ControlNetHED.pth, and the next two runs
+             start from the snapshot root, which finds them there, for two
+             windows each (`--max-windows 2`, 16 frames written). First the
+             controlnet phase's native-LCM profile at 512x512 on
+             inference-v2.yaml with K2 off: its frames must equal the
+             controlnet phase's first 16 and its K1 launches by shape those
+             that two windows with both ControlNets imply. Then the LCM-LoRA
+             profile (SampleConfigLCMLoRA.yaml's sampler: `use_lcm` 0,
+             `LCMScheduler` with tail truncation, 7 steps, CFG 1.1) with
+             the same ControlNets, on the same snapshot read as
+             `pretrained_model_path`, with a synthetic Kohya-layout LoRA
+             (`kohya_lora`) on the UNet's cross-attention and the text
+             encoder's attention projections: its K1 launches by shape
+             (B*F = 32, the ControlNets' included) must equal the count
+             from the code, and its frames the injected pipeline's after
+             the same fusion. In both runs the weights, noise and kernels
+             are those of the injected run (bf16); when the frames differ,
+             the injected loop runs again and the difference may not
+             exceed that rerun's. Then the
              whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
              inference-v1.yaml (no mid-block motion module, non-inflated
              GroupNorm, PE 24 long) with K2 on, `upscale` 2 (the
@@ -161,22 +198,25 @@ Phases, each printed as one JSON line with its seconds:
              the detector, the alignment, GFPGAN and the paste; peak
              memory. Fails if GFPGAN's fp32 output is not finite, or a
              paste leaves its face's centre unchanged.
-  kernels    K1 against its plain version at every shape the window phase
-             and the disk phase's 512x768 run launched it with, plus odd
+  kernels    K1 against its plain version at every shape the window phase,
+             the cfg phase and the disk phase's 512x768 run launched it
+             with, plus odd
              lengths, in bf16 and fp32 (`k1_mismatch` states the gates),
              with its achieved TFLOP/s and share of the bound in bf16; K2
              against its plain version at every shape the vid2vid phase and
              the 512x768 run launched it with, plus odd H, W and Cin, each
-             with and without the affine + SiLU + residual, in bf16 and
-             fp32 (`k2_mismatch`), with K2's achieved TFLOP/s and share of
+             with and without the affine + SiLU + residual, in bf16, and in
+             fp32 (the reference phase's dtype) at all but the 512x768
+             shapes (`k2_mismatch`), with K2's achieved TFLOP/s and share of
              the bound in bf16, and the GroupNorm fold's time and peak
              memory at the largest input it folds, beside the same
              statistics taken from full fp32 copies. Then each kernel's
-             time, its plain version's (at the 512x512 shapes only), one
+             time, its plain version's (over PLAIN_ITERS calls, at the main
+             path's 512x512 shapes, and for K1 at the odd ones), one
              PyTorch call's (SDPA for K1, `F.conv2d` on the activated input
              for K2: yardsticks the port never calls) and the bound, and
              their sums over a window at both geometries, and K1's over the
-             vid2vid and controlnet phases' launches.
+             vid2vid, controlnet and cfg phases' launches.
   kernels_k3 K3 against its plain version at every shape the
              window_motion_kernel phase launched it with, plus odd shapes
              (N = 37, F = 8 and 24, PE off, C = 64), in bf16 and fp32
@@ -224,6 +264,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import chdir, contextmanager, redirect_stdout
 from pathlib import Path
 
@@ -277,10 +318,13 @@ K4_ODD_SHAPES = [(2, 9, 37, 64, 64), (1, 1, 16, 64, 64), (1, 13, 21, 32, 32), (3
 # uint8 outputs of the 6-block network off 0 and 255
 RRDB_LAST_GAIN = 0.3
 WINDOWS = 4  # timed windows of each kind
+# calls K1's and K2's plain versions (10-20x their kernels' time) are timed
+# over, with no warm-up: the check just before ran them at the same shape
+PLAIN_ITERS = 1
 V2V_OVERLAP_WINDOWS = 3  # overlap windows after the vid2vid phase's first window
 FACE_FRAMES = 3  # the face phase's timed frames (after one warm-up frame)
-# what the kernels phases sum at the 512x768 shapes, whose plain versions
-# are checked but not timed
+# what the kernels phases sum at the 512x768 and CFG shapes, whose plain
+# versions are checked but not timed
 UNTIMED_PLAIN = ("ms", "library_ms", "bound_ms")
 SEED = 7
 # the disk phase's synthetic model zoo (build/ is git-ignored), the SD1.5
@@ -315,16 +359,14 @@ def sass_counts(library: Path, cuobjdump: Path, opcodes: tuple[str, ...]) -> dic
     out = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True, text=True,
                          check=True, timeout=300).stdout
     counts, current = {op: {} for op in opcodes}, None
-    for line in out.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
+    pattern = r"Function : (\S+)|\b(" + "|".join(map(re.escape, opcodes)) + r")\b"
+    for m in re.finditer(pattern, out):
+        if m.group(1):
             current = m.group(1)
             for op in opcodes:
                 counts[op][current] = 0
         elif current is not None:
-            for op in opcodes:
-                if re.search(rf"\b{op}\b", line):
-                    counts[op][current] += 1
+            counts[m.group(2)][current] += 1
     return counts
 
 
@@ -350,9 +392,10 @@ def ptxas_report(log: str) -> list[dict]:
     return rows
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean time of one call, by CUDA events over `iters` calls after warm-up."""
-    for _ in range(2):
+def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Mean time of one call, by CUDA events over `iters` calls after
+    `warmup` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1072,19 +1115,25 @@ def vae_k2_calls(vae, hw: tuple[int, int]) -> tuple:
 
 
 def expected_k2_launches(vae, hw, frames_n, overlap, full_windows, overlap_windows) -> dict:
-    """K2 launches by (B, H, W, Cin, Cout, affine, residual) for windows of
-    `frames_n` frames: every window decodes all frames; a whole window
-    encodes all, an overlap window only its new frames."""
+    """K2 launches by (B, H, W, Cin, Cout, affine, residual) for native-LCM
+    windows of `frames_n` frames: every window decodes all frames; a whole
+    window encodes all, an overlap window only its new frames."""
+    return vae_k2_launches(vae, hw, [frames_n] * (full_windows + overlap_windows),
+                           [frames_n] * full_windows + [frames_n - overlap] * overlap_windows)
+
+
+def vae_k2_launches(vae, hw, decodes, encodes) -> dict:
+    """K2 launches by (B, H, W, Cin, Cout, affine, residual) of VAE decodes
+    and encodes of (H, W) frames, `decodes` and `encodes` listing the frames
+    each call takes."""
     from collections import Counter
 
     encode, decode = vae_k2_calls(vae, hw)
     out = Counter()
-    for key, n in decode.items():
-        out[(frames_n,) + key] += n * (full_windows + overlap_windows)
-    for key, n in encode.items():
-        out[(frames_n,) + key] += n * full_windows
-        if overlap_windows:
-            out[(frames_n - overlap,) + key] += n * overlap_windows
+    for calls, batches in ((decode, decodes), (encode, encodes)):
+        for key, n in calls.items():
+            for frames in batches:
+                out[(frames,) + key] += n
     return dict(out)
 
 
@@ -1257,14 +1306,41 @@ def write_controlnets(torch, root: Path, nets: dict, hed) -> dict:
     return sizes
 
 
+def kohya_lora(torch, unet_sd: dict, te_sd: dict, gen, rank: int = 4) -> dict:
+    """A synthetic LoRA in the Kohya layout (`lora_unet_...` / `lora_te_...`
+    with `.lora_up.weight`, `.lora_down.weight` and `.alpha`, the layout of
+    the LCM-LoRA release) on the projections of the UNet's cross-attention
+    (attn2: to_q, to_k, to_v, to_out.0) and of the text encoder's
+    self-attention (q, k, v, out_proj): lora_up N(0, 0.05^2), lora_down
+    lecun-normal, alpha = rank; fp32 on the host."""
+    lora = {}
+    for prefix, sd, pattern in (
+            ("lora_unet_", unet_sd, r"\.attn2\.(to_[qkv]|to_out\.0)\.weight$"),
+            ("lora_te_", te_sd, r"\.self_attn\.(q|k|v|out)_proj\.weight$")):
+        for key, w in sd.items():
+            if not re.search(pattern, key):
+                continue
+            name = prefix + key[: -len(".weight")].replace(".", "_")
+            out_f, in_f = w.shape
+            lora[f"{name}.lora_up.weight"] = torch.randn(out_f, rank, generator=gen) * 0.05
+            lora[f"{name}.lora_down.weight"] = (torch.randn(rank, in_f, generator=gen)
+                                                / math.sqrt(in_f))
+            lora[f"{name}.alpha"] = torch.tensor(float(rank))
+    return lora
+
+
 def write_frames(np, directory: Path, frames) -> None:
     """Frames as numbered PNGs (a frame directory the loop reads without
     ffmpeg)."""
     from PIL import Image
 
+    def save(i):
+        Image.fromarray(np.asarray(frames[i])).save(directory / f"{i + 1:04d}.png",
+                                                    compress_level=1)
+
     directory.mkdir(parents=True, exist_ok=True)
-    for i, frame in enumerate(frames):
-        Image.fromarray(np.asarray(frame)).save(directory / f"{i + 1:04d}.png", compress_level=1)
+    with ThreadPoolExecutor(max_workers=4) as pool:  # zlib releases the GIL
+        list(pool.map(save, range(len(frames))))
 
 
 def read_frames(np, directory: Path) -> list:
@@ -1338,29 +1414,71 @@ def small_models(torch, dtype: str, conv_kernel: bool):
     return cfg, models, text
 
 
-def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = False) -> dict:
+def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = False,
+                    controlnet: bool = False, windows: int = 2, **settings) -> dict:
     """The same small pipeline (fp32, same weights and noise) on the CPU and
     on the card: uint8 frames must agree within 1 LSB. Head dims 40/80 (UNet)
     and 512 (VAE) put K1 on the card's path; with `conv_kernel` the VAE's
     levels are 128 channels wide and `use_pallas_conv` is on, which puts K2
     on it too; with `motion_kernel` both pipelines are built with
     CONTROLANIMATE_PALLAS_MOTION=1, which puts the motion modules (80 and 160
-    channels, 2 heads) on K3."""
+    channels, 2 heads) on K3. `settings` replace the run config's (a
+    multi-step sampler: `use_lcm` off, `scheduler`, `guidance_scale`, ...);
+    without `use_lcm` and with `windows` 2 a second window follows, an
+    overlap window at `overlap_strength` that starts from the first
+    window's last two outputs. With `controlnet` one canny ControlNet of the
+    UNet's down path (scale 1.0, guess mode off) steers the windows."""
     import copy
 
+    from controlanimate_tpu_torch.ops.canny import canny
+    from controlanimate_tpu_torch.pipelines.engine import EngineModels
     from controlanimate_tpu_torch.pipelines.facade import ControlAnimatePipeline
 
     cfg, models, text = small_models(torch, "float32", conv_kernel)
+    cfg = cfg.replace(**settings)
+    if controlnet:
+        cfg = cfg.replace(controlnets=("lllyasviel/sd-controlnet-canny",), cond_scale=(1.0,))
+        models = EngineModels(unet=models.unet, vae=models.vae, annotators=[canny],
+                              controlnets=seeded_controlnets(
+                                  torch, models.unet.config, 1, "cpu",
+                                  torch.Generator().manual_seed(SEED + 3)))
     with motion_env(motion_kernel):
         cpu = ControlAnimatePipeline(cfg, models=models, text_stack=text, device="cpu")
         gpu = ControlAnimatePipeline(cfg, models=copy.deepcopy(models),
                                      text_stack=copy.deepcopy(text), device="cuda")
-    frames = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
-                           generator=torch.Generator().manual_seed(SEED))
-    out_cpu = cpu.animate(frames, None, seed=SEED, noise=HostNoise(SEED, "cpu"))
-    out_gpu = gpu.animate(frames, None, seed=SEED, noise=HostNoise(SEED, "cuda"))
-    diff = (out_cpu.int() - out_gpu.cpu().int()).abs()
-    return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.float().mean())}
+    gen = torch.Generator().manual_seed(SEED)
+    frames = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8, generator=gen)
+    later = torch.cat([frames[-2:], torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                                                  generator=gen)])
+    outs, seconds = [], {}
+    for pipe, device in ((cpu, "cpu"), (gpu, "cuda")):
+        t1 = time.perf_counter()
+        out = pipe.animate(frames, None, seed=SEED, noise=HostNoise(SEED, device))
+        outs.append([out.cpu()])
+        if not cfg.use_lcm and windows == 2:
+            outs[-1].append(pipe.animate(later, out[-2:], overlaps=2,
+                                         strength=cfg.overlap_strength, seed=SEED, epoch=1,
+                                         noise=HostNoise(SEED, device)).cpu())
+        seconds[f"{device}_seconds"] = round(time.perf_counter() - t1, 3)
+    diff = torch.stack([(a.int() - b.int()).abs() for a, b in zip(*outs)])
+    return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.float().mean()), **seconds}
+
+
+# the cfg phase's profile: SampleConfig.yaml's sampler (with one canny
+# ControlNet at 1.0 and K2 on), a whole window and an overlap-8 window
+CFG_PROFILE = {"use_lcm": False, "scheduler": "EulerDiscreteScheduler", "steps": 30,
+               "guidance_scale": 7.5, "strength": 1.0, "overlap_strength": 0.92}
+# the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's sampler
+LCM_LORA_PROFILE = {"use_lcm": False, "scheduler": "LCMScheduler", "steps": 7,
+                    "guidance_scale": 1.1, "strength": 1.0, "overlap_strength": 0.92}
+# the reference phase's multi-step windows (two each, 64x64): the default
+# profile's Euler under CFG, the LCM-LoRA profile's tail, and DPM-Solver
+EULER_CFG = {"use_lcm": False, "scheduler": "EulerDiscreteScheduler", "steps": 2,
+             "strength": 1.0, "overlap_strength": 0.92, "guidance_scale": 7.5}
+LCM_LORA = {**EULER_CFG, "scheduler": "LCMScheduler", "steps": 4, "guidance_scale": 1.1}
+# three steps (one window): DPM-Solver's second-order update runs at the
+# middle one only
+DPM_CFG = {**EULER_CFG, "scheduler": "DPMSolverMultistepScheduler", "steps": 3}
 
 
 def init_hed_(torch, net, gen) -> None:
@@ -1530,6 +1648,18 @@ def profile_window(torch, run, unprofiled_seconds: float) -> dict:
     }
 
 
+def warm_profiler(torch) -> float:
+    """One tiny profiled call on the card, so that later profiles do not pay
+    torch.profiler's start (CUPTI's); returns its seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(8, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def device_busy_ms(torch, fn, iters: int = 3) -> float:
     """The card's summed activity time (kernels and copies; one stream, so
     they do not overlap) of one call of `fn`, by torch.profiler over `iters`
@@ -1587,6 +1717,27 @@ def expected_k1_launches(full_windows: int, overlap_windows: int, steps: int,
     return expected
 
 
+def expected_cfg_k1_launches(window_steps: list, frames_n: int, encodes: list,
+                             latent=(64, 64), controlnets: int = 0) -> dict:
+    """K1 launches by shape of windows under classifier-free guidance
+    (guidance > 1, guess mode off) on `latent` (h, w): the UNet's and each
+    ControlNet's self-attention on the doubled batch (B*F = 2 * frames_n)
+    once a step, `window_steps` holding each window's steps; one VAE
+    mid-block attention in each window's decode (all frames) and one in
+    each encode (`encodes`: the frames each encode takes)."""
+    from collections import Counter
+
+    steps, bf = sum(window_steps), 2 * frames_n
+    expected = Counter({shape: n * steps for shape, n in unet_k1_shapes(bf, latent).items()})
+    n = latent[0] * latent[1]
+    for div, D, blocks in CONTROLNET_LEVELS:
+        expected[(bf, n // div, n // div, 8, D)] += controlnets * blocks * steps
+    expected[(frames_n, n, n, 1, 512)] += len(window_steps)
+    for frames in encodes:
+        expected[(frames, n, n, 1, 512)] += 1
+    return dict(expected)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1620,35 +1771,16 @@ def main() -> int:
           cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
+    # torch.profiler's first use starts CUPTI, about 9 s on the card's
+    # machine: it runs on a thread while nvcc builds. The SASS listing
+    # (cuobjdump, seconds of host work) is read on the same thread during
+    # the cfg phase, whose time the card takes; its checks follow that phase.
+    side = ThreadPoolExecutor(max_workers=1)
+    warm_job = side.submit(warm_profiler, torch)
     lib = _build.load_library()
     ptxas = ptxas_report(lib.log)
     phase("build", t0, nvcc_seconds=round(lib.build_seconds, 3), library=lib.path.name,
-          ptxas=ptxas)
-    sass = sass_counts(lib.path, Path(_build._nvcc()).with_name("cuobjdump"),
-                       ("HMMA", "LDGSTS", "LDSM"))
-    k1_hmma = {name: n for name, n in sass["HMMA"].items() if "attn_" in name}
-    print(json.dumps({"k1_ptxas": [r for r in ptxas if "attn_" in r["function"]],
-                      "k1_hmma": k1_hmma,
-                      "k1_bf16_dynamic_smem": {D: lib.lib.flash_attention_bf16_smem_bytes(D)
-                                               for D in fa.SUPPORTED_HEAD_DIMS}}), flush=True)
-    bf16_k1 = [name for name in k1_hmma if "attn_bf16" in name]
-    if not bf16_k1 or not all(k1_hmma[name] for name in bf16_k1):
-        raise AssertionError(f"bf16 K1 kernels without tensor-core instructions: {k1_hmma}")
-    k2_ptxas = [r for r in ptxas if "conv3x3" in r["function"]]
-    k2_sass = {op: {name: n for name, n in sass[op].items() if "conv3x3" in name}
-               for op in ("HMMA", "LDGSTS")}
-    print(json.dumps({"k2_ptxas": k2_ptxas, "k2_hmma": k2_sass["HMMA"],
-                      "k2_ldgsts": k2_sass["LDGSTS"]}), flush=True)
-    bf16_k2 = [name for name in k2_sass["HMMA"] if "conv3x3_bf16" in name]
-    if not bf16_k2 or not all(k2_sass["HMMA"][n] and k2_sass["LDGSTS"][n] for n in bf16_k2):
-        raise AssertionError(f"bf16 K2 kernels without tensor-core (HMMA) or cp.async (LDGSTS) "
-                             f"instructions: {k2_sass}")
-    spilled = [r for r in k2_ptxas if "conv3x3_bf16" in r["function"]
-               and (r.get("spill_stores") or r.get("spill_loads"))]
-    if spilled:
-        raise AssertionError(f"bf16 K2 kernels spill registers: {spilled}")
-    pipelined_build_report("k3", "motion", "motion_gemm_bf16", ptxas, sass)
-    pipelined_build_report("k4", "upconv", "upconv_bf16", ptxas, sass)
+          profiler_start_seconds=round(warm_job.result(), 3), ptxas=ptxas)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1669,16 +1801,36 @@ def main() -> int:
                  for h in (512, 768) for f in (lambda v: v, lambda v: edge_rich(np, v))]
     ref_hed = small_hed_reference(torch)
     ref_cn = small_controlnet_reference(torch)
+    # the multi-step samplers: Euler under CFG with a ControlNet (on K1,
+    # with K2, with K3 at B = 2), the LCM-LoRA tail, DPM-Solver
+    fa.reset_launch_counts()
+    ref_cfg = small_reference(torch, controlnet=True, **EULER_CFG)
+    cfg_k1_batches = sorted({key[0] for key in fa.flash_attention.launches_by_shape})
+    ck.reset_launch_counts()
+    ref_cfg_k2 = small_reference(torch, conv_kernel=True, windows=1, **EULER_CFG)
+    k2_cfg_launches = ck.conv3x3_fused.launches
+    mk.reset_launch_counts()
+    ref_cfg_k3 = small_reference(torch, motion_kernel=True, windows=1, **EULER_CFG)
+    k3_cfg_batches = sorted({key[0] for key in mk.motion_module_fused.launches_by_shape})
+    ref_samplers = {"euler_cfg_controlnet": ref_cfg, "euler_cfg_k2": ref_cfg_k2,
+                    "euler_cfg_k3": ref_cfg_k3, "lcm_lora": small_reference(torch, **LCM_LORA),
+                    "dpm_cfg": small_reference(torch, windows=1, **DPM_CFG)}
     phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
           k2_launches=k2_ref_launches, k3_max_lsb=ref_k3["max_lsb"],
           k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches,
           upscale4_max_lsb=ref_up4["max_lsb"], upscale4_mean_lsb=ref_up4["mean_lsb"],
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
           k4_launches=k4_ref_launches, face=ref_face, canny=ref_canny, hed=ref_hed,
-          controlnet=ref_cn)
-    for r in (ref, ref_k2, ref_k3):
+          controlnet=ref_cn, samplers=ref_samplers, cfg_k1_batches=cfg_k1_batches,
+          cfg_k2_launches=k2_cfg_launches, cfg_k3_batches=k3_cfg_batches)
+    for r in (ref, ref_k2, ref_k3, *ref_samplers.values()):
         if r["max_lsb"] > 1:
-            raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB")
+            raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB: "
+                                 f"{ref_samplers}")
+    # 4 frames doubled by CFG on K1 (and the VAE's 4 and 2); K3 at B = 2
+    if 8 not in cfg_k1_batches or k3_cfg_batches != [2] or not k2_cfg_launches:
+        raise AssertionError(f"the CFG references did not run K1 at B*F = 8 ({cfg_k1_batches}), "
+                             f"K3 at B = 2 ({k3_cfg_batches}) or K2 ({k2_cfg_launches})")
     for r in (ref_up4, ref_up2):
         if r["max_lsb"] > 1:
             raise AssertionError(f"card and CPU upscalers differ by {r['max_lsb']} LSB")
@@ -1871,13 +2023,13 @@ def main() -> int:
             return self.pipe.prepare_cond_images(*args, **kw)
 
     def run_vid2vid(conv_kernel: bool, tag: str, upscaler=None, engine_models=None,
-                    **settings):
-        vcfg = cfg.replace(use_pallas_conv=conv_kernel, seed=SEED, overlap_strength=cfg.strength,
-                           upscale=1.0 if upscaler is None else upscaler.scale,
-                           output_video_dir=str(ROOT / "build" / "chip_smoke_vid2vid" / tag),
-                           **settings)
+                    text_stack=None, source=None, max_windows=None, **settings):
+        vcfg = cfg.replace(**{
+            "use_pallas_conv": conv_kernel, "seed": SEED, "overlap_strength": cfg.strength,
+            "upscale": 1.0 if upscaler is None else upscaler.scale,
+            "output_video_dir": str(ROOT / "build" / "chip_smoke_vid2vid" / tag), **settings})
         rec = Recording(ControlAnimatePipeline(vcfg, models=engine_models or models,
-                                               text_stack=text, device="cuda"))
+                                               text_stack=text_stack or text, device="cuda"))
         sink = ArrayFrameSink()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1885,8 +2037,9 @@ def main() -> int:
         ck.reset_launch_counts()
         uk.reset_launch_counts()
         t1 = time.perf_counter()
-        summary = v2v.vid2vid(config=vcfg, pipeline=rec, frame_source=ArrayFrameSource(video),
-                              frame_sink=sink, upscaler=upscaler)
+        summary = v2v.vid2vid(config=vcfg, pipeline=rec,
+                              frame_source=ArrayFrameSource(video if source is None else source),
+                              frame_sink=sink, upscaler=upscaler, max_windows=max_windows)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t1
         counts = {"k1": fa.flash_attention.launches,
@@ -2035,6 +2188,116 @@ def main() -> int:
     del cn_change
     torch.cuda.empty_cache()
 
+    # -- this slice's path: the default profile's sampler under CFG ---------
+    from controlanimate_tpu_torch.schedulers import make_schedule, make_scheduler
+
+    t0 = time.perf_counter()
+    sass_job = side.submit(sass_counts, lib.path, Path(_build._nvcc()).with_name("cuobjdump"),
+                           ("HMMA", "LDGSTS", "LDSM"))
+    # the SD1.5 UNet without the LCM w-embedding (no cond_proj), sharing the
+    # window phase's weights
+    with torch.device("meta"):
+        unet_sd15 = UNet3DConditionModel(UNet3DConfig())
+    lcm_state = models.unet.state_dict()
+    unet_sd15.load_state_dict({k: lcm_state[k] for k in unet_sd15.state_dict()}, assign=True)
+    del lcm_state
+    cfg_models = EngineModels(unet=unet_sd15, vae=models.vae, controlnets=cn_nets[:1],
+                              annotators=[canny])
+    cfg_settings = {**CFG_PROFILE, "controlnets": CN_NAMES[:1], "cond_scale": CN_SCALES[:1]}
+    cfg_video = video[:2 * frames_n - overlap]  # one whole and one overlap-8 window
+    summary_cfg, cfg_frames, cfg_seconds, cfg_raw, counts, cfg_peak = run_vid2vid(
+        True, "cfg", engine_models=cfg_models, source=cfg_video, **cfg_settings)
+    if summary_cfg["frames_written"] != len(cfg_video) or len(cfg_frames) != len(cfg_video):
+        raise AssertionError(f"the CFG loop wrote {summary_cfg['frames_written']} frames")
+    if any(f.shape != (size, size, 3) or f.dtype != np.uint8 for f in cfg_frames):
+        raise AssertionError("the CFG loop's frames are not (512, 512, 3) uint8")
+    if float(np.stack(cfg_frames).std()) == 0.0:
+        raise AssertionError("the CFG loop's frames are constant")
+    # each window's steps as the port's sampler builds them: 30, then 27
+    cfg_window_steps = [make_scheduler(CFG_PROFILE["scheduler"], make_schedule(),
+                                       CFG_PROFILE["steps"], strength=s).num_steps
+                        for s in (CFG_PROFILE["strength"], CFG_PROFILE["overlap_strength"])]
+    cfg_k1 = counts["k1_by_shape"]
+    # the second window encodes the first window's last 8 outputs
+    cfg_k1_expected = expected_cfg_k1_launches(cfg_window_steps, frames_n, [overlap],
+                                               controlnets=1)
+    per_step = sum(isinstance(m, BasicTransformerBlock)
+                   for net in (unet_sd15, cn_nets[0]) for m in net.modules())
+    # and the VAE's mid attention in the two decodes and the one encode
+    if (cfg_k1 != cfg_k1_expected
+            or sum(cfg_k1.values()) != per_step * sum(cfg_window_steps) + 2 + 1):
+        raise AssertionError(f"CFG loop K1 launches {cfg_k1}, expected {cfg_k1_expected} "
+                             f"({per_step} self-attentions a step)")
+    cfg_k2 = counts["k2_by_shape"]
+    cfg_k2_expected = vae_k2_launches(models.vae, (size, size), [frames_n, frames_n], [overlap])
+    if cfg_k2 != cfg_k2_expected or counts["k4"]:
+        raise AssertionError(f"CFG loop K2 launches {cfg_k2}, expected {cfg_k2_expected}, "
+                             f"or K4 launched")
+    # the same first window without guidance (the positive prompt alone)
+    plain_pipe = ControlAnimatePipeline(
+        cfg.replace(**{**cfg_settings, "guidance_scale": 1.0, "use_pallas_conv": True}),
+        models=cfg_models, text_stack=text, device="cuda")
+    t1 = time.perf_counter()
+    out_unguided = plain_pipe.animate(torch.from_numpy(cfg_video[:frames_n]).cuda(), None,
+                                      seed=SEED)
+    torch.cuda.synchronize()
+    unguided_seconds = time.perf_counter() - t1
+    cfg_change = (out_unguided.int() - cfg_raw[0].int()).abs()
+    if not int(cfg_change.max()):
+        raise AssertionError("guidance changed nothing: the CFG window equals the unguided one")
+    # a step's parts alone, by CUDA events: the UNet and the ControlNet on
+    # the doubled batch
+    pos, neg = plain_pipe._encode_prompts(cfg.prompt, cfg.n_prompt)
+    ctx2 = torch.cat([neg, pos])
+    lat2 = torch.randn((2, frames_n, size // 8, size // 8, 4), generator=cgen, device="cuda",
+                       dtype=torch.bfloat16)
+    cond2 = (canny(torch.from_numpy(cfg_video[:frames_n]).cuda())[None].float()).expand(
+        2, -1, -1, -1, -1)
+    with torch.no_grad():
+        unet_step_ms = cuda_ms(torch, lambda: unet_sd15(lat2, t_step, ctx2), 2)
+        cn_step_ms = cuda_ms(torch, lambda: cn_nets[0](lat2, t_step, ctx2, cond2), 2)
+    del lat2, cond2, ctx2
+    phase("cfg", t0, settings=cfg_settings, window_steps=cfg_window_steps,
+          windows=summary_cfg["windows"], frames_written=summary_cfg["frames_written"],
+          loop_seconds=round(cfg_seconds, 4),
+          new_frames_per_second_first_window_included=round(
+              summary_cfg["frames_written"] / cfg_seconds, 4),
+          unguided_window_seconds=round(unguided_seconds, 4),
+          unet_step_ms_doubled=unet_step_ms, controlnet_step_ms_doubled=cn_step_ms,
+          uint8_change_vs_unguided_mean=float(cfg_change.float().mean()),
+          uint8_change_vs_unguided_max=int(cfg_change.max()),
+          max_memory_allocated=cfg_peak, k1_launches=sum(cfg_k1.values()),
+          k1_launches_by_shape={str(k): n for k, n in sorted(cfg_k1.items())},
+          k2_launches=sum(cfg_k2.values()), timers=summary_cfg["timers"])
+    del plain_pipe, out_unguided, cfg_change, cfg_raw, cfg_frames, cfg_models, unet_sd15
+    torch.cuda.empty_cache()
+
+    sass = sass_job.result()
+    side.shutdown()
+    k1_hmma = {name: n for name, n in sass["HMMA"].items() if "attn_" in name}
+    print(json.dumps({"k1_ptxas": [r for r in ptxas if "attn_" in r["function"]],
+                      "k1_hmma": k1_hmma,
+                      "k1_bf16_dynamic_smem": {D: lib.lib.flash_attention_bf16_smem_bytes(D)
+                                               for D in fa.SUPPORTED_HEAD_DIMS}}), flush=True)
+    bf16_k1 = [name for name in k1_hmma if "attn_bf16" in name]
+    if not bf16_k1 or not all(k1_hmma[name] for name in bf16_k1):
+        raise AssertionError(f"bf16 K1 kernels without tensor-core instructions: {k1_hmma}")
+    k2_ptxas = [r for r in ptxas if "conv3x3" in r["function"]]
+    k2_sass = {op: {name: n for name, n in sass[op].items() if "conv3x3" in name}
+               for op in ("HMMA", "LDGSTS")}
+    print(json.dumps({"k2_ptxas": k2_ptxas, "k2_hmma": k2_sass["HMMA"],
+                      "k2_ldgsts": k2_sass["LDGSTS"]}), flush=True)
+    bf16_k2 = [name for name in k2_sass["HMMA"] if "conv3x3_bf16" in name]
+    if not bf16_k2 or not all(k2_sass["HMMA"][n] and k2_sass["LDGSTS"][n] for n in bf16_k2):
+        raise AssertionError(f"bf16 K2 kernels without tensor-core (HMMA) or cp.async (LDGSTS) "
+                             f"instructions: {k2_sass}")
+    spilled = [r for r in k2_ptxas if "conv3x3_bf16" in r["function"]
+               and (r.get("spill_stores") or r.get("spill_loads"))]
+    if spilled:
+        raise AssertionError(f"bf16 K2 kernels spill registers: {spilled}")
+    pipelined_build_report("k3", "motion", "motion_gemm_bf16", ptxas, sass)
+    pipelined_build_report("k4", "upconv", "upconv_bf16", ptxas, sass)
+
     # -- K4's path: the loop with the x4 upscaler, its tail on K4 ----------
     from controlanimate_tpu_torch.models.upscaler import RRDBNet, Upscaler
 
@@ -2140,7 +2403,7 @@ def main() -> int:
     write_frames(np, SNAPSHOT / "frames_512x768", video_768)
     write_seconds = time.perf_counter() - t1
 
-    def run_cli(tag: str, **settings):
+    def run_cli(tag: str, argv=(), **settings):
         """`python -m controlanimate_tpu_torch --config <profile>` in-process
         on the snapshot: the vid2vid phase's settings, frames from a PNG
         directory, PNGs out (no ffmpeg). Returns (summary, frames written,
@@ -2163,7 +2426,7 @@ def main() -> int:
             module.reset_launch_counts()
         t1 = time.perf_counter()
         with redirect_stdout(io.StringIO()):  # the CLI prints its summary
-            summary = cli_main(["--config", str(path)])
+            summary = cli_main(["--config", str(path), *argv])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t1
         counts = {"k1_by_shape": dict(fa.flash_attention.launches_by_shape),
@@ -2181,63 +2444,142 @@ def main() -> int:
                     summary["frames_written"] / (seconds - build), 4),
                 "max_memory_allocated": peak}
 
-    # 512x512, K2 off: the vid2vid_plain_conv phase's run, from disk
-    summary, disk_frames, seconds, counts, peak = run_cli(
-        "disk_512x512", input_video_path=str(SNAPSHOT / "frames_512x512"), width=size,
-        height=size, inference_config_path=str(INFERENCE_V2),
-        motion_module=str(SNAPSHOT / "mm_v2.ckpt"), use_pallas_conv=0)
-    if summary["frames_written"] != len(video) or len(disk_frames) != len(video):
-        raise AssertionError(f"the CLI wrote {summary['frames_written']} frames "
-                             f"({len(disk_frames)} PNGs) of {len(video)}")
-    if counts["k2_by_shape"] or counts["k3"] or counts["k4"]:
-        raise AssertionError(f"the 512x512 CLI run launched K2, K3 or K4: {counts}")
-    diff = np.abs(np.stack(disk_frames).astype(np.int16) - np.stack(plain_frames).astype(np.int16))
-    fields_512 = {"uint8_diff_vs_plain_conv_max": int(diff.max()),
-                  "uint8_diff_vs_plain_conv_mean": float(diff.mean())}
-    if diff.max():
-        # the injected pipeline again: the card's own run-to-run difference
-        _, again, _, _, _, _ = run_vid2vid(False, "plain_again")
-        rerun = np.abs(np.stack(again).astype(np.int16) - np.stack(plain_frames).astype(np.int16))
-        fields_512["injected_rerun_diff_max"] = int(rerun.max())
-        if diff.max() > rerun.max():
-            raise AssertionError(f"the CLI's frames differ from vid2vid_plain_conv's by "
-                                 f"{int(diff.max())}, two injected runs by {int(rerun.max())}")
-    fields_512.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
-    del disk_frames, diff
-
-    # the controlnet phase's profile from disk: its two ControlNets found
-    # under models/ControlNet/ and its HED under models/annotators/ from the
-    # snapshot root as the working directory
+    # the controlnet phase's two ControlNets, found under models/ControlNet/,
+    # and its HED under models/annotators/, from the snapshot root as the
+    # working directory
     t1 = time.perf_counter()
     snapshot_bytes.update(write_controlnets(torch, SNAPSHOT, dict(zip(CN_NAMES, cn_nets)),
                                             hed_net))
     cn_write_seconds = time.perf_counter() - t1
+
+    # the controlnet phase's native-LCM profile from disk (inference-v2, K2
+    # off), its first two windows: the LCM UNet, VAE, text encoder and
+    # motion module read from the snapshot, the two ControlNets and HED from
+    # their folders; its frames must equal the controlnet phase's first 16
     with chdir(SNAPSHOT):
         summary, disk_cn_frames, seconds, counts, peak = run_cli(
-            "disk_controlnet", input_video_path=str(SNAPSHOT / "frames_512x512"), width=size,
-            height=size, inference_config_path=str(INFERENCE_V2),
-            motion_module=str(SNAPSHOT / "mm_v2.ckpt"), use_pallas_conv=0, **cn_settings)
-    if summary["frames_written"] != len(video) or len(disk_cn_frames) != len(video):
-        raise AssertionError(f"the ControlNet CLI run wrote {summary['frames_written']} frames")
-    if counts["k1_by_shape"] != cn_k1_expected:
-        raise AssertionError(f"ControlNet CLI K1 launches {counts['k1_by_shape']}, expected "
-                             f"{cn_k1_expected}")
+            "disk_controlnet", ["--max-windows", "2"],
+            input_video_path=str(SNAPSHOT / "frames_512x512"), width=size, height=size,
+            inference_config_path=str(INFERENCE_V2), motion_module=str(SNAPSHOT / "mm_v2.ckpt"),
+            use_pallas_conv=0, **cn_settings)
+    n_cli = 2 * (frames_n - overlap)  # a run stopped by --max-windows keeps 8 for a resume
+    if summary["windows"] != 2 or len(disk_cn_frames) != n_cli:
+        raise AssertionError(f"the native-LCM ControlNet CLI run wrote {len(disk_cn_frames)} "
+                             f"frames in {summary['windows']} windows, not {n_cli} in 2")
+    cn_cli_k1_expected = expected_k1_launches(1, 1, steps, frames_n, overlap,
+                                              controlnets=len(CN_NAMES))
+    if counts["k1_by_shape"] != cn_cli_k1_expected or counts["k2_by_shape"] or counts["k3"]:
+        raise AssertionError(f"native-LCM ControlNet CLI K1 launches {counts['k1_by_shape']}, "
+                             f"expected {cn_cli_k1_expected}, or K2 or K3 launched")
     diff = np.abs(np.stack(disk_cn_frames).astype(np.int16)
-                  - np.stack(cn_frames).astype(np.int16))
-    fields_cn = {"controlnet_write_seconds": round(cn_write_seconds, 4),
+                  - np.stack(cn_frames[:n_cli]).astype(np.int16))
+    fields_cn = {"controlnets": list(CN_NAMES),
+                 "controlnet_write_seconds": round(cn_write_seconds, 4),
+                 "frames_written": summary["frames_written"],
                  "uint8_diff_vs_controlnet_max": int(diff.max()),
-                 "uint8_diff_vs_controlnet_mean": float(diff.mean())}
+                 "uint8_diff_vs_controlnet_mean": float(diff.mean()),
+                 "k1_launches": sum(counts["k1_by_shape"].values())}
     if diff.max():
+        # the injected pipeline again: the card's own run-to-run difference
         _, again, _, _, _, _ = run_vid2vid(False, "controlnet_again", engine_models=cn_models,
-                                           **cn_settings)
-        rerun = np.abs(np.stack(again).astype(np.int16) - np.stack(cn_frames).astype(np.int16))
+                                           max_windows=2, **cn_settings)
+        rerun = np.abs(np.stack(again).astype(np.int16)
+                       - np.stack(cn_frames[:n_cli]).astype(np.int16))
         fields_cn["injected_rerun_diff_max"] = int(rerun.max())
         if diff.max() > rerun.max():
-            raise AssertionError(f"the ControlNet CLI run's frames differ from the controlnet "
-                                 f"phase's by {int(diff.max())}, two injected runs by "
-                                 f"{int(rerun.max())}")
+            raise AssertionError(f"the native-LCM ControlNet CLI run's frames differ from the "
+                                 f"controlnet phase's by {int(diff.max())}, two injected runs "
+                                 f"by {int(rerun.max())}")
     fields_cn.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
-    del disk_cn_frames, diff, cn_frames, cn_models, cn_nets, hed, hed_net
+    del disk_cn_frames, diff, cn_frames
+
+    # the LCM-LoRA profile (SampleConfigLCMLoRA.yaml: `use_lcm` 0,
+    # LCMScheduler, 7 steps, CFG 1.1, a LoRA from `lora_model_paths`, its
+    # ControlNets) on the same snapshot read as `pretrained_model_path` (its
+    # UNet's cond_proj goes unused without `use_lcm`), with the controlnet
+    # phase's two ControlNets, two windows; against the injected pipeline
+    # after the same fusion
+    import copy
+
+    from controlanimate_tpu_torch.pipelines.facade import TextStack
+    from controlanimate_tpu_torch.weights.lora import fuse_lora, split_lora_by_component
+
+    t1 = time.perf_counter()
+    unet_state = models.unet.state_dict()
+    unet_2d = {k: v.cpu() for k, v in unet_state.items() if "motion_modules" not in k}
+    te_state = {k: v.cpu() for k, v in text.model.state_dict().items()}
+    lora_sd = kohya_lora(torch, unet_2d, te_state, torch.Generator().manual_seed(SEED + 4))
+    lora_path = SNAPSHOT / "lcm_lora.safetensors"
+    snapshot_bytes[lora_path.name] = save_safetensors(torch, lora_path, lora_sd)
+    lora_write_seconds = time.perf_counter() - t1
+    lora_settings = {**LCM_LORA_PROFILE, "pretrained_model_path": str(SNAPSHOT),
+                     "lora_model_paths": [str(lora_path)], "lora_weights": [1.0]}
+    with chdir(SNAPSHOT):
+        summary, lora_frames, seconds, counts, peak = run_cli(
+            "disk_lcm_lora", ["--max-windows", "2"],
+            input_video_path=str(SNAPSHOT / "frames_512x512"), width=size, height=size,
+            inference_config_path=str(INFERENCE_V2), motion_module=str(SNAPSHOT / "mm_v2.ckpt"),
+            use_pallas_conv=0, **lora_settings, **cn_settings)
+    lora_window_steps = [make_scheduler("LCMScheduler", make_schedule(), LCM_LORA_PROFILE["steps"],
+                                        strength=st, lcm_origin_steps=cfg.lcm_origin_steps,
+                                        strength_mode="tail").num_steps
+                         for st in (LCM_LORA_PROFILE["strength"],
+                                    LCM_LORA_PROFILE["overlap_strength"])]
+    lora_k1_expected = expected_cfg_k1_launches(lora_window_steps, frames_n, [overlap],
+                                                controlnets=len(CN_NAMES))
+    if counts["k1_by_shape"] != lora_k1_expected or counts["k2_by_shape"] or counts["k3"]:
+        raise AssertionError(f"LCM-LoRA CLI K1 launches {counts['k1_by_shape']}, expected "
+                             f"{lora_k1_expected}, or K2 or K3 launched")
+    t1 = time.perf_counter()
+    parts = split_lora_by_component(lora_sd)
+    fused_unet, fused_n = fuse_lora(unet_2d, parts["unet"])
+    fused_te, fused_te_n = fuse_lora(te_state, parts["text_encoder"])
+    fuse_seconds = time.perf_counter() - t1
+    with torch.device("meta"):
+        unet_lora = UNet3DConditionModel(models.unet.config)
+    unet_lora.load_state_dict(
+        {k: fused_unet[k].to("cuda", torch.bfloat16) if k in fused_unet else v
+         for k, v in unet_state.items()}, assign=True)
+    text_lora = copy.deepcopy(text.model)
+    text_lora.load_state_dict({k: v.to("cuda", torch.bfloat16 if v.is_floating_point()
+                                       else v.dtype) for k, v in fused_te.items()})
+    lora_models = EngineModels(unet=unet_lora, vae=models.vae, controlnets=cn_nets,
+                               annotators=[canny, hed])
+    lora_text = TextStack(text.tokenizer, text_lora)
+    injected_build_seconds = time.perf_counter() - t1 - fuse_seconds
+    _, injected, injected_seconds, _, _, _ = run_vid2vid(False, "lcm_lora", engine_models=lora_models,
+                                          text_stack=lora_text, max_windows=2,
+                                          **LCM_LORA_PROFILE, **cn_settings)
+    # a run stopped by --max-windows keeps its last 8 frames for a resume
+    if (len(lora_frames) != len(injected) or summary["windows"] != 2
+            or len(lora_frames) != 2 * (frames_n - overlap)):
+        raise AssertionError(f"the LCM-LoRA CLI run wrote {len(lora_frames)} frames in "
+                             f"{summary['windows']} windows, the injected one {len(injected)}")
+    diff = np.abs(np.stack(lora_frames).astype(np.int16) - np.stack(injected).astype(np.int16))
+    fields_lora = {"controlnets": list(CN_NAMES),
+                   "lora_write_seconds": round(lora_write_seconds, 4),
+                   "lora_layers_fused": fused_n + fused_te_n,
+                   "host_fuse_seconds": round(fuse_seconds, 4),
+                   "injected_build_seconds": round(injected_build_seconds, 4),
+                   "injected_loop_seconds": round(injected_seconds, 4),
+                   "window_steps": lora_window_steps,
+                   "frames_written": summary["frames_written"],
+                   "uint8_diff_vs_injected_max": int(diff.max()),
+                   "uint8_diff_vs_injected_mean": float(diff.mean()),
+                   "k1_launches": sum(counts["k1_by_shape"].values())}
+    if diff.max():
+        _, again, _, _, _, _ = run_vid2vid(False, "lcm_lora_again", engine_models=lora_models,
+                                           text_stack=lora_text, max_windows=2,
+                                           **LCM_LORA_PROFILE, **cn_settings)
+        rerun = np.abs(np.stack(again).astype(np.int16) - np.stack(injected).astype(np.int16))
+        fields_lora["injected_rerun_diff_max"] = int(rerun.max())
+        if diff.max() > rerun.max():
+            raise AssertionError(f"the LCM-LoRA CLI run's frames differ from the injected "
+                                 f"pipeline's by {int(diff.max())}, two injected runs by "
+                                 f"{int(rerun.max())}")
+    fields_lora.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
+    del (unet_state, unet_2d, te_state, lora_sd, parts, fused_unet, fused_te, unet_lora, text_lora,
+         lora_models, lora_text, lora_frames, injected, diff, cn_models, cn_nets, hed, hed_net)
     torch.cuda.empty_cache()
 
     # the whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
@@ -2274,6 +2616,7 @@ def main() -> int:
     # window phase's UNet without the mid block's motion module, parameters
     # shared), same settings and noise, through an Upscaler read from the
     # same files: every frame equal
+    t1 = time.perf_counter()
     arch_v1 = ArchConfig.from_yaml(INFERENCE_V1)
     with torch.device("meta"):
         unet_v1 = UNet3DConditionModel(UNet3DConfig.from_arch(arch_v1, SD15_LCM_UNET_JSON))
@@ -2299,6 +2642,7 @@ def main() -> int:
     v1_sink = ArrayFrameSink()
     v2v.vid2vid(config=v1_cfg, pipeline=v1_pipe, frame_source=ArrayFrameSource(video_768),
                 frame_sink=v1_sink, upscaler=v1_upscaler)
+    injected_v1_seconds = time.perf_counter() - t1  # its build included
     if len(v1_sink.frames) != len(frames_768):
         raise AssertionError(f"the injected v1 run wrote {len(v1_sink.frames)} frames")
     diff_v1 = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
@@ -2313,9 +2657,11 @@ def main() -> int:
     del unet_v1, v2_state, v1_pipe, v1_sink, v1_upscaler, detector, frame_up
     shutil.rmtree(SNAPSHOT)
     phase("disk", t0, snapshot_write_seconds=round(write_seconds, 4),
-          snapshot_bytes=snapshot_bytes, cli_512x512=fields_512, cli_controlnet=fields_cn,
+          snapshot_bytes=snapshot_bytes, cli_controlnet=fields_cn,
+          cli_lcm_lora_controlnet=fields_lora,
           cli_512x768={**loop_fields(summary, seconds, peak), "frame_shape": [up_h, up_w, 3],
                        "uint8_diff_vs_injected_v1_max": 0,
+                       "injected_v1_seconds": round(injected_v1_seconds, 4),
                        "upscale_seconds": summary["timers"]["upscale"]["total_s"],
                        "detector_ms_per_frame": detector_ms, "faces": summary["faces"],
                        "k1_launches": sum(k1_768.values()), "k2_launches": sum(k2_768.values()),
@@ -2371,9 +2717,15 @@ def main() -> int:
     gen.manual_seed(SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for shape in sorted(set(by_shape) | set(k1_768)) + ODD_SHAPES:
+    # the plain version is timed on the main path's shapes and the odd ones
+    # (the 512x768 and CFG shapes are checked against it above)
+    untimed_k1 = (set(k1_768) | set(cfg_k1)) - set(by_shape)
+    check_seconds = 0.0  # of the phase's seconds, those of the checks
+    for shape in sorted(set(by_shape) | set(k1_768) | set(cfg_k1)) + ODD_SHAPES:
+        t1 = time.perf_counter()
         err_bf16 = check_kernel(torch, fa, shape, torch.bfloat16, gen)
         err_fp32 = check_kernel(torch, fa, shape, torch.float32, gen)
+        check_seconds += time.perf_counter() - t1
         B, Nq, Nk, H, D = shape
         q = torch.randn((B, Nq, H, D), generator=gen, device="cuda", dtype=torch.bfloat16)
         k, v = (torch.randn((B, Nk, H, D), generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -2382,13 +2734,11 @@ def main() -> int:
         iters = 10 if Nq >= 1024 else 50
         row = {
             "shape": list(shape), "launches": by_shape.get(shape, 0),
-            "launches_512x768": k1_768.get(shape, 0),
+            "launches_512x768": k1_768.get(shape, 0), "launches_cfg": cfg_k1.get(shape, 0),
             "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
             "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), iters),
-            # the plain version is timed on the main path's shapes only (the
-            # 512x768 shapes are checked against it above)
-            "plain_ms": None if shape in k1_768 else cuda_ms(
-                torch, lambda: fa.flash_attention_plain(q, k, v), iters),
+            "plain_ms": None if shape in untimed_k1 else cuda_ms(
+                torch, lambda: fa.flash_attention_plain(q, k, v), PLAIN_ITERS, warmup=0),
             "library_ms": cuda_ms(torch, lambda: sdpa(qt, kt, vt), iters),
         }
         row["ops_ms"], row["bytes_ms"] = attention_bound_ms(shape, 2)
@@ -2414,10 +2764,12 @@ def main() -> int:
         return {key: sum(n * by_row[shape][key] for shape, n in launches.items())
                 for key in keys}
 
-    phase("kernels", t0, shapes=len(rows), per_full_window=window_sums(1, 0),
+    phase("kernels", t0, shapes=len(rows), check_seconds=round(check_seconds, 3),
+          per_full_window=window_sums(1, 0),
           vid2vid_path={"launches": sum(v2v_counts["k1_by_shape"].values()),
                         **launched_sums(v2v_counts["k1_by_shape"])},
           controlnet_path={"launches": sum(cn_k1.values()), **launched_sums(cn_k1)},
+          cfg_path={"launches": sum(cfg_k1.values()), **launched_sums(cfg_k1, UNTIMED_PLAIN)},
           per_overlap_window=window_sums(0, 1),
           per_full_window_512x768=window_sums(1, 0, latent, UNTIMED_PLAIN),
           per_overlap_window_512x768=window_sums(0, 1, latent, UNTIMED_PLAIN))
@@ -2427,9 +2779,15 @@ def main() -> int:
     k2_by_shape = v2v_counts["k2_by_shape"]
     k2_rows = []
     k2_launched = {**k2_by_shape, **k2_768}
+    check_seconds = 0.0
+    # fp32 K2 runs only in the reference phase: it is checked at the 512x512
+    # and odd shapes, the 512x768 ones in bf16 alone
+    only_768 = {key[:5] for key in k2_768} - {key[:5] for key in k2_by_shape}
     for shape in sorted({key[:5] for key in k2_launched}) + K2_ODD_SHAPES:
+        t1 = time.perf_counter()
         err_bf16 = check_k2(torch, ck, shape, torch.bfloat16, gen)
-        err_fp32 = check_k2(torch, ck, shape, torch.float32, gen)
+        err_fp32 = None if shape in only_768 else check_k2(torch, ck, shape, torch.float32, gen)
+        check_seconds += time.perf_counter() - t1
         x, w, bias, affine, res = k2_inputs(torch, shape, torch.bfloat16, gen)
         w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         variants = sorted({key[5:] for key in k2_launched if key[:5] == shape}) or [(True, True)]
@@ -2446,8 +2804,10 @@ def main() -> int:
                 "launches_512x768": k2_768.get(shape + (has_affine, has_res), 0),
                 "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
                 "ms": cuda_ms(torch, lambda: ck.conv3x3_fused(x, w, bias, **kw), iters),
-                "plain_ms": None if shape + (has_affine, has_res) in k2_768 else cuda_ms(
-                    torch, lambda: ck.conv3x3_fused_plain(x, w, bias, **kw), iters),
+                # the plain version is timed at the main path's shapes only
+                "plain_ms": None if shape + (has_affine, has_res) not in k2_by_shape else cuda_ms(
+                    torch, lambda: ck.conv3x3_fused_plain(x, w, bias, **kw), PLAIN_ITERS,
+                    warmup=0),
                 "library_ms": cuda_ms(
                     torch, lambda: torch.nn.functional.conv2d(z, w_oihw, bias.to(z.dtype),
                                                               padding=1), iters),
@@ -2480,7 +2840,8 @@ def main() -> int:
         "fp32_copies": fold_cost(torch, fold_with_fp32_copies, x)}}), flush=True)
     del x
     torch.cuda.empty_cache()
-    phase("kernels_k2", t0, shapes=len(k2_rows), per_full_window=k2_window_sums(1, 0),
+    phase("kernels_k2", t0, shapes=len(k2_rows), check_seconds=round(check_seconds, 3),
+          per_full_window=k2_window_sums(1, 0),
           per_overlap_window=k2_window_sums(0, 1),
           per_full_window_512x768=k2_window_sums(1, 0, (height_768, size), UNTIMED_PLAIN),
           per_overlap_window_512x768=k2_window_sums(0, 1, (height_768, size), UNTIMED_PLAIN))

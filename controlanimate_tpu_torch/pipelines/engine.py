@@ -1,12 +1,23 @@
-"""AnimationEngine: one native-LCM window, prepare -> denoise -> decode.
+"""AnimationEngine: one window, prepare -> denoise -> decode.
 
-Counterpart of `controlanimate_tpu/pipelines/engine.py` for the LCM window
-without CFG:
-  * prepare: VAE encode of the input frames (posterior sampled with injected
-    noise; the overlap frames' clean latents may come from the previous
-    window, `head_latents`), then LCM noising to the first timestep;
-  * denoise: the LCM loop over `UNet3DConditionModel` as a Python loop, with
-    the guidance scale entering as the w-embedding;
+Counterpart of `controlanimate_tpu/pipelines/engine.py`:
+  * prepare: the native-LCM window VAE-encodes its input frames (posterior
+    sampled with injected noise; the overlap frames' clean latents may come
+    from the previous window, `head_latents`) and noises them to the first
+    timestep. A window of a multi-step sampler starts from pure noise times
+    `init_noise_sigma`, unless it has last outputs and `strength` < 1: then
+    the overlap slots take the last outputs' latents and the other frames
+    the last of them (the input frames' latents under `use_img2img`),
+    noised to the first step (x0 + sigma * eps for Euler and LMS). An encode
+    whose result JAX discards is skipped; the draws come from the same
+    streams.
+  * denoise: the sampler's loop over `UNet3DConditionModel` as a Python loop.
+    Under native LCM the guidance scale enters as the w-embedding. Otherwise,
+    with guidance_scale > 1 (`do_cfg`), the latents run doubled as
+    [uncond, cond] against the stacked [negative, positive] text, and the
+    guided output uncond + g * (cond - uncond) goes to the sampler's `step`
+    with its history state. The latents, the guidance combination and the
+    sampler arithmetic stay fp32; only the model inputs take the run dtype.
   * decode: VAE decode of the whole window in one pass, quantised to uint8.
 
 Every random draw comes from one `NoiseSource`, whose key tree follows the JAX
@@ -15,13 +26,15 @@ split(k_prep, 3); step i draws from fold_in(k_loop, i). `TorchNoise` draws
 each stream from its own seeded `torch.Generator` on the run's device; the
 tests pass the JAX engine's own draws instead.
 
-ControlNets run as in the JAX engine's LCM path: the window's condition maps
-(one (B, F, H, W, 3) tensor a net, uint8 divided by 255 on the device) go
-with the step's LCM input, its timestep and the text embeddings (cond-only:
-there is no CFG batch) through each net, each net applies its own
-conditioning scale and the window's guess mode, and the residuals summed over
-the nets enter the UNet. CFG samplers (a window without `use_lcm`) and
-IP-Adapter tokens are not in this slice and raise.
+ControlNets run as in the JAX engine: the window's condition maps (one
+(B, F, H, W, 3) tensor a net, uint8 divided by 255 on the device) go with
+the step's input, its timestep and the text through each net, each net
+applies its own conditioning scale and the window's guess mode, and the
+residuals summed over the nets enter the UNet. Under native LCM, without
+CFG, or in guess mode (cond-only) the nets take the single scaled latents
+and the positive text, and under CFG their residuals serve both halves;
+otherwise they take the doubled latents, both texts and the maps twice.
+IP-Adapter tokens (M11) raise.
 """
 
 from __future__ import annotations
@@ -105,20 +118,26 @@ class EngineModels:
 @dataclass(frozen=True)
 class WindowStatic:
     """Window configuration: the fields of the JAX engine's `WindowStatic`
-    that the LCM window reads."""
+    that its windows read, with its defaults."""
 
-    steps: int = 4
+    scheduler_name: str = "EulerDiscreteScheduler"  # unused under use_lcm
+    steps: int = 30
     strength: float = 1.0
-    guidance_scale: float = 7.5  # enters as the LCM w-embedding
-    use_lcm: bool = True
+    guidance_scale: float = 7.5  # the LCM w-embedding, else CFG's scale
+    use_lcm: bool = False
     lcm_origin_steps: int = 50
     guess_mode: bool = False  # ControlNet residuals scaled by logspace(-1, 0)
-    ip_tokens: int = 0  # IP-Adapter image tokens (not in this slice)
+    use_img2img: bool = False  # non-overlap frames from the input frames' latents
+    ip_tokens: int = 0  # IP-Adapter image tokens (M11, not ported)
     frame_count: int = 16  # txt2vid geometry (no input frames to infer it from)
     height: int = 512
     width: int = 512
     output_uint8: bool = False
-    tail_latents: int = 0  # also return this many clean tail latents
+    tail_latents: int = 0  # also return this many clean tail latents (LCM only)
+
+    @property
+    def do_cfg(self) -> bool:
+        return self.guidance_scale > 1.0 and not self.use_lcm
 
 
 class AnimationEngine:
@@ -127,12 +146,17 @@ class AnimationEngine:
         self.schedule = schedule
 
     def build_scheduler(self, st: WindowStatic) -> Scheduler:
-        if not st.use_lcm:
-            raise NotImplementedError("only the native-LCM window is ported (no CFG samplers)")
-        return make_scheduler(
-            "LCMScheduler", self.schedule, st.steps, strength=st.strength,
-            lcm_origin_steps=st.lcm_origin_steps, strength_mode="origin",
-        )
+        if st.use_lcm:
+            return make_scheduler(
+                "LCMScheduler", self.schedule, st.steps, strength=st.strength,
+                lcm_origin_steps=st.lcm_origin_steps, strength_mode="origin",
+            )
+        kw = {}
+        if st.scheduler_name == "LCMScheduler":
+            # LCM-LoRA profiles: the full LCM table, then img2img tail truncation
+            kw = {"lcm_origin_steps": st.lcm_origin_steps, "strength_mode": "tail"}
+        return make_scheduler(st.scheduler_name, self.schedule, st.steps,
+                              strength=st.strength, **kw)
 
     # -- VAE -----------------------------------------------------------------
     def encode_frames(self, frames: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -159,10 +183,15 @@ class AnimationEngine:
                         latent_shape: tuple, input_frames: Optional[torch.Tensor],
                         last_output_frames: Optional[torch.Tensor],
                         head_latents: Optional[torch.Tensor] = None):
-        """LCM prepare: returns the noised latents, plus the clean tail
-        latents when st.tail_latents > 0."""
+        """The noised latents, plus the clean tail latents when
+        st.tail_latents > 0 (native LCM only)."""
         B = latent_shape[0]
         base = noise.initial((1, *latent_shape[1:])).expand(latent_shape)
+        if not st.use_lcm:
+            if st.tail_latents or head_latents is not None:
+                raise ValueError("overlap-latent reuse is for the native-LCM window only")
+            return self._prepare_multistep(st, sched, noise, latent_shape, base, input_frames,
+                                           last_output_frames)
         if st.tail_latents and input_frames is None:
             raise ValueError("tail latents need input frames")
 
@@ -194,12 +223,34 @@ class AnimationEngine:
             return noised, frames_latents[:, -st.tail_latents:]
         return noised
 
+    def _prepare_multistep(self, st: WindowStatic, sched: Scheduler, noise: NoiseSource,
+                           latent_shape: tuple, base: torch.Tensor,
+                           input_frames: Optional[torch.Tensor],
+                           last_output_frames: Optional[torch.Tensor]) -> torch.Tensor:
+        """A multi-step sampler's first latents: pure noise times
+        `init_noise_sigma`, unless the window has last outputs and
+        strength < 1; then the overlap slots take the last outputs' latents,
+        the other frames the last of them (under `use_img2img` the input
+        frames' latents), noised to the first step."""
+        if last_output_frames is None or not st.strength < 1.0:
+            return base * sched.init_noise_sigma
+        K = last_output_frames.shape[1]
+        last_latents = self.encode_frames(
+            last_output_frames, noise.last_output((K, *latent_shape[2:])))
+        if st.use_img2img and input_frames is not None:
+            rest = self.encode_frames(
+                input_frames, noise.encode((input_frames.shape[1], *latent_shape[2:])))[:, K:]
+        else:
+            rest = last_latents[:, -1:].expand(latent_shape[0], latent_shape[1] - K,
+                                               *latent_shape[2:])
+        return sched.add_noise(torch.cat([last_latents, rest], dim=1).float(), base, 0)
+
     # -- denoise -------------------------------------------------------------
     def controlnet_residuals(self, st: WindowStatic, latents: torch.Tensor, t: torch.Tensor,
                              text_embeds: torch.Tensor, cond_images: Sequence[torch.Tensor]):
-        """Each net on the step's LCM input with the cond-only text, its own
-        scale and the window's guess mode; the residuals summed over the nets
-        ((None, None) without nets)."""
+        """Each net on the step's input with its text, its own scale and the
+        window's guess mode; the residuals summed over the nets ((None, None)
+        without nets)."""
         return sum_controlnet_residuals([
             net(latents, t, text_embeds, cond, conditioning_scale=float(scale),
                 guess_mode=st.guess_mode)
@@ -217,22 +268,40 @@ class AnimationEngine:
         # condition maps arrive as uint8 (the annotators' quantised output)
         cond_images = [c.float() / 255.0 if c.dtype == torch.uint8 else c for c in cond_images]
         B = latents.shape[0]
-        w_dim = self.m.unet.config.time_cond_proj_dim or 256
-        w_emb = get_w_embedding(
-            torch.full((B,), st.guidance_scale, dtype=torch.float32, device=latents.device), w_dim
-        )
+        cfg = st.do_cfg
+        # the nets take the single latents and the positive text unless CFG
+        # runs without guess mode
+        cn_cond_only = st.use_lcm or st.guess_mode or not cfg
+        cn_text = text_embeds[B:] if cfg and cn_cond_only else text_embeds
+        if not cn_cond_only:
+            cond_images = [torch.cat([c, c]) for c in cond_images]
+        w_emb = None
+        if st.use_lcm:
+            w_dim = self.m.unet.config.time_cond_proj_dim or 256
+            w_emb = get_w_embedding(
+                torch.full((B,), st.guidance_scale, dtype=torch.float32, device=latents.device),
+                w_dim)
         ts = torch.as_tensor(sched.timesteps.round().astype("int64"), device=latents.device)
+        state = sched.init_state(latents.shape, latents.device)
         for i in range(sched.num_steps):
-            down_res, mid_res = self.controlnet_residuals(st, latents, ts[i], text_embeds,
-                                                          cond_images)
-            model_out = self.m.unet(latents, ts[i], text_embeds, timestep_cond=w_emb,
+            scaled = sched.scale_model_input(i, latents)
+            model_in = torch.cat([scaled, scaled]) if cfg else scaled
+            down_res, mid_res = self.controlnet_residuals(
+                st, scaled if cn_cond_only else model_in, ts[i], cn_text, cond_images)
+            if cfg and cn_cond_only and down_res is not None:
+                # guess mode under CFG: the residuals serve both halves
+                down_res = [torch.cat([d, d]) for d in down_res]
+                mid_res = torch.cat([mid_res, mid_res])
+            model_out = self.m.unet(model_in, ts[i], text_embeds, timestep_cond=w_emb,
                                     down_block_additional_residuals=down_res,
-                                    mid_block_additional_residual=mid_res)
-            model_out = model_out.to(latents.dtype)
+                                    mid_block_additional_residual=mid_res).float()
+            if cfg:
+                uncond, cond = model_out.chunk(2)
+                model_out = uncond + st.guidance_scale * (cond - uncond)
             step_noise = None
-            if i < sched.num_steps - 1:
+            if sched.needs_noise(i):
                 step_noise = noise.step(i, (1, *latents.shape[1:])).expand(latents.shape)
-            latents = sched.step(i, model_out, latents, step_noise)
+            latents, state = sched.step(i, model_out, latents, state, step_noise)
         return latents
 
     # -- window --------------------------------------------------------------
@@ -249,14 +318,16 @@ class AnimationEngine:
     ):
         """One window: (B, F, H, W, 3) frames in [0, 1] (uint8 when
         st.output_uint8), plus the clean tail latents when st.tail_latents.
-        `cond_images` holds one (B, F, H, W, 3) condition map a ControlNet."""
+        `text_embeds` is (2B, L, D), [negative, positive], under CFG
+        (st.do_cfg), else (B, L, D); `cond_images` holds one (B, F, H, W, 3)
+        condition map a ControlNet."""
         sched = self.build_scheduler(st)
         if sched.num_steps == 0:
             raise ValueError(
                 f"steps*strength truncated to zero denoise steps "
                 f"(steps={st.steps}, strength={st.strength}); raise either value"
             )
-        B = text_embeds.shape[0]
+        B = text_embeds.shape[0] // 2 if st.do_cfg else text_embeds.shape[0]
         if input_frames is not None:
             F_, H, W = input_frames.shape[1:4]
         else:

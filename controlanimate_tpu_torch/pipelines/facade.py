@@ -3,11 +3,15 @@
 Counterpart of `controlanimate_tpu/pipelines/facade.py`: builds the models
 from an on-disk model zoo (`build_from_disk`) or takes injected ones, then
 prompt encoding (Compel-style weights, cached per prompt pair, CFG padding),
-the window configuration, and `animate()`, which runs one native-LCM window
-through the engine and returns its (F, H, W, 3) uint8 frames on the device.
-With `reuse_overlap_latents` the clean latents of a window's last
-`overlap_length` input frames are cached, and the next window (`epoch + 1`,
-`overlaps` = that length) encodes only its new frames.
+the window configuration, and `animate()`, which runs one window through the
+engine and returns its (F, H, W, 3) uint8 frames on the device: native LCM
+under `use_lcm`, else the `scheduler` named by the config (the seven JAX
+registry names; `LCMScheduler` then means the LCM-LoRA table with img2img
+tail truncation), with classifier-free guidance over the stacked
+[negative, positive] prompts when `guidance_scale` > 1. With
+`reuse_overlap_latents` (native LCM only) the clean latents of a window's
+last `overlap_length` input frames are cached, and the next window
+(`epoch + 1`, `overlaps` = that length) encodes only its new frames.
 
 ControlNets (`controlnets`, `cond_scale`, `guess_mode`): `prepare_cond_images`
 annotates a window's uint8 frames on the device (one annotator a net,
@@ -39,7 +43,9 @@ so does a LoRA file of which no layer matches (JAX fuses nothing). The
 motion checkpoint's `module.` prefix is stripped before its LoRAs fuse
 (JAX strips it after, so it drops a LoRA's deltas for prefixed blocks), and
 a ControlNet's architecture comes from its config.json (JAX builds the SD1.5
-defaults whatever the file says; they agree for every SD1.5 ControlNet).
+defaults whatever the file says; they agree for every SD1.5 ControlNet), and
+a `scheduler` that names no sampler raises KeyError when the pipeline is
+built (JAX raises it at the first window).
 
 The run dtype comes from `RunConfig.dtype` ("float16"/"fp16" mean bf16, as
 in the JAX package); models are moved to `device` in that dtype.
@@ -49,7 +55,7 @@ pipeline is built) puts the UNet's motion modules on K3.
 `RunConfig.use_pallas_attention` has no effect: K1 runs every unmasked
 self-attention whatever it says, and the build warns so. Every setting
 `config.require_ported` rejects (IP-Adapter, meshes, an annotator of M13,
-...) raises, and so does a run without `use_lcm`.
+...) raises.
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ from ..models.controlnet import ControlNetModel, controlnet_config_from_json
 from ..models.tokenizer import CLIPTokenizer
 from ..models.unet3d import UNet3DConditionModel, UNet3DConfig
 from ..models.vae import AutoencoderKL
-from ..schedulers import make_schedule
+from ..schedulers import available_schedulers, make_schedule
 from ..weights import ingest
 from ..weights.clip_weights import text_state_dict_from_torch
 from ..weights.controlnet_weights import controlnet_state_dict_from_torch
@@ -116,9 +122,10 @@ class ControlAnimatePipeline:
         arch: Optional[ArchConfig] = None,
         device="cuda",
     ):
-        if not config.use_lcm:
-            raise NotImplementedError("only the native-LCM window (use_lcm) is ported")
         require_ported(config)
+        if not config.use_lcm and config.scheduler not in available_schedulers():
+            raise KeyError(f"RunConfig.scheduler {config.scheduler!r} names no sampler; "
+                           f"have {available_schedulers()}")
         cond_scales = controlnet_scales(config)
         if (models is None) != (text_stack is None):
             raise ValueError("pass both models= and text_stack=, or neither for a disk build")
@@ -189,19 +196,22 @@ class ControlAnimatePipeline:
             and has_input_frames
         )
 
-    def window_static(self, *, strength: Optional[float] = None, has_input_frames: bool = True,
+    def window_static(self, *, strength: Optional[float] = None,
+                      has_input_frames: bool = True,
                       frame_count: Optional[int] = None) -> WindowStatic:
         """The window configuration `animate` runs for these call conditions.
         The JAX facade's decode-chunk rule was sized for a 16 GB TPU and does
         not carry over: the window decodes in one pass."""
         cfg = self.config
         return WindowStatic(
+            scheduler_name=cfg.scheduler,
             steps=cfg.steps,
             strength=float(cfg.strength if strength is None else strength),
             guidance_scale=float(cfg.guidance_scale),
             use_lcm=cfg.use_lcm,
             lcm_origin_steps=cfg.lcm_origin_steps,
             guess_mode=cfg.guess_mode,
+            use_img2img=cfg.use_img2img,
             frame_count=frame_count or cfg.frame_count,
             height=cfg.height,
             width=cfg.width,
@@ -270,7 +280,7 @@ class ControlAnimatePipeline:
         `TorchNoise(seed, device)`. `cond_images` are the window's condition
         maps from `prepare_cond_images`, staged here when not given."""
         cfg = self.config
-        pos, _neg = self._encode_prompts(cfg.prompt, cfg.n_prompt, cfg.clip_skip)
+        pos, neg = self._encode_prompts(cfg.prompt, cfg.n_prompt, cfg.clip_skip)
 
         reuse = self._reuse_overlap(input_frames is not None)
         head_latents = None
@@ -281,10 +291,12 @@ class ControlAnimatePipeline:
 
         if cond_images is None:
             cond_images = self.prepare_cond_images(input_frames, epoch)
-        st = self.window_static(strength=strength, has_input_frames=input_frames is not None,
+        st = self.window_static(strength=strength,
+                                has_input_frames=input_frames is not None,
                                 frame_count=frame_count)
+        text_embeds = torch.cat([neg, pos]) if st.do_cfg else pos
         out = self.engine.generate_window(
-            st, pos, noise if noise is not None else TorchNoise(seed, self.device),
+            st, text_embeds, noise if noise is not None else TorchNoise(seed, self.device),
             input_frames=self._to_device(input_frames),
             last_output_frames=self._to_device(last_output_frames),
             head_latents=head_latents,

@@ -1,7 +1,9 @@
 """Shared diffusion-schedule math (numpy, host side).
 
-A copy of the parts of `controlanimate_tpu/schedulers/common.py` the LCM
-sampler uses, kept in the port so it never imports the JAX package.
+A copy of `controlanimate_tpu/schedulers/common.py`, kept in the port so it
+never imports the JAX package: the beta schedules, the zero-terminal-SNR
+rescale, the leading and linspace timestep spacings, the img2img truncation
+and the sigma tables of the sigma-space samplers.
 """
 
 from __future__ import annotations
@@ -40,6 +42,17 @@ def make_betas(
     raise ValueError(f"unknown beta schedule: {beta_schedule!r}")
 
 
+def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
+    """Rescale betas so that the terminal SNR is zero (arXiv:2305.08891)."""
+    alphas_bar_sqrt = np.sqrt(np.cumprod(1.0 - betas))
+    a0 = alphas_bar_sqrt[0].copy()
+    aT = alphas_bar_sqrt[-1].copy()
+    alphas_bar_sqrt = (alphas_bar_sqrt - aT) * a0 / (a0 - aT)
+    alphas_bar = alphas_bar_sqrt**2
+    alphas = np.concatenate([alphas_bar[0:1], alphas_bar[1:] / alphas_bar[:-1]])
+    return 1.0 - alphas
+
+
 class DiffusionSchedule(NamedTuple):
     """Host-side (numpy) training-schedule tables."""
 
@@ -57,10 +70,33 @@ def make_schedule(
     beta_start: float = 0.00085,
     beta_end: float = 0.012,
     beta_schedule: str = "linear",
+    rescale_betas_zero_snr: bool = False,
 ) -> DiffusionSchedule:
     betas = make_betas(num_train_timesteps, beta_start, beta_end, beta_schedule)
+    if rescale_betas_zero_snr:
+        betas = rescale_zero_terminal_snr(betas)
     alphas = 1.0 - betas
     return DiffusionSchedule(betas=betas, alphas=alphas, alphas_cumprod=np.cumprod(alphas))
+
+
+def leading_timesteps(
+    num_train_timesteps: int, num_inference_steps: int, steps_offset: int = 0
+) -> np.ndarray:
+    """'leading' timestep spacing (DDIM, PNDM), descending integers."""
+    if num_inference_steps > num_train_timesteps:
+        raise ValueError(
+            f"num_inference_steps ({num_inference_steps}) exceeds the training "
+            f"schedule length ({num_train_timesteps})"
+        )
+    step_ratio = num_train_timesteps // num_inference_steps
+    ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(np.int64)
+    return ts + steps_offset
+
+
+def linspace_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:
+    """'linspace' timestep spacing (Euler, LMS), descending floats."""
+    return np.linspace(0, num_train_timesteps - 1, num_inference_steps,
+                       dtype=np.float64)[::-1].copy()
 
 
 def truncate_for_strength(
@@ -70,3 +106,14 @@ def truncate_for_strength(
     init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
     t_start = max(num_inference_steps - init_timestep, 0)
     return timesteps[t_start:]
+
+
+def sigmas_from_alphas_cumprod(alphas_cumprod: np.ndarray) -> np.ndarray:
+    """sigma = sqrt((1 - abar) / abar), the sigma-space samplers' noise level."""
+    return np.sqrt((1.0 - alphas_cumprod) / alphas_cumprod)
+
+
+def interp_sigmas(timesteps_f: np.ndarray, alphas_cumprod: np.ndarray) -> np.ndarray:
+    """The sigma table interpolated at (possibly fractional) timesteps."""
+    sig = sigmas_from_alphas_cumprod(alphas_cumprod)
+    return np.interp(timesteps_f, np.arange(len(sig)), sig)

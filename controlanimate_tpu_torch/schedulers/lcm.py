@@ -53,12 +53,17 @@ class LCMScheduler(Scheduler):
         self.c_skip = (sigma_data**2 / (scaled_t**2 + sigma_data**2)).astype(np.float32)
         self.c_out = (scaled_t / np.sqrt(scaled_t**2 + sigma_data**2)).astype(np.float32)
 
-    def step(self, i: int, model_output, sample, noise=None):
-        """Denoised estimate at step i; re-noised to the next timestep with
-        `noise` unless i is the last step (where noise is not needed)."""
+    def needs_noise(self, i: int) -> bool:
+        # the last step emits the denoised estimate (JAX draws and drops it)
+        return i < self.num_steps - 1
+
+    def step(self, i: int, model_output, sample, state=(), noise=None):
+        """Denoised estimate at step i, re-noised to the next timestep with
+        `noise` unless i is the last step."""
         x0 = self.pred_original(model_output, sample, float(self.abar_t[i]), self.prediction_type)
         denoised = float(self.c_out[i]) * x0 + float(self.c_skip[i]) * sample
-        if i == self.num_steps - 1:
-            return denoised
+        if not self.needs_noise(i):
+            return denoised, state
         a_n = self.abar_next[i]
-        return float(np.sqrt(a_n)) * denoised + float(np.sqrt(np.float32(1.0) - a_n)) * noise
+        return (float(np.sqrt(a_n)) * denoised
+                + float(np.sqrt(np.float32(1.0) - a_n)) * noise), state

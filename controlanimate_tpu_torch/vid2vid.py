@@ -35,11 +35,15 @@ overlap frames, for the annotators and the VAE encode alike (as in the JAX
 loop); the staged upload is copied before they go in, and overlap-latent
 reuse is off (the facade's rule).
 
-Not ported yet, and rejected by `config.require_ported`: segment-parallel
-runs, IP-Adapter, the annotators of M13. The C++ ring buffer frame
-pipe (`use_native_framepipe`) is not ported: the loop takes the Python
-ffmpeg pipe, as the JAX loop does where that pipe cannot be built. JAX
-behaviours not copied: a missing RealESRGAN file raises FileNotFoundError
+Every window kind of the engine runs here: native LCM, and the multi-step
+samplers with classifier-free guidance (an overlap window at an
+`overlap_strength` below 1 starts from the previous window's outputs). Not
+ported yet, and rejected by `config.require_ported`: segment-parallel runs
+and device meshes (M15), IP-Adapter (M11), the annotators of M13, and M14's
+`temporal_band`, `token_merge_ratio` and `encoder_reuse_every`. The C++
+ring buffer frame pipe (`use_native_framepipe`) is not ported: the loop
+takes the Python ffmpeg pipe, as the JAX loop does where that pipe cannot
+be built. JAX behaviours not copied: a missing RealESRGAN file raises FileNotFoundError
 (the JAX loop drops the upscaler and writes frames of the wrong size into a
 sink opened at the upscaled size); an upscale that fails raises (the JAX
 loop falls back to the host); and `save_frames` dumps the frames the sink

@@ -1,7 +1,9 @@
 """The port's ControlAnimatePipeline.animate against the JAX facade's, with
 injected tiny models (same weights), a tiny tokenizer and the JAX draws:
 uint8 frames agree to 1 LSB, and a second window with overlaps=K reuses the
-cached tail latents on both sides."""
+cached tail latents on both sides. The same for two windows of the default
+profile's sampler (Euler, classifier-free guidance over the stacked
+negative and positive prompts, the overlap window at strength 0.92)."""
 
 import dataclasses
 
@@ -94,20 +96,56 @@ def test_default_noise_is_seeded(pipelines):
 
 
 def test_unported_facade_paths_raise():
-    # the disk build too rejects a run without use_lcm, before it reads a file
-    with pytest.raises(NotImplementedError, match="use_lcm"):
-        tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, "use_lcm": False}))
+    """M13 annotators and IP-Adapter raise NotImplementedError. A run
+    without `use_lcm` is ported; a `scheduler` that names no sampler raises
+    KeyError when the pipeline is built, before the disk build reads a file
+    (JAX raises it at the first window)."""
+    with pytest.raises(KeyError, match="EulerDiscreteScheduler"):
+        tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, "use_lcm": False,
+                                                    "scheduler": "KarrasVeScheduler"}))
     _, _, tunet = unet_pair()
     _, _, tvae = vae_pair()
     _, _, tclip = clip_pair()
     models = tengine.EngineModels(unet=tunet, vae=tvae)
     text = tfacade.TextStack(CLIPTokenizer.tiny(), tclip)
-    for bad, what in (({"use_lcm": False}, "use_lcm"),
-                      ({"controlnets": ("lllyasviel/control_v11p_sd15_openpose",)}, "M13"),
+    for bad, what in (({"controlnets": ("lllyasviel/control_v11p_sd15_openpose",)}, "M13"),
                       ({"use_ipadapter": True}, "use_ipadapter")):
         with pytest.raises(NotImplementedError, match=what):
             tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, **bad}), models=models,
                                            text_stack=text, device="cpu")
+    pipe = tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, "use_lcm": False}), models=models,
+                                          text_stack=text, device="cpu")
+    assert pipe.window_static().do_cfg
+
+
+def test_cfg_windows_match_jax():
+    """`use_lcm` off, EulerDiscreteScheduler at guidance 7.5: a whole window
+    at strength 1 (pure noise), then an overlap window at 0.92 that starts
+    from the first window's last outputs; within 1 LSB of the JAX facade."""
+    cfg = {**CFG, "use_lcm": False, "scheduler": "EulerDiscreteScheduler", "steps": 3,
+           "strength": 1.0}
+    junet, uparams, tunet = unet_pair(seed=34)
+    jvae, vparams, tvae = vae_pair(seed=35)
+    jclip, cparams, tclip = clip_pair(seed=36)
+    jpipe = jfacade.ControlAnimatePipeline(
+        JaxRunConfig(**cfg),
+        models=jengine.EngineModels(unet=junet, unet_params=uparams, vae=jvae, vae_params=vparams),
+        text_stack=jfacade.TextStack(JaxTokenizer.tiny(), jclip, cparams))
+    tpipe = tfacade.ControlAnimatePipeline(
+        RunConfig(**cfg), models=tengine.EngineModels(unet=tunet, vae=tvae),
+        text_stack=tfacade.TextStack(CLIPTokenizer.tiny(), tclip), device="cpu")
+    w1 = _frames(5, 4)
+    out_j = jpipe.animate(w1, None, overlaps=0, seed=SEED, epoch=0)
+    out_t = tpipe.animate(w1, None, overlaps=0, seed=SEED, epoch=0,
+                          noise=JaxDraws(jax.random.PRNGKey(SEED)))
+    assert _lsb(out_t.numpy(), out_j) <= 1
+    assert tpipe._overlap_latent_cache is None  # the latent reuse is native LCM's
+    w2 = np.concatenate([w1[-2:], _frames(6, 2)])
+    out2_j = jpipe.animate(w2, out_j[-2:], overlaps=2, strength=0.92, seed=SEED, epoch=1)
+    out2_t = tpipe.animate(w2, out_t[-2:], overlaps=2, strength=0.92, seed=SEED, epoch=1,
+                           noise=JaxDraws(jax.random.PRNGKey(SEED)))
+    assert _lsb(out2_t.numpy(), out2_j) <= 1
+    assert _lsb(out2_t.numpy(), out_t.numpy()) > 1
 
 
 @pytest.mark.parametrize("name", ["SampleConfigLCM", "SampleConfig", "SampleConfigTxt2Vid"])

@@ -8,8 +8,9 @@ weights (nothing is downloaded):
     `ControlAnimatePipeline` and by the port's on the CPU in fp32: the port's
     module state dicts equal `weights/from_jax.py` applied to the JAX
     parameter trees exactly, and the tokenizers give the same ids;
-  * without LCM (`build_from_disk` directly; the facade rejects it), the
-    Kohya UNet + text-encoder LoRA fused as in JAX;
+  * without LCM, the Kohya UNet + text-encoder LoRA fused as in JAX, and a
+    window of the default profile's sampler (Euler under classifier-free
+    guidance) from the built pipeline within 1 LSB of the JAX facade's;
   * one run of the port's CLI (`python -m controlanimate_tpu_torch`, called
     in-process) over a PNG directory: its frames equal `vid2vid` with the
     injected pipeline of the same weights;
@@ -53,6 +54,7 @@ from controlanimate_tpu_torch.models.vae import AutoencoderKL
 from controlanimate_tpu_torch.pipelines import engine as tengine
 from controlanimate_tpu_torch.pipelines import facade as tfacade
 from controlanimate_tpu_torch.weights import from_jax
+from test_torch_common import JaxDraws
 
 V1 = "configs/inference/inference-v1.yaml"
 V2 = "configs/inference/inference-v2.yaml"
@@ -252,8 +254,8 @@ def test_lcm_disk_build_equals_the_jax_build(zoo):
 
 def test_non_lcm_build_fuses_loras_as_jax(zoo):
     """Without LCM the snapshot at `pretrained_model_path` is read and the
-    UNet and text-encoder LoRAs fuse (the facade still rejects the run; the
-    samplers are not ported)."""
+    UNet and text-encoder LoRAs fuse; the pipeline built from it runs an
+    Euler CFG window as the JAX pipeline does."""
     root = zoo["root"]
     kw = _cfg(zoo, use_lcm=False, pretrained_model_path=str(zoo["snapshot"]),
               pretrained_lcm_model_path=str(root / "absent"),
@@ -269,8 +271,13 @@ def test_non_lcm_build_fuses_loras_as_jax(zoo):
         jax.device_get(jpipe.text.params), text.model.config))
     key = "text_model.encoder.layers.1.self_attn.q_proj.weight"
     assert not torch.equal(text.model.state_dict()[key], zoo["clip"].state_dict()[key])
-    with pytest.raises(NotImplementedError, match="use_lcm"):
-        tfacade.ControlAnimatePipeline(cfg, device="cpu")
+    tpipe = tfacade.ControlAnimatePipeline(cfg, device="cpu")
+    assert tpipe.window_static().do_cfg
+    frames = np.stack([np.asarray(Image.open(p))
+                       for p in sorted((root / "frames").glob("*.png"))[:4]])
+    out_j = jpipe.animate(frames, None, seed=5)
+    out_t = tpipe.animate(frames, None, seed=5, noise=JaxDraws(jax.random.PRNGKey(5)))
+    assert np.abs(out_t.numpy().astype(int) - np.asarray(out_j).astype(int)).max() <= 1
 
 
 def test_cli_run_equals_the_injected_pipeline(zoo, tmp_path):

@@ -4,8 +4,11 @@ the optional kernels, with K2, and with K3), a small pipeline built from
 disk against the injected one, a small RealESRGAN upscaler (its x4 tail
 on K4) on the card against the CPU, the face step (RetinaFace, the
 aligned crop, GFPGAN, the paste, and the OpenCV stand-ins under them) on
-the card against the CPU, and the ControlNet slice: canny and HED on the
-card against the CPU, and a small pipeline with two ControlNets.
+the card against the CPU, the ControlNet slice: canny and HED on the
+card against the CPU, and a small pipeline with two ControlNets; and the
+multi-step samplers: small windows under classifier-free guidance (Euler
+with a ControlNet, the LCM-LoRA tail, DPM-Solver) on the card against the
+CPU.
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -428,3 +431,15 @@ def test_small_controlnet_window_card_matches_cpu(cuda):
 
     ref = chip_smoke.small_controlnet_reference(torch)
     assert ref["max_lsb"] <= 1 and ref["controlnet_change_max"] > 0, ref
+
+
+@pytest.mark.parametrize("case", ["EULER_CFG", "LCM_LORA", "DPM_CFG"])
+def test_small_multistep_windows_card_match_cpu(cuda, case):
+    """Two small fp32 windows of a multi-step sampler under CFG (a whole one,
+    then an overlap one from its last outputs; Euler with a canny
+    ControlNet) on the card against the CPU: uint8 within 1 LSB."""
+    import chip_smoke
+
+    ref = chip_smoke.small_reference(torch, controlnet=case == "EULER_CFG",
+                                     **getattr(chip_smoke, case))
+    assert ref["max_lsb"] <= 1, ref

@@ -441,13 +441,14 @@ def test_loop_builds_the_face_enhancer_from_its_files(tmp_path):
 def _tiny_real_loops(tmp_path, frames, controlnet: bool = False, run_jax: bool = True,
                      **cfg_kw):
     """The port's facade and loop and the JAX ones (unless not `run_jax`) on
-    the same tiny models and JAX noise (LCM, fp32); with `controlnet`, one
+    the same tiny models and JAX noise (LCM unless `cfg_kw` says otherwise,
+    fp32); with `controlnet`, one
     canny ControlNet of the tiny UNet's down path at scale 0.8. Returns
     both summaries and sinks ((None, None) for JAX when it did not run)."""
-    cfg_kw = dict(width=SIZE, height=SIZE, frame_count=4, overlap_length=2, use_lcm=True,
-                  steps=2, strength=0.9, overlap_strength=0.85, lcm_origin_steps=8,
-                  guidance_scale=7.5, dtype="float32", prompt="a (red fox)+", n_prompt="blurry",
-                  seed=5, ffmpeg_path="ffmpeg-absent-here", **cfg_kw)
+    cfg_kw = {**dict(width=SIZE, height=SIZE, frame_count=4, overlap_length=2, use_lcm=True,
+                     steps=2, strength=0.9, overlap_strength=0.85, lcm_origin_steps=8,
+                     guidance_scale=7.5, dtype="float32", prompt="a (red fox)+",
+                     n_prompt="blurry", seed=5, ffmpeg_path="ffmpeg-absent-here"), **cfg_kw}
     junet, uparams, tunet = unet_pair(seed=41)
     jvae, vparams, tvae = vae_pair(seed=42)
     jclip, cparams, tclip = clip_pair(seed=43)
@@ -491,6 +492,20 @@ def test_tiny_real_pipeline_matches_jax(tmp_path):
     stitch's color match then applies `assert_frames_close`."""
     (j, js), (t, ts) = _tiny_real_loops(tmp_path, _video(6, 8))
     assert t["windows"] == j["windows"] == 3 and t["frames_written"] == j["frames_written"] == 8
+    for a, b in zip(ts.frames, js.frames):
+        assert_frames_close(a, b)
+
+
+def test_tiny_cfg_loop_matches_jax(tmp_path):
+    """The default profile's sampler through both loops: `use_lcm` off,
+    EulerDiscreteScheduler at guidance 7.5 with the negative prompt, a whole
+    window at strength 1 (3 steps) and an overlap window at
+    `overlap_strength` 0.92 (2 steps) that starts from the first window's
+    last outputs. Gates as above."""
+    (j, js), (t, ts) = _tiny_real_loops(
+        tmp_path, _video(8, 6), use_lcm=False, scheduler="EulerDiscreteScheduler", steps=3,
+        strength=1.0, overlap_strength=0.92)
+    assert t["windows"] == j["windows"] == 2 and t["frames_written"] == j["frames_written"] == 6
     for a, b in zip(ts.frames, js.frames):
         assert_frames_close(a, b)
 
