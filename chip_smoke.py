@@ -44,18 +44,26 @@ Phases, each printed as one JSON line with its seconds:
              they are and with a hard-edged checkerboard added (`edge_rich`):
              equal maps; the full HED network (seeded by `init_hed_`) on 2
              frames of 64x80, card against CPU in fp32: within 1 LSB after
-             the uint8 quantisation; and the small pipeline with two
+             the uint8 quantisation; lineart and MLSD likewise
+             (`small_annotator_reference`: lineart at 64x80 and 48x96
+             within 1 LSB; MLSD's tpMaps within 1e-3 of each channel's RMS,
+             and the map the card decodes and draws from its own tpMap equal
+             to the CPU's decode and drawing of it; INTER_AREA at 768x512
+             and 1024x1024 to 512x512 and 600 random segments drawn, equal);
+             and the small pipeline with two
              ControlNets of its UNet's down path (canny at 1.0, HED at 0.5)
              on the card against the CPU in fp32: uint8 within 1 LSB, and
              changed by the ControlNets; then the multi-step samplers, card
              against CPU in fp32 within 1 LSB, at 64x64: Euler under CFG 7.5
              with a canny ControlNet (guess mode off; K1 must run at
-             B*F = 8) and the LCM-LoRA tail (`LCMScheduler` without
+             B*F = 8; its first window must differ from the same window
+             on the card at guidance 1.0) and the LCM-LoRA tail (`LCMScheduler` without
              `use_lcm`, CFG 1.1), two windows each (a whole one at strength
              1, an overlap one at 0.92 from its last two outputs); Euler
              under CFG with `use_pallas_conv` (K2) and with
              CONTROLANIMATE_PALLAS_MOTION=1 (K3, which must run at B = 2),
-             and DPM-Solver, one whole window each.
+             and DPM-Solver, one whole window each. The line holds each
+             step's seconds up to the samplers (`step_seconds`).
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -110,7 +118,13 @@ Phases, each printed as one JSON line with its seconds:
              peak memory, the loop's timers (`annotate` among them), and by
              CUDA events each annotator's time on a 16-frame window and
              each ControlNet's forwards of a window (also on the card
-             alone).
+             alone). Before that, an `annotators_512x768` line: canny, HED,
+             and the seeded lineart (`seed_lineart_`) and MLSD
+             (`mlsd_checkpoint`, its head set on a window of this phase)
+             that the disk phase writes, each timed by CUDA events on one
+             16-frame window at the shipped 512x768, with their maps' mean
+             and std (a constant map fails, and so does a map that differs
+             on a second call).
   cfg        the multi-step path (SampleConfig.yaml's sampler): the same
              loop, K2 on, over 24 frames (one whole window at strength 1.0,
              one overlap-8 window at `overlap_strength` 0.92) with
@@ -122,10 +136,13 @@ Phases, each printed as one JSON line with its seconds:
              the ControlNet's 7 self-attentions a step at B*F = 32, the
              VAE's mid attention in each decode and in the second window's
              encode of the 8 last outputs) and K2's against the VAE's
-             calls, and that the first window differs from the same window
-             without guidance. Prints new frames/s, the unguided window's
-             seconds, one UNet and one ControlNet forward on the doubled
-             batch by CUDA events, peak memory and the loop's timers.
+             calls, and that guidance changes the first window's first
+             step: that step through the engine under CFG 7.5 and again at
+             guidance 1.0 from the same latents must differ (that it
+             changes a whole window's frames is checked at 64x64 in
+             `reference`). Prints new frames/s, one UNet and one ControlNet
+             forward on the doubled batch by CUDA events, peak memory and
+             the loop's timers.
   vid2vid_upscale
              the upscale path: the same loop (K2 off) with `upscale` 4 and
              a full-width RealESRGAN x4 RRDBNet (64 features, 6 blocks,
@@ -148,29 +165,33 @@ Phases, each printed as one JSON line with its seconds:
              frames of each run as PNG directories; runs
              `python -m controlanimate_tpu_torch --config` in-process on
              it, frames from the PNG directory and PNGs out (no ffmpeg).
-             The controlnet phase's two ControlNets are written as
-             diffusers folders (config.json + safetensors) under the
-             snapshot's models/ControlNet/ and its HED as
-             models/annotators/ControlNetHED.pth, and the next two runs
-             start from the snapshot root, which finds them there, for two
-             windows each (`--max-windows 2`, 16 frames written). First the
-             controlnet phase's native-LCM profile at 512x512 on
+             The weight files are written on threads (`write_parallel`).
+             The controlnet phase's two ControlNets and two more seeded ones
+             (lineart, MLSD) are written as diffusers folders (config.json +
+             safetensors) under the snapshot's models/ControlNet/, and its
+             HED, lineart and MLSD networks as models/annotators/
+             ControlNetHED.pth, sk_model.pth and mlsd_large_512_fp32.pth (in
+             controlnet_aux's layout, BatchNorms unfolded), and the next two
+             runs start from the snapshot root, which finds them there, for
+             two windows each (`--max-windows 2`, 16 frames written). First
+             the controlnet phase's native-LCM profile at 512x512 on
              inference-v2.yaml with K2 off: its frames must equal the
              controlnet phase's first 16 and its K1 launches by shape those
              that two windows with both ControlNets imply. Then the LCM-LoRA
              profile (SampleConfigLCMLoRA.yaml's sampler: `use_lcm` 0,
              `LCMScheduler` with tail truncation, 7 steps, CFG 1.1) with
-             the same ControlNets, on the same snapshot read as
+             its ControlNets but openpose (M13b): lineart at 0.35, MLSD at
+             1.0 and HED at 0.4, on the same snapshot read as
              `pretrained_model_path`, with a synthetic Kohya-layout LoRA
              (`kohya_lora`) on the UNet's cross-attention and the text
              encoder's attention projections: its K1 launches by shape
-             (B*F = 32, the ControlNets' included) must equal the count
-             from the code, and its frames the injected pipeline's after
-             the same fusion. In both runs the weights, noise and kernels
-             are those of the injected run (bf16); when the frames differ,
-             the injected loop runs again and the difference may not
-             exceed that rerun's. Then the
-             whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
+             (B*F = 32, the three ControlNets' included) must equal the
+             count from the code, and its frames the injected pipeline's
+             (the same nets and annotators) after the same fusion. In
+             both runs the weights, noise and kernels are those of the
+             injected run (bf16); when the frames differ, the injected loop
+             runs again and the difference may not exceed that rerun's.
+             Then the whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
              inference-v1.yaml (no mid-block motion module, non-inflated
              GroupNorm, PE 24 long) with K2 on, `upscale` 2 (the
              vid2vid_upscale phase's RealESRGAN, its tail on K4, then
@@ -255,6 +276,7 @@ Then the kernels line, the `nvidia-smi` name/power-limit line, and last the
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import math
@@ -283,6 +305,11 @@ CONTROLNET_LEVELS = ((1, 40, 2), (4, 80, 2), (16, 160, 2), (64, 160, 1))
 # the controlnet phase's nets (their names pick canny and HED) and scales
 CN_NAMES = ("lllyasviel/sd-controlnet-canny", "lllyasviel/sd-controlnet-hed")
 CN_SCALES = (1.0, 0.5)
+# the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's ControlNets and
+# scales but openpose (M13b)
+LORA_CN_NAMES = ("lllyasviel/control_v11p_sd15_lineart", "lllyasviel/control_v11p_sd15_mlsd",
+                 "lllyasviel/sd-controlnet-hed")
+LORA_CN_SCALES = (0.35, 1.0, 0.4)
 
 
 def unet_k1_shapes(frames_n: int, latent: tuple[int, int]) -> dict:
@@ -1228,6 +1255,15 @@ def save_safetensors(torch, path: Path, sd: dict) -> int:
     return 8 + len(blob) + offset
 
 
+def write_parallel(jobs: dict) -> dict:
+    """Run each job (a name -> callable returning the bytes it wrote) on a
+    thread of its own (copies to the host and file writes release the
+    GIL); returns the bytes of each."""
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        futures = {name: pool.submit(job) for name, job in jobs.items()}
+    return {name: f.result() for name, f in futures.items()}
+
+
 def write_snapshot(torch, root: Path, models, text, unet_json: dict, vae_json: dict,
                    motion: dict) -> dict:
     """A synthetic HF-layout snapshot of `models` and `text` under `root`:
@@ -1236,7 +1272,8 @@ def write_snapshot(torch, root: Path, models, text, unet_json: dict, vae_json: d
     merges); and AnimateDiff motion checkpoints written by torch.save,
     `motion` mapping a file name to (with the mid block, positional-encoding
     length): the motion keys, plus each attention block's `pos_encoder.pe`
-    table as AnimateDiff ships them. Returns the bytes of each file."""
+    table as AnimateDiff ships them. The weight files are written on threads.
+    Returns the bytes of each file."""
     import shutil
 
     from controlanimate_tpu_torch.models.motion_module import temporal_positional_encoding
@@ -1249,7 +1286,7 @@ def write_snapshot(torch, root: Path, models, text, unet_json: dict, vae_json: d
                "intermediate_size": c.intermediate_size,
                "max_position_embeddings": c.max_position_embeddings,
                "layer_norm_eps": c.layer_norm_eps, "eos_token_id": c.eos_token_id}
-    sizes = {}
+    jobs = {}
     for name, cfg, sd, fname in (
             ("unet", unet_json, {k: v for k, v in usd.items() if "motion_modules" not in k},
              "diffusion_pytorch_model.safetensors"),
@@ -1257,14 +1294,16 @@ def write_snapshot(torch, root: Path, models, text, unet_json: dict, vae_json: d
             ("text_encoder", te_json, text.model.state_dict(), "model.safetensors")):
         (root / name).mkdir(parents=True)
         (root / name / "config.json").write_text(json.dumps(cfg))
-        sizes[f"{name}/{fname}"] = save_safetensors(torch, root / name / fname, sd)
+        jobs[f"{name}/{fname}"] = lambda path=root / name / fname, sd=sd: save_safetensors(
+            torch, path, sd)
     tok = text.tokenizer
     (root / "tokenizer").mkdir()
     (root / "tokenizer" / "vocab.json").write_text(json.dumps(tok.vocab))
     merges = sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)
     (root / "tokenizer" / "merges.txt").write_text(
         "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
-    for fname, (mid, pe_len) in motion.items():
+
+    def save_motion(fname: str, mid: bool, pe_len: int) -> int:
         sd = {k: v.cpu() for k, v in usd.items()
               if "motion_modules" in k and (mid or not k.startswith("mid_block."))}
         for key in [k for k in sd if ".attention_blocks." in k and k.endswith(".to_q.weight")]:
@@ -1272,19 +1311,30 @@ def write_snapshot(torch, root: Path, models, text, unet_json: dict, vae_json: d
             sd[key.replace("to_q.weight", "pos_encoder.pe")] = torch.from_numpy(pe)[None].to(
                 sd[key].dtype)
         torch.save(sd, root / fname)
-        sizes[fname] = (root / fname).stat().st_size
-        del sd
-    return sizes
+        return (root / fname).stat().st_size
+
+    for fname, (mid, pe_len) in motion.items():
+        jobs[fname] = lambda f=fname, m=mid, n=pe_len: save_motion(f, m, n)
+    return write_parallel(jobs)
 
 
-def write_controlnets(torch, root: Path, nets: dict, hed) -> dict:
+def save_torch(torch, path: Path, obj) -> int:
+    """torch.save of `obj` (its tensors copied to the host); returns the
+    file's bytes."""
+    host = {k: v.cpu() if hasattr(v, "cpu") else v for k, v in obj.items()}
+    torch.save(host, path)
+    return path.stat().st_size
+
+
+def write_controlnets(torch, root: Path, nets: dict, annotator_files: dict) -> dict:
     """The ControlNets `nets` (name -> model) as diffusers folders under
     root/models/ControlNet/<last part of the name> (config.json with the
     architecture fields and a safetensors file, in the models' dtype), and
-    `hed`'s weights as root/models/annotators/ControlNetHED.pth, where the
-    port looks for them from the working directory `root`. Returns the bytes
-    of each file."""
-    sizes = {}
+    the annotators' checkpoints `annotator_files` (file name -> state dict)
+    under root/models/annotators/, where the port looks for them from the
+    working directory `root`; the files written on threads. Returns the
+    bytes of each file."""
+    jobs = {}
     for name, net in nets.items():
         c = net.config
         folder = root / "models" / "ControlNet" / name.split("/")[-1]
@@ -1298,12 +1348,13 @@ def write_controlnets(torch, root: Path, nets: dict, hed) -> dict:
                 net.controlnet_cond_embedding.conv_in.out_channels]
             + [b.out_channels for b in net.controlnet_cond_embedding.blocks[1::2]]}))
         path = folder / "diffusion_pytorch_model.safetensors"
-        sizes[str(path.relative_to(root))] = save_safetensors(torch, path, net.state_dict())
-    path = root / "models" / "annotators" / "ControlNetHED.pth"
-    path.parent.mkdir(parents=True)
-    torch.save({k: v.cpu() for k, v in hed.state_dict().items()}, path)
-    sizes[str(path.relative_to(root))] = path.stat().st_size
-    return sizes
+        jobs[str(path.relative_to(root))] = lambda path=path, net=net: save_safetensors(
+            torch, path, net.state_dict())
+    (root / "models" / "annotators").mkdir(parents=True)
+    for fname, sd in annotator_files.items():
+        path = root / "models" / "annotators" / fname
+        jobs[str(path.relative_to(root))] = lambda path=path, sd=sd: save_torch(torch, path, sd)
+    return write_parallel(jobs)
 
 
 def kohya_lora(torch, unet_sd: dict, te_sd: dict, gen, rank: int = 4) -> dict:
@@ -1415,7 +1466,8 @@ def small_models(torch, dtype: str, conv_kernel: bool):
 
 
 def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = False,
-                    controlnet: bool = False, windows: int = 2, **settings) -> dict:
+                    controlnet: bool = False, windows: int = 2, unguided: bool = False,
+                    **settings) -> dict:
     """The same small pipeline (fp32, same weights and noise) on the CPU and
     on the card: uint8 frames must agree within 1 LSB. Head dims 40/80 (UNet)
     and 512 (VAE) put K1 on the card's path; with `conv_kernel` the VAE's
@@ -1427,7 +1479,10 @@ def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = Fals
     without `use_lcm` and with `windows` 2 a second window follows, an
     overlap window at `overlap_strength` that starts from the first
     window's last two outputs. With `controlnet` one canny ControlNet of the
-    UNet's down path (scale 1.0, guess mode off) steers the windows."""
+    UNet's down path (scale 1.0, guess mode off) steers the windows. With
+    `unguided` the card also runs the first window at guidance 1.0 (the
+    positive prompt alone): `guidance_change_max` is its largest uint8
+    difference from the guided one."""
     import copy
 
     from controlanimate_tpu_torch.ops.canny import canny
@@ -1461,6 +1516,11 @@ def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = Fals
                                          noise=HostNoise(SEED, device)).cpu())
         seconds[f"{device}_seconds"] = round(time.perf_counter() - t1, 3)
     diff = torch.stack([(a.int() - b.int()).abs() for a, b in zip(*outs)])
+    if unguided:
+        plain = ControlAnimatePipeline(cfg.replace(guidance_scale=1.0), models=gpu.models,
+                                       text_stack=gpu.text, device="cuda")
+        out = plain.animate(frames, None, seed=SEED, noise=HostNoise(SEED, "cuda")).cpu()
+        seconds["guidance_change_max"] = int((out.int() - outs[1][0].int()).abs().max())
     return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.float().mean()), **seconds}
 
 
@@ -1540,6 +1600,66 @@ def small_hed_reference(torch) -> dict:
     q = lambda m: (m * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
     return {"max_abs_err": float((cpu - card).abs().max()),
             "max_lsb": int((q(cpu) - q(card)).abs().max()), "std": float(cpu.std())}
+
+
+def small_annotator_reference(torch) -> dict:
+    """Lineart and MLSD on the card against the CPU, fp32, on the same uint8
+    frames with seeded weights (`annotators/seeded.py`): lineart on 2 frames at
+    64x80 and at 48x96, within 1 LSB after the facade's uint8 quantisation;
+    MLSD (`mlsd_checkpoint`, made and its head set on the card) on 2 frames
+    of 64x80: each tpMap channel within 1e-3 of its RMS, and the map the
+    card decodes and draws from its tpMap equal to the CPU's decode and
+    drawing of that same tpMap; INTER_AREA at 768x512 -> 512x512 and 1024x1024 -> 512x512,
+    and 3 canvases of 200 random segments (ends in [-300, 800)), card
+    against CPU: equal."""
+    import copy
+
+    import numpy as np
+
+    from controlanimate_tpu_torch.models.annotators import mlsd
+    from controlanimate_tpu_torch.models.annotators.edge_nets import (LineartAnnotator,
+                                                                     LineartGenerator)
+    from controlanimate_tpu_torch.models.annotators.seeded import (mlsd_checkpoint, mlsd_model,
+                                                                  seed_lineart_)
+    from controlanimate_tpu_torch.ops.draw import lines
+    from controlanimate_tpu_torch.ops.resize import resize_area
+
+    t0 = time.perf_counter()
+    q = lambda m: (m * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+    net = seed_lineart_(LineartGenerator(), torch.Generator().manual_seed(SEED))
+    card_net = LineartAnnotator(copy.deepcopy(net).cuda())
+    lsb, std = 0, []
+    for h, w in ((64, 80), (48, 96)):
+        frames = torch.from_numpy(edge_rich(np, synthetic_video(np, 2, h, w, SEED)))
+        cpu = LineartAnnotator(net)(frames)
+        lsb = max(lsb, int((q(cpu) - q(card_net(frames.cuda()).cpu())).abs().max()))
+        std.append(float(cpu.std()))
+    frames = torch.from_numpy(edge_rich(np, synthetic_video(np, 2, 64, 80, SEED)))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    sd = mlsd_checkpoint(gen, frames)
+    tp_cpu = mlsd.MLSDAnnotator(mlsd_model(sd, "cpu")).tp_map(frames)
+    tp_card = mlsd.MLSDAnnotator(mlsd_model(sd, "cuda")).tp_map(frames.cuda())
+    rms = tp_cpu.pow(2).mean((0, 2, 3)).sqrt()
+    err = (tp_cpu - tp_card.cpu()).abs().amax((0, 2, 3))
+    drawn_cpu = mlsd.draw_segments(tp_card.cpu())
+    drawn_card = mlsd.draw_segments(tp_card).cpu()
+    resize_diff = 0
+    for h, w in ((768, 512), (1024, 1024)):
+        video = torch.from_numpy(synthetic_video(np, 2, h, w, SEED))
+        resize_diff += int((resize_area(video, 512, 512)
+                            != resize_area(video.cuda(), 512, 512).cpu()).sum())
+    ends = torch.randint(-300, 800, (3, 200, 4), generator=torch.Generator().manual_seed(SEED))
+    keep = torch.ones(3, 200, dtype=torch.bool)
+    line_diff = int((lines(ends[..., :2], ends[..., 2:], keep, 512, 512) != lines(
+        ends[..., :2].cuda(), ends[..., 2:].cuda(), keep.cuda(), 512, 512).cpu()).sum())
+    return {"lineart_max_lsb": lsb, "lineart_std": std,
+            "mlsd_tp_max_abs_err": float(err.max()),
+            "mlsd_tp_err_over_rms": float((err / rms).max()),
+            "mlsd_draw_diff": int((drawn_cpu != drawn_card).sum()),
+            "mlsd_drawn_share": float((drawn_cpu > 0).float().mean()),
+            "resize_area_diff": resize_diff, "line_diff": line_diff,
+            "seconds": round(time.perf_counter() - t0, 3)}
 
 
 def seeded_controlnets(torch, unet_cfg, n: int, device, gen) -> list:
@@ -1785,26 +1905,39 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    ref = small_reference(torch)
+    step_seconds = {}
+
+    def step(name, fn):
+        """fn() with its seconds (host clock, the card synchronised) kept
+        under `name` in the reference phase's line."""
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        step_seconds[name] = round(time.perf_counter() - t1, 3)
+        return out
+
+    ref = step("small", lambda: small_reference(torch))
     ck.reset_launch_counts()
-    ref_k2 = small_reference(torch, conv_kernel=True)
+    ref_k2 = step("small_k2", lambda: small_reference(torch, conv_kernel=True))
     k2_ref_launches = ck.conv3x3_fused.launches
     mk.reset_launch_counts()
-    ref_k3 = small_reference(torch, motion_kernel=True)
+    ref_k3 = step("small_k3", lambda: small_reference(torch, motion_kernel=True))
     k3_ref_launches = mk.motion_module_fused.launches
     uk.reset_launch_counts()
-    ref_up4 = small_upscaler_reference(torch, 4.0)
-    ref_up2 = small_upscaler_reference(torch, 2.0)
+    ref_up4 = step("upscale4", lambda: small_upscaler_reference(torch, 4.0))
+    ref_up2 = step("upscale2", lambda: small_upscaler_reference(torch, 2.0))
     k4_ref_launches = uk.upconv3x3.launches
-    ref_face = small_face_reference(torch)
-    ref_canny = [canny_reference(torch, np, f(synthetic_video(np, 2, h, 512, SEED)))
-                 for h in (512, 768) for f in (lambda v: v, lambda v: edge_rich(np, v))]
-    ref_hed = small_hed_reference(torch)
-    ref_cn = small_controlnet_reference(torch)
+    ref_face = step("face", lambda: small_face_reference(torch))
+    ref_canny = step("canny", lambda: [
+        canny_reference(torch, np, f(synthetic_video(np, 2, h, 512, SEED)))
+        for h in (512, 768) for f in (lambda v: v, lambda v: edge_rich(np, v))])
+    ref_hed = step("hed", lambda: small_hed_reference(torch))
+    ref_annotators = step("lineart_mlsd", lambda: small_annotator_reference(torch))
+    ref_cn = step("controlnet", lambda: small_controlnet_reference(torch))
     # the multi-step samplers: Euler under CFG with a ControlNet (on K1,
     # with K2, with K3 at B = 2), the LCM-LoRA tail, DPM-Solver
     fa.reset_launch_counts()
-    ref_cfg = small_reference(torch, controlnet=True, **EULER_CFG)
+    ref_cfg = small_reference(torch, controlnet=True, unguided=True, **EULER_CFG)
     cfg_k1_batches = sorted({key[0] for key in fa.flash_attention.launches_by_shape})
     ck.reset_launch_counts()
     ref_cfg_k2 = small_reference(torch, conv_kernel=True, windows=1, **EULER_CFG)
@@ -1821,12 +1954,16 @@ def main() -> int:
           upscale4_max_lsb=ref_up4["max_lsb"], upscale4_mean_lsb=ref_up4["mean_lsb"],
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
           k4_launches=k4_ref_launches, face=ref_face, canny=ref_canny, hed=ref_hed,
-          controlnet=ref_cn, samplers=ref_samplers, cfg_k1_batches=cfg_k1_batches,
-          cfg_k2_launches=k2_cfg_launches, cfg_k3_batches=k3_cfg_batches)
+          lineart_mlsd=ref_annotators, controlnet=ref_cn, samplers=ref_samplers,
+          cfg_k1_batches=cfg_k1_batches, cfg_k2_launches=k2_cfg_launches,
+          cfg_k3_batches=k3_cfg_batches, step_seconds=step_seconds)
     for r in (ref, ref_k2, ref_k3, *ref_samplers.values()):
         if r["max_lsb"] > 1:
             raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB: "
                                  f"{ref_samplers}")
+    if not ref_cfg["guidance_change_max"]:
+        raise AssertionError("guidance changed nothing: the small CFG window equals the "
+                             "unguided one")
     # 4 frames doubled by CFG on K1 (and the VAE's 4 and 2); K3 at B = 2
     if 8 not in cfg_k1_batches or k3_cfg_batches != [2] or not k2_cfg_launches:
         raise AssertionError(f"the CFG references did not run K1 at B*F = 8 ({cfg_k1_batches}), "
@@ -1842,6 +1979,10 @@ def main() -> int:
         raise AssertionError("the reference upscalers launched no K4")
     if ref_hed["max_lsb"] > 1:
         raise AssertionError(f"HED on the card differs from the CPU by {ref_hed['max_lsb']} LSB")
+    ra = ref_annotators
+    if (ra["lineart_max_lsb"] > 1 or ra["mlsd_tp_err_over_rms"] > 1e-3 or ra["mlsd_draw_diff"]
+            or not ra["mlsd_drawn_share"] or ra["resize_area_diff"] or ra["line_diff"]):
+        raise AssertionError(f"lineart or MLSD on the card differs from the CPU: {ra}")
     if ref_cn["max_lsb"] > 1 or not ref_cn["controlnet_change_max"]:
         raise AssertionError(f"the card's ControlNet window differs from the CPU's, or the "
                              f"ControlNets changed nothing: {ref_cn}")
@@ -2166,7 +2307,39 @@ def main() -> int:
              for net, c, sc in zip(cn_nets, cond, CN_SCALES)]
     cn_device_ms = [device_busy_ms(torch, lambda: net_window(net, c, sc), 2)
                     for net, c, sc in zip(cn_nets, cond, CN_SCALES)]
-    del window_frames, cond, lat
+    # the disk phase's LCM-LoRA annotators (lineart, MLSD; seeded on the
+    # card, MLSD's head set on this window) beside canny and HED, each on one
+    # 16-frame window at the shipped 512x768, by CUDA events
+    from controlanimate_tpu_torch.models.annotators.edge_nets import (LineartAnnotator,
+                                                                     LineartGenerator)
+    from controlanimate_tpu_torch.models.annotators.mlsd import MLSDAnnotator
+    from controlanimate_tpu_torch.models.annotators.seeded import (mlsd_checkpoint, mlsd_model,
+                                                                  seed_lineart_)
+
+    video_768 = synthetic_video(np, 2 * frames_n - overlap, 768, size, SEED)
+    frames_768 = torch.from_numpy(video_768[:frames_n]).cuda()
+    with torch.device("cuda"):
+        lineart_net = LineartGenerator()
+    lineart = LineartAnnotator(seed_lineart_(lineart_net, cgen))
+    mlsd_sd = mlsd_checkpoint(cgen, window_frames)
+    mlsd_ann = MLSDAnnotator(mlsd_model(mlsd_sd, "cuda"))
+    annotators_768 = {"canny": canny, "hed": hed, "lineart": lineart, "mlsd": mlsd_ann}
+    # the first two calls warm each annotator up (and must agree)
+    maps_768 = {name: a(frames_768) for name, a in annotators_768.items()}
+    repeatable = {name: torch.equal(a(frames_768), maps_768[name])
+                  for name, a in annotators_768.items()}
+    annotator_ms = {name: cuda_ms(torch, lambda a=a: a(frames_768), 1, warmup=0)
+                    for name, a in annotators_768.items()}
+    print(json.dumps({"annotators_512x768": {
+        "frames": frames_n, "ms_per_window": annotator_ms, "repeatable": repeatable,
+        "lineart_params": sum(p.numel() for p in lineart_net.parameters()),
+        "mlsd_params": sum(p.numel() for p in mlsd_ann.model.parameters()),
+        "map_mean": {k: float(m.mean()) for k, m in maps_768.items()},
+        "map_std": {k: float(m.std()) for k, m in maps_768.items()}}}), flush=True)
+    if not all(float(m.std()) > 0 for m in maps_768.values()) or not all(repeatable.values()):
+        raise AssertionError(f"an annotator's 512x768 maps are constant, or differ from one "
+                             f"call to the next: {repeatable}")
+    del window_frames, cond, lat, frames_768, maps_768
     phase("controlnet", t0, build_seconds=round(t_cn_build, 4), nets=list(CN_NAMES),
           cond_scale=list(CN_SCALES),
           controlnet_params=sum(p.numel() for p in cn_nets[0].parameters()),
@@ -2205,7 +2378,7 @@ def main() -> int:
                               annotators=[canny])
     cfg_settings = {**CFG_PROFILE, "controlnets": CN_NAMES[:1], "cond_scale": CN_SCALES[:1]}
     cfg_video = video[:2 * frames_n - overlap]  # one whole and one overlap-8 window
-    summary_cfg, cfg_frames, cfg_seconds, cfg_raw, counts, cfg_peak = run_vid2vid(
+    summary_cfg, cfg_frames, cfg_seconds, _, counts, cfg_peak = run_vid2vid(
         True, "cfg", engine_models=cfg_models, source=cfg_video, **cfg_settings)
     if summary_cfg["frames_written"] != len(cfg_video) or len(cfg_frames) != len(cfg_video):
         raise AssertionError(f"the CFG loop wrote {summary_cfg['frames_written']} frames")
@@ -2233,21 +2406,33 @@ def main() -> int:
     if cfg_k2 != cfg_k2_expected or counts["k4"]:
         raise AssertionError(f"CFG loop K2 launches {cfg_k2}, expected {cfg_k2_expected}, "
                              f"or K4 launched")
-    # the same first window without guidance (the positive prompt alone)
-    plain_pipe = ControlAnimatePipeline(
-        cfg.replace(**{**cfg_settings, "guidance_scale": 1.0, "use_pallas_conv": True}),
-        models=cfg_models, text_stack=text, device="cuda")
+    # guidance at full width: the first window's first Euler step through the
+    # engine, from the same latents and condition map, under CFG 7.5 and at
+    # 1.0 (the positive prompt alone); the two steps must differ
+    from controlanimate_tpu_torch.pipelines.engine import TorchNoise
+
+    cfg_pipe = ControlAnimatePipeline(cfg.replace(**cfg_settings), models=cfg_models,
+                                      text_stack=text, device="cuda")
+    pos, neg = cfg_pipe._encode_prompts(cfg.prompt, cfg.n_prompt)
+    st_cfg = cfg_pipe.window_static()
+    first_step = cfg_pipe.engine.build_scheduler(st_cfg)
+    first_step.num_steps = 1  # the window's first step alone
+    step_noise = TorchNoise(SEED, "cuda")
+    lat0 = step_noise.initial((1, frames_n, size // 8, size // 8, 4)) * first_step.init_noise_sigma
+    step_cond = cfg_pipe.prepare_cond_images(cfg_video[:frames_n])
     t1 = time.perf_counter()
-    out_unguided = plain_pipe.animate(torch.from_numpy(cfg_video[:frames_n]).cuda(), None,
-                                      seed=SEED)
-    torch.cuda.synchronize()
-    unguided_seconds = time.perf_counter() - t1
-    cfg_change = (out_unguided.int() - cfg_raw[0].int()).abs()
-    if not int(cfg_change.max()):
-        raise AssertionError("guidance changed nothing: the CFG window equals the unguided one")
+    with torch.no_grad():
+        guided = cfg_pipe.engine.denoise(st_cfg, first_step, torch.cat([neg, pos]), lat0,
+                                         step_noise, step_cond)
+        unguided = cfg_pipe.engine.denoise(dataclasses.replace(st_cfg, guidance_scale=1.0),
+                                           first_step, pos, lat0, step_noise, step_cond)
+    guidance_change = float((guided - unguided).abs().max())
+    guidance_seconds = time.perf_counter() - t1
+    if not guidance_change > 0.0:
+        raise AssertionError("guidance changed nothing: the CFG step equals the unguided one")
+    del lat0, step_cond, guided, unguided, cfg_pipe
     # a step's parts alone, by CUDA events: the UNet and the ControlNet on
     # the doubled batch
-    pos, neg = plain_pipe._encode_prompts(cfg.prompt, cfg.n_prompt)
     ctx2 = torch.cat([neg, pos])
     lat2 = torch.randn((2, frames_n, size // 8, size // 8, 4), generator=cgen, device="cuda",
                        dtype=torch.bfloat16)
@@ -2262,14 +2447,13 @@ def main() -> int:
           loop_seconds=round(cfg_seconds, 4),
           new_frames_per_second_first_window_included=round(
               summary_cfg["frames_written"] / cfg_seconds, 4),
-          unguided_window_seconds=round(unguided_seconds, 4),
           unet_step_ms_doubled=unet_step_ms, controlnet_step_ms_doubled=cn_step_ms,
-          uint8_change_vs_unguided_mean=float(cfg_change.float().mean()),
-          uint8_change_vs_unguided_max=int(cfg_change.max()),
+          first_step_change_vs_unguided_max=guidance_change,
+          first_step_pair_seconds=round(guidance_seconds, 4),
           max_memory_allocated=cfg_peak, k1_launches=sum(cfg_k1.values()),
           k1_launches_by_shape={str(k): n for k, n in sorted(cfg_k1.items())},
           k2_launches=sum(cfg_k2.values()), timers=summary_cfg["timers"])
-    del plain_pipe, out_unguided, cfg_change, cfg_raw, cfg_frames, cfg_models, unet_sd15
+    del cfg_frames, cfg_models, unet_sd15
     torch.cuda.empty_cache()
 
     sass = sass_job.result()
@@ -2388,17 +2572,15 @@ def main() -> int:
         gfpgan = GFPGANv1Clean()
     init_gfpgan_(torch, gfpgan, fgen)
     retina_ckpt = retinaface_checkpoint(torch, fgen)
-    for fname, obj in (("RealESRGAN_x4plus_anime_6B.pth", {"params_ema": rrdb.state_dict()}),
-                       ("GFPGANv1.3.pth", gfpgan_checkpoint(torch, gfpgan)),
-                       ("detection_Resnet50_Final.pth", retina_ckpt)):
-        torch.save(obj, SNAPSHOT / fname)
-        snapshot_bytes[fname] = (SNAPSHOT / fname).stat().st_size
+    snapshot_bytes.update(write_parallel({
+        fname: lambda f=fname, o=obj: save_torch(torch, SNAPSHOT / f, o) for fname, obj in (
+            ("RealESRGAN_x4plus_anime_6B.pth", {"params_ema": rrdb.state_dict()}),
+            ("GFPGANv1.3.pth", gfpgan_checkpoint(torch, gfpgan)),
+            ("detection_Resnet50_Final.pth", retina_ckpt))}))
     face_paths = {"upscaler_model_path": str(SNAPSHOT / "RealESRGAN_x4plus_anime_6B.pth"),
                   "face_enhancer_model_path": str(SNAPSHOT / "GFPGANv1.3.pth"),
                   "face_detector_model_path": str(SNAPSHOT / "detection_Resnet50_Final.pth")}
-    height_768 = 768
-    # one whole window and one overlap-8 window
-    video_768 = synthetic_video(np, 2 * frames_n - overlap, height_768, size, SEED)
+    height_768 = 768  # video_768 (the controlnet phase's): one whole and one overlap-8 window
     write_frames(np, SNAPSHOT / "frames_512x512", video)
     write_frames(np, SNAPSHOT / "frames_512x768", video_768)
     write_seconds = time.perf_counter() - t1
@@ -2444,12 +2626,21 @@ def main() -> int:
                     summary["frames_written"] / (seconds - build), 4),
                 "max_memory_allocated": peak}
 
-    # the controlnet phase's two ControlNets, found under models/ControlNet/,
-    # and its HED under models/annotators/, from the snapshot root as the
-    # working directory
+    # the controlnet phase's two ControlNets and two more seeded ones (the
+    # LCM-LoRA profile's lineart and MLSD), found under models/ControlNet/,
+    # and the HED, lineart and MLSD networks under models/annotators/, from
+    # the snapshot root as the working directory
     t1 = time.perf_counter()
-    snapshot_bytes.update(write_controlnets(torch, SNAPSHOT, dict(zip(CN_NAMES, cn_nets)),
-                                            hed_net))
+    lgen = torch.Generator(device="cuda")
+    lgen.manual_seed(SEED + 5)
+    lora_nets = dict(zip(LORA_CN_NAMES, [
+        net.to(torch.bfloat16)  # the run dtype, as the controlnet phase left its nets
+        for net in seeded_controlnets(torch, models.unet.config, 2, "cuda", lgen)]
+        + [cn_nets[1]]))
+    snapshot_bytes.update(write_controlnets(
+        torch, SNAPSHOT, {**dict(zip(CN_NAMES, cn_nets)), **lora_nets},
+        {"ControlNetHED.pth": hed_net.state_dict(), "sk_model.pth": lineart_net.state_dict(),
+         "mlsd_large_512_fp32.pth": mlsd_sd}))
     cn_write_seconds = time.perf_counter() - t1
 
     # the controlnet phase's native-LCM profile from disk (inference-v2, K2
@@ -2495,10 +2686,10 @@ def main() -> int:
 
     # the LCM-LoRA profile (SampleConfigLCMLoRA.yaml: `use_lcm` 0,
     # LCMScheduler, 7 steps, CFG 1.1, a LoRA from `lora_model_paths`, its
-    # ControlNets) on the same snapshot read as `pretrained_model_path` (its
-    # UNet's cond_proj goes unused without `use_lcm`), with the controlnet
-    # phase's two ControlNets, two windows; against the injected pipeline
-    # after the same fusion
+    # ControlNets but openpose: lineart at 0.35, MLSD at 1.0, HED at 0.4) on
+    # the same snapshot read as `pretrained_model_path` (its UNet's cond_proj
+    # goes unused without `use_lcm`), two windows; against the injected
+    # pipeline after the same fusion, with the same three nets and annotators
     import copy
 
     from controlanimate_tpu_torch.pipelines.facade import TextStack
@@ -2514,19 +2705,20 @@ def main() -> int:
     lora_write_seconds = time.perf_counter() - t1
     lora_settings = {**LCM_LORA_PROFILE, "pretrained_model_path": str(SNAPSHOT),
                      "lora_model_paths": [str(lora_path)], "lora_weights": [1.0]}
+    lora_cn_settings = {"controlnets": LORA_CN_NAMES, "cond_scale": LORA_CN_SCALES}
     with chdir(SNAPSHOT):
         summary, lora_frames, seconds, counts, peak = run_cli(
             "disk_lcm_lora", ["--max-windows", "2"],
             input_video_path=str(SNAPSHOT / "frames_512x512"), width=size, height=size,
             inference_config_path=str(INFERENCE_V2), motion_module=str(SNAPSHOT / "mm_v2.ckpt"),
-            use_pallas_conv=0, **lora_settings, **cn_settings)
+            use_pallas_conv=0, **lora_settings, **lora_cn_settings)
     lora_window_steps = [make_scheduler("LCMScheduler", make_schedule(), LCM_LORA_PROFILE["steps"],
                                         strength=st, lcm_origin_steps=cfg.lcm_origin_steps,
                                         strength_mode="tail").num_steps
                          for st in (LCM_LORA_PROFILE["strength"],
                                     LCM_LORA_PROFILE["overlap_strength"])]
     lora_k1_expected = expected_cfg_k1_launches(lora_window_steps, frames_n, [overlap],
-                                                controlnets=len(CN_NAMES))
+                                                controlnets=len(LORA_CN_NAMES))
     if counts["k1_by_shape"] != lora_k1_expected or counts["k2_by_shape"] or counts["k3"]:
         raise AssertionError(f"LCM-LoRA CLI K1 launches {counts['k1_by_shape']}, expected "
                              f"{lora_k1_expected}, or K2 or K3 launched")
@@ -2543,20 +2735,21 @@ def main() -> int:
     text_lora = copy.deepcopy(text.model)
     text_lora.load_state_dict({k: v.to("cuda", torch.bfloat16 if v.is_floating_point()
                                        else v.dtype) for k, v in fused_te.items()})
-    lora_models = EngineModels(unet=unet_lora, vae=models.vae, controlnets=cn_nets,
-                               annotators=[canny, hed])
+    lora_models = EngineModels(unet=unet_lora, vae=models.vae,
+                               controlnets=list(lora_nets.values()),
+                               annotators=[lineart, mlsd_ann, hed])
     lora_text = TextStack(text.tokenizer, text_lora)
     injected_build_seconds = time.perf_counter() - t1 - fuse_seconds
     _, injected, injected_seconds, _, _, _ = run_vid2vid(False, "lcm_lora", engine_models=lora_models,
                                           text_stack=lora_text, max_windows=2,
-                                          **LCM_LORA_PROFILE, **cn_settings)
+                                          **LCM_LORA_PROFILE, **lora_cn_settings)
     # a run stopped by --max-windows keeps its last 8 frames for a resume
     if (len(lora_frames) != len(injected) or summary["windows"] != 2
             or len(lora_frames) != 2 * (frames_n - overlap)):
         raise AssertionError(f"the LCM-LoRA CLI run wrote {len(lora_frames)} frames in "
                              f"{summary['windows']} windows, the injected one {len(injected)}")
     diff = np.abs(np.stack(lora_frames).astype(np.int16) - np.stack(injected).astype(np.int16))
-    fields_lora = {"controlnets": list(CN_NAMES),
+    fields_lora = {"controlnets": list(LORA_CN_NAMES), "cond_scale": list(LORA_CN_SCALES),
                    "lora_write_seconds": round(lora_write_seconds, 4),
                    "lora_layers_fused": fused_n + fused_te_n,
                    "host_fuse_seconds": round(fuse_seconds, 4),
@@ -2570,7 +2763,7 @@ def main() -> int:
     if diff.max():
         _, again, _, _, _, _ = run_vid2vid(False, "lcm_lora_again", engine_models=lora_models,
                                            text_stack=lora_text, max_windows=2,
-                                           **LCM_LORA_PROFILE, **cn_settings)
+                                           **LCM_LORA_PROFILE, **lora_cn_settings)
         rerun = np.abs(np.stack(again).astype(np.int16) - np.stack(injected).astype(np.int16))
         fields_lora["injected_rerun_diff_max"] = int(rerun.max())
         if diff.max() > rerun.max():
@@ -2579,7 +2772,8 @@ def main() -> int:
                                  f"{int(rerun.max())}")
     fields_lora.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del (unet_state, unet_2d, te_state, lora_sd, parts, fused_unet, fused_te, unet_lora, text_lora,
-         lora_models, lora_text, lora_frames, injected, diff, cn_models, cn_nets, hed, hed_net)
+         lora_models, lora_text, lora_frames, injected, diff, cn_models, cn_nets, hed, hed_net,
+         lora_nets, lineart, lineart_net, mlsd_ann, mlsd_sd)
     torch.cuda.empty_cache()
 
     # the whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on

@@ -4,13 +4,15 @@ Counterpart of `controlanimate_tpu/models/annotators/__init__.py`: the
 ControlNet's model name picks its annotator by substring, in the JAX
 package's order (`ANNOTATOR_ORDER`). An annotator maps (F, H, W, 3) uint8
 frames to (F, H, W, 3) float32 condition maps in [0, 1] on the same device.
-Ported: `canny` (`ops/canny.py`, bit for bit as OpenCV) and `hed`
-(`edge_nets.py`, ControlNetHED read from `ControlNetHED.pth` in
-CONTROLANIMATE_ANNOTATOR_DIR, default `models/annotators`). Every other
-annotator of the zoo is M13 and raises NotImplementedError when the pipeline
-is built; `softedge` does not fall back to HED as the JAX package does when
-its PidiNet weights are absent. A name that matches no annotator raises
-KeyError, as in JAX (there at the first window, here at the build).
+Ported: `canny` (`ops/canny.py`, bit for bit as OpenCV), `hed` and
+`lineart` (`edge_nets.py`) and `mlsd` (`mlsd.py`), the networks read from
+`WEIGHT_FILES` in CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`);
+a missing file raises FileNotFoundError (where the JAX package falls back to
+`cv2.HoughLinesP` for MLSD). Every other annotator of the zoo is M13 and
+raises NotImplementedError when the pipeline is built; `softedge` does not
+fall back to HED as the JAX package does when its PidiNet weights are
+absent. A name that matches no annotator raises KeyError, as in JAX (there
+at the first window, here at the build).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import Callable
 import torch
 
 from ...ops.canny import canny
-from .edge_nets import HEDAnnotator
+from .edge_nets import HEDAnnotator, LineartAnnotator
+from .mlsd import MLSDAnnotator
 
 # (substring of the lower-cased model name, annotator), first match wins
 ANNOTATOR_ORDER = (
@@ -39,7 +42,11 @@ ANNOTATOR_ORDER = (
     ("depth", "depth"),
     ("scribble", "hed"),
 )
-PORTED = ("canny", "hed")
+PORTED = ("canny", "hed", "lineart", "mlsd")
+# the networks' checkpoints (controlnet_aux's names) and their annotators
+WEIGHT_FILES = {"hed": ("ControlNetHED.pth", HEDAnnotator),
+                "lineart": ("sk_model.pth", LineartAnnotator),
+                "mlsd": ("mlsd_large_512_fp32.pth", MLSDAnnotator)}
 ANNOTATOR_ENV = "CONTROLANIMATE_ANNOTATOR_DIR"
 
 Annotator = Callable[[torch.Tensor], torch.Tensor]
@@ -63,10 +70,12 @@ def annotator_name(controlnet_name: str) -> str:
 def resolve_annotator(controlnet_name: str, device="cuda") -> Annotator:
     """The annotator for a ControlNet (the JAX `resolve_annotator`), its
     weights (if any) read now and placed on `device`."""
-    if annotator_name(controlnet_name) == "canny":
+    name = annotator_name(controlnet_name)
+    if name == "canny":
         return canny
-    weights = Path(os.environ.get(ANNOTATOR_ENV, "models/annotators")) / "ControlNetHED.pth"
-    return HEDAnnotator.from_file(weights, device=device)
+    fname, annotator = WEIGHT_FILES[name]
+    weights = Path(os.environ.get(ANNOTATOR_ENV, "models/annotators")) / fname
+    return annotator.from_file(weights, device=device)
 
 
 def annotate_frames(controlnet_name: str, frames) -> torch.Tensor:

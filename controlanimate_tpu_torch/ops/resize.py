@@ -1,11 +1,11 @@
-"""Lanczos4 resize of uint8 frames, as OpenCV's `cv2.resize(...,
-interpolation=cv2.INTER_LANCZOS4)` computes it for 8-bit images.
+"""Resizes of uint8 frames as OpenCV's `cv2.resize` computes them for 8-bit
+images, in plain PyTorch on the frames' device: Lanczos4, area and nearest.
 
-The JAX package resizes the upscaler's x4 output to the configured scale with
-`cv2.resize` (`controlanimate_tpu/models/upscaler.py` `_post_resize`,
-`scripts/vid2vid.py` `_upscale_frames`); the port does it in plain PyTorch
-on the frames' device. OpenCV's 8-bit path (`resizeGeneric_` with
-`HResizeLanczos4` / `VResizeLanczos4`):
+Lanczos4 (`resize_lanczos4`). The JAX package resizes the upscaler's x4
+output to the configured scale with `cv2.resize(..., INTER_LANCZOS4)`
+(`controlanimate_tpu/models/upscaler.py` `_post_resize`,
+`scripts/vid2vid.py` `_upscale_frames`). OpenCV's 8-bit path
+(`resizeGeneric_` with `HResizeLanczos4` / `VResizeLanczos4`):
 
 - source coordinate of output column dx: fx = float((dx + 0.5) / inv_scale -
   0.5), sx = floor(fx), fx -= sx; taps sx - 3 .. sx + 4, clamped to the image
@@ -18,6 +18,35 @@ on the frames' device. OpenCV's 8-bit path (`resizeGeneric_` with
 The weight tables are computed on the host in OpenCV's precisions (fx in
 float32, the sines in float64, the weights in float32); the two passes run on
 the device in integer arithmetic.
+
+Area (`resize_area`, INTER_AREA) and nearest (`resize_nearest`,
+INTER_NEAREST) serve the MLSD annotator (`controlanimate_tpu/models/
+annotators/mlsd_net.py` `run`: frames to 512x512 by area, the line map back
+by nearest). OpenCV's INTER_AREA has three branches, by the scales
+s = src / dst of the two axes (inv_scale = dst / src in float64, s = 1 /
+inv_scale):
+
+- both s integers (`resizeAreaFast_`): each output is the sum of its s_x x
+  s_y block; a 2x2 block of a 1-, 3- or 4-channel frame rounds as
+  (sum + 2) >> 2 (the vector path, which then takes every pixel), any other
+  block as round-half-even(float32(sum) * float32(1 / area));
+- both s >= 1 otherwise (`resizeArea_`, float32): each output column takes
+  the source columns its cell [dx * s, (dx + 1) * s) covers, weighted by the
+  covered share (`computeResizeAreaTab`: a share under 1e-3 is dropped), the
+  products summed in order from 0; then the rows the same way; the float32
+  result rounded half to even;
+- an axis scaled up (`resizeGeneric_` with linear taps in fixed point):
+  sx = floor(dx * s), fx = float32((dx + 1) - (sx + 1) * inv_scale), taken
+  to 0 if not positive, else its fraction; weights round((1 - fx) * 2048)
+  and round(fx * 2048) on columns sx, sx + 1 (the last column alone, times
+  2048, from the first dx whose sx + 1 leaves the image); rows alike,
+  clamped. The vertical pass is OpenCV's vector one at every output:
+  ((sat16(r0 >> 4) * b0) >> 16) + ((sat16(r1 >> 4) * b1) >> 16), then
+  (v + 2) >> 2, saturated to 0..255.
+
+Equal sizes copy. Nearest takes source column min(floor(dx * (1 / inv_scale)),
+src - 1), the product in float64, and rows alike. Every table is built on
+the host in OpenCV's precisions; the passes run on the device.
 """
 
 from __future__ import annotations
@@ -73,11 +102,15 @@ def lanczos4_table(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
     return idx, coef
 
 
-def resize_lanczos4(frames: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """(F, H, W, C) uint8 -> (F, height, width, C) uint8 on the frames' device."""
+def _check_frames(frames: torch.Tensor) -> None:
     if frames.dtype != torch.uint8 or frames.ndim != 4:
         raise ValueError(f"frames must be (F, H, W, C) uint8, got {frames.dtype} "
                          f"{tuple(frames.shape)}")
+
+
+def resize_lanczos4(frames: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(F, H, W, C) uint8 -> (F, height, width, C) uint8 on the frames' device."""
+    _check_frames(frames)
     _, H, W, _ = frames.shape
     dev = frames.device
     xi, xc = (torch.tensor(t, device=dev) for t in lanczos4_table(W, width))
@@ -94,3 +127,134 @@ def resize_lanczos4(frames: torch.Tensor, height: int, width: int) -> torch.Tens
         acc += rows[:, yi[:, k]].to(torch.int64) * yc[:, k][None, :, None, None]
     out = (acc + (1 << (2 * COEF_BITS - 1))) >> (2 * COEF_BITS)
     return out.clamp_(0, 255).to(torch.uint8)
+
+
+def _scales(src: int, dst: int) -> tuple[float, float]:
+    """OpenCV's (inv_scale, scale) of one axis, in float64."""
+    inv = dst / src
+    return inv, 1.0 / inv
+
+
+@functools.lru_cache(maxsize=16)
+def area_table(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """OpenCV's `computeResizeAreaTab` for one axis (s >= 1) as (indices
+    (dst, K) int64, weights (dst, K) float32), each output's entries in
+    OpenCV's order, padded with weight 0 on index 0; cached, read-only."""
+    scale = _scales(src, dst)[1]
+    rows = []
+    for d in range(dst):
+        fs1 = d * scale
+        fs2 = fs1 + scale
+        cell = min(scale, src - fs1)
+        s1, s2 = math.ceil(fs1), math.floor(fs2)
+        s2 = min(s2, src - 1)
+        s1 = min(s1, s2)
+        row = []
+        if s1 - fs1 > 1e-3:
+            row.append((s1 - 1, (s1 - fs1) / cell))
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if fs2 - s2 > 1e-3:
+            row.append((s2, min(min(fs2 - s2, 1.0), cell) / cell))
+        rows.append(row)
+    k = max(len(r) for r in rows)
+    idx = np.zeros((dst, k), np.int64)
+    alpha = np.zeros((dst, k), np.float32)
+    for d, row in enumerate(rows):
+        for j, (s, a) in enumerate(row):
+            idx[d, j], alpha[d, j] = s, np.float32(a)
+    idx.setflags(write=False)
+    alpha.setflags(write=False)
+    return idx, alpha
+
+
+@functools.lru_cache(maxsize=16)
+def area_linear_table(src: int, dst: int, columns: bool) -> tuple[np.ndarray, np.ndarray]:
+    """The linear taps of INTER_AREA with an axis scaled up, for the columns
+    or the rows: (indices (dst, 2) int64 clamped to the image, weights
+    (dst, 2) int64 in fixed point, 2048 = 1); cached, read-only. Only the
+    columns have OpenCV's edge rule (`xmax`); the rows clamp their taps."""
+    inv, scale = _scales(src, dst)
+    idx = np.empty((dst, 2), np.int64)
+    coef = np.empty((dst, 2), np.int64)
+    edge = False
+    for d in range(dst):
+        s = math.floor(d * scale)
+        f = np.float32((d + 1) - (s + 1) * inv)
+        f = np.float32(0.0) if f <= 0 else np.float32(f - np.float32(math.floor(f)))
+        if columns and s + 1 >= src:
+            edge, f, s = True, np.float32(0.0), min(s, src - 1)
+        w = np.float32([np.float32(1.0) - f, f]) * np.float32(COEF_SCALE)
+        if edge:  # from OpenCV's xmax on: the one column, times 2048
+            idx[d], coef[d] = (s, s), (COEF_SCALE, 0)
+        else:
+            idx[d], coef[d] = (min(s, src - 1), min(s + 1, src - 1)), np.rint(w).astype(np.int64)
+    idx.setflags(write=False)
+    coef.setflags(write=False)
+    return idx, coef
+
+
+def _area_pass(x: torch.Tensor, dim: int, table) -> torch.Tensor:
+    """One axis of `resizeArea_`: the weighted source lines of each output
+    line summed in OpenCV's order in float32 (no fused multiply-add)."""
+    idx, alpha = (torch.tensor(t, device=x.device) for t in table)
+    shape = [1] * x.ndim
+    shape[dim] = idx.shape[0]
+    out = None
+    for k in range(idx.shape[1]):
+        term = x.index_select(dim, idx[:, k]) * alpha[:, k].reshape(shape)
+        out = term if out is None else out + term
+    return out
+
+
+def resize_area(frames: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(F, H, W, C) uint8 -> (F, height, width, C) uint8 as
+    `cv2.resize(frame, (width, height), interpolation=cv2.INTER_AREA)`."""
+    _check_frames(frames)
+    F_, H, W, C = frames.shape
+    if (H, W) == (height, width):
+        return frames.clone()
+    sx, sy = _scales(W, width)[1], _scales(H, height)[1]
+    dev = frames.device
+    if sx >= 1 and sy >= 1:
+        kx, ky = round(sx), round(sy)
+        if abs(sx - kx) < 2.220446049250313e-16 and abs(sy - ky) < 2.220446049250313e-16:
+            s = frames.to(torch.int32).reshape(F_, height, ky, width, kx, C).sum((2, 4))
+            if kx == ky == 2 and C != 2:
+                return ((s + 2) >> 2).to(torch.uint8)
+            out = torch.round(s.to(torch.float32) * np.float32(1.0 / (kx * ky)))
+            return out.clamp_(0, 255).to(torch.uint8)
+        rows = _area_pass(frames.to(torch.float32), 2, area_table(W, width))
+        out = _area_pass(rows, 1, area_table(H, height))
+        return torch.round(out).clamp_(0, 255).to(torch.uint8)
+    xi, xc = (torch.tensor(t, device=dev) for t in area_linear_table(W, width, True))
+    yi, yc = (torch.tensor(t, device=dev) for t in area_linear_table(H, height, False))
+    src = frames.to(torch.int32)
+    xc = xc.to(torch.int32)[None, None, :, :, None]
+    rows = src[:, :, xi[:, 0]] * xc[..., 0, :] + src[:, :, xi[:, 1]] * xc[..., 1, :]
+    yc = yc.to(torch.int32)
+    acc = None
+    for k in range(2):
+        r = (rows[:, yi[:, k]] >> 4).clamp_(-32768, 32767)
+        term = (r * yc[:, k][None, :, None, None]) >> 16
+        acc = term if acc is None else acc + term
+    out = (acc.clamp_(-32768, 32767) + 2) >> 2
+    return out.clamp_(0, 255).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=16)
+def nearest_table(src: int, dst: int) -> np.ndarray:
+    """INTER_NEAREST's source index of each output along one axis; cached."""
+    step = _scales(src, dst)[1]
+    idx = np.array([min(math.floor(d * step), src - 1) for d in range(dst)], np.int64)
+    idx.setflags(write=False)
+    return idx
+
+
+def resize_nearest(frames: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(F, H, W, C) uint8 -> (F, height, width, C) uint8 as
+    `cv2.resize(frame, (width, height), interpolation=cv2.INTER_NEAREST)`."""
+    _check_frames(frames)
+    _, H, W, _ = frames.shape
+    yi = torch.tensor(nearest_table(H, height), device=frames.device)
+    xi = torch.tensor(nearest_table(W, width), device=frames.device)
+    return frames[:, yi][:, :, xi]

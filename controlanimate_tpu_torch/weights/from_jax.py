@@ -10,7 +10,9 @@ below are the inverse of the JAX package's checkpoint loaders
 `models/gfpgan.py` `gfpgan_params_from_torch`, `models/retinaface.py`
 `retinaface_params_from_torch`, `weights/controlnet_weights.py`
 `controlnet_params_from_torch`, `models/annotators/edge_nets.py`
-`hed_params_from_torch`), copied here so the port never imports that
+`hed_params_from_torch` and `lineart_params_from_torch`,
+`models/annotators/mlsd_net.py` `mlsd_params_from_torch`, whose folded
+convs the port's `MLSDLarge` holds under the same names), copied here so the port never imports that
 package. Kinds: "conv" HWIO -> OIHW, "dense" (in, out) -> (out, in), "raw"
 as is, "nchw" (1, H, W, C) -> (1, C, H, W), "lead1" with a leading axis of
 1 (a modulated conv's weight), "chan" (C,) -> (1, C, 1, 1), "vec1" () ->
@@ -25,6 +27,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..models.annotators.edge_nets import LINEART_RES_BLOCKS
+from ..models.annotators.mlsd import IR_SPEC
 from ..models.clip import CLIPTextConfig
 from ..models.retinaface import RESNET50_STAGES, SSH_BRANCHES
 from ..models.unet3d import UNet3DConfig
@@ -192,6 +196,27 @@ def hed_mapping() -> Iterator[Entry]:
         for i in range(n):
             yield from _conv(f"{b}.convs.{i}", f"{b}/convs_{i}")
         yield from _conv(f"{b}.projection", f"{b}/projection")
+
+
+def lineart_mapping() -> Iterator[Entry]:
+    # the transposed convs' (kh, kw, O, I) kernels go back to (I, O, kh, kw)
+    # by the "conv" transposition too
+    for t, f in (("model0.1", "conv_in"), ("model1.0", "down1"), ("model1.3", "down2"),
+                 ("model3.0", "up1"), ("model3.3", "up2"), ("model4.1", "conv_out")):
+        yield from _conv(t, f)
+    for i in range(LINEART_RES_BLOCKS):
+        yield from _conv(f"model2.{i}.conv_block.1", f"res_{i}/conv1")
+        yield from _conv(f"model2.{i}.conv_block.5", f"res_{i}/conv2")
+
+
+def mlsd_mapping() -> Iterator[Entry]:
+    yield from _conv("stem", "stem")
+    for i, (e, _, _) in enumerate(IR_SPEC, start=1):
+        for j in range(2 if e == 1 else 3):
+            yield from _conv(f"ir_{i}.conv_{j}", f"ir_{i}/conv_{j}")
+    for b in range(15, 23):
+        for c in ("conv1", "conv2", "conv3") if b == 22 else ("conv1", "conv2"):
+            yield from _conv(f"block{b}.{c}", f"block{b}/{c}")
 
 
 def _vae_resnet(t: str, f: str, shortcut: bool) -> Iterator[Entry]:
@@ -389,3 +414,11 @@ def controlnet_state_dict(params: dict, cfg: UNet3DConfig,
 
 def hed_state_dict(params: dict) -> dict[str, torch.Tensor]:
     return _state_dict(params, hed_mapping())
+
+
+def lineart_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(params, lineart_mapping())
+
+
+def mlsd_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(params, mlsd_mapping())
