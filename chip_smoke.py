@@ -50,6 +50,12 @@ Phases, each printed as one JSON line with its seconds:
              and the map the card decodes and draws from its own tpMap equal
              to the CPU's decode and drawing of it; INTER_AREA at 768x512
              and 1024x1024 to 512x512 and 600 random segments drawn, equal);
+             OpenPose (`small_openpose_reference`: the seeded body, hand and
+             face networks, each output channel within 1e-3 of its RMS; the
+             crafted maps of two people at 768x512 decoded and drawn, and
+             the hand and face heat of their boxes decoded and drawn, on the
+             card equal to the CPU, a hand and a face drawn at least;
+             INTER_CUBIC and the Gaussian filter equal);
              and the small pipeline with two
              ControlNets of its UNet's down path (canny at 1.0, HED at 0.5)
              on the card against the CPU in fp32: uint8 within 1 LSB, and
@@ -63,7 +69,7 @@ Phases, each printed as one JSON line with its seconds:
              under CFG with `use_pallas_conv` (K2) and with
              CONTROLANIMATE_PALLAS_MOTION=1 (K3, which must run at B = 2),
              and DPM-Solver, one whole window each. The line holds each
-             step's seconds up to the samplers (`step_seconds`).
+             step's seconds (`step_seconds`).
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -119,12 +125,16 @@ Phases, each printed as one JSON line with its seconds:
              CUDA events each annotator's time on a 16-frame window and
              each ControlNet's forwards of a window (also on the card
              alone). Before that, an `annotators_512x768` line: canny, HED,
-             and the seeded lineart (`seed_lineart_`) and MLSD
-             (`mlsd_checkpoint`, its head set on a window of this phase)
-             that the disk phase writes, each timed by CUDA events on one
-             16-frame window at the shipped 512x768, with their maps' mean
-             and std (a constant map fails, and so does a map that differs
-             on a second call).
+             and the seeded lineart (`seed_lineart_`), MLSD
+             (`mlsd_checkpoint`, its head set on a window of this phase) and
+             OpenPose (`openpose_checkpoints`) that the disk phase writes,
+             each timed by CUDA events on one 16-frame window at the shipped
+             512x768, with their maps' mean and std (a constant map fails,
+             but the seeded OpenPose's, which finds no one, and so does a
+             map that differs on a second call); then OpenPose's decode,
+             hand and face crops and drawing timed again on crafted maps of
+             two people in each frame (`pose_maps`), with the people, hands
+             and faces drawn and the decode's host seconds.
   cfg        the multi-step path (SampleConfig.yaml's sampler): the same
              loop, K2 on, over 24 frames (one whole window at strength 1.0,
              one overlap-8 window at `overlap_strength` 0.92) with
@@ -166,28 +176,35 @@ Phases, each printed as one JSON line with its seconds:
              `python -m controlanimate_tpu_torch --config` in-process on
              it, frames from the PNG directory and PNGs out (no ffmpeg).
              The weight files are written on threads (`write_parallel`).
-             The controlnet phase's two ControlNets and two more seeded ones
-             (lineart, MLSD) are written as diffusers folders (config.json +
-             safetensors) under the snapshot's models/ControlNet/, and its
-             HED, lineart and MLSD networks as models/annotators/
-             ControlNetHED.pth, sk_model.pth and mlsd_large_512_fp32.pth (in
-             controlnet_aux's layout, BatchNorms unfolded), and the next two
-             runs start from the snapshot root, which finds them there, for
-             two windows each (`--max-windows 2`, 16 frames written). First
-             the controlnet phase's native-LCM profile at 512x512 on
-             inference-v2.yaml with K2 off: its frames must equal the
-             controlnet phase's first 16 and its K1 launches by shape those
-             that two windows with both ControlNets imply. Then the LCM-LoRA
-             profile (SampleConfigLCMLoRA.yaml's sampler: `use_lcm` 0,
-             `LCMScheduler` with tail truncation, 7 steps, CFG 1.1) with
-             its ControlNets but openpose (M13b): lineart at 0.35, MLSD at
-             1.0 and HED at 0.4, on the same snapshot read as
-             `pretrained_model_path`, with a synthetic Kohya-layout LoRA
-             (`kohya_lora`) on the UNet's cross-attention and the text
-             encoder's attention projections: its K1 launches by shape
-             (B*F = 32, the three ControlNets' included) must equal the
-             count from the code, and its frames the injected pipeline's
-             (the same nets and annotators) after the same fusion. In
+             The controlnet phase's two ControlNets and three more seeded
+             ones (openpose, lineart, MLSD) are written as diffusers folders
+             (config.json + safetensors, bf16) under the snapshot's
+             models/ControlNet/, and its HED, lineart, MLSD and OpenPose
+             networks as models/annotators/ ControlNetHED.pth,
+             sk_model.pth, mlsd_large_512_fp32.pth (in controlnet_aux's
+             layout, BatchNorms unfolded), body_pose_model.pth,
+             hand_pose_model.pth and facenet.pth, and the next two runs
+             start from the snapshot root, which finds them there. First the
+             controlnet phase's native-LCM profile at 512x512 on
+             inference-v2.yaml with K2 off, two windows (`--max-windows 2`,
+             16 frames written): its frames must equal the controlnet
+             phase's first 16 and its K1 launches by shape those that two
+             windows with both ControlNets imply. Then the LCM-LoRA profile
+             as shipped (SampleConfigLCMLoRA.yaml: `use_lcm` 0,
+             `LCMScheduler` with tail truncation, 7 steps, CFG 1.1; openpose
+             at 1.0, lineart at 0.35, MLSD at 1.0 and HED at 0.4; 512x768,
+             `upscale` 2 and the face enhancer with `upscale_first` 1, on
+             the files the 512x768 run below reads) on the same snapshot
+             read as `pretrained_model_path`, with a synthetic Kohya-layout
+             LoRA (`kohya_lora`) on the UNet's cross-attention and the text
+             encoder's attention projections, one window (`--max-windows
+             1`, 8 frames of (1536, 1024) written): its K1 launches by shape
+             (B*F = 32 on the 96x64 latent, the four ControlNets' included)
+             and its K4 launches must equal the counts from the code, and
+             its frames the injected pipeline's (the same nets and
+             annotators, through an Upscaler read from the same files)
+             after the same fusion; it prints the people, hands and faces
+             of the last OpenPose map (0 with the seeded body network). In
              both runs the weights, noise and kernels are those of the
              injected run (bf16); when the frames differ, the injected loop
              runs again and the difference may not exceed that rerun's.
@@ -220,8 +237,9 @@ Phases, each printed as one JSON line with its seconds:
              memory. Fails if GFPGAN's fp32 output is not finite, or a
              paste leaves its face's centre unchanged.
   kernels    K1 against its plain version at every shape the window phase,
-             the cfg phase and the disk phase's 512x768 run launched it
-             with, plus odd
+             the cfg phase and the disk phase's 512x768 and LCM-LoRA runs
+             launched it with (the plain version on slices of the batch
+             where its scores would pass PLAIN_SCORE_BYTES), plus odd
              lengths, in bf16 and fp32 (`k1_mismatch` states the gates),
              with its achieved TFLOP/s and share of the bound in bf16; K2
              against its plain version at every shape the vid2vid phase and
@@ -237,7 +255,8 @@ Phases, each printed as one JSON line with its seconds:
              PyTorch call's (SDPA for K1, `F.conv2d` on the activated input
              for K2: yardsticks the port never calls) and the bound, and
              their sums over a window at both geometries, and K1's over the
-             vid2vid, controlnet and cfg phases' launches.
+             vid2vid, controlnet and cfg phases' and the LCM-LoRA run's
+             launches.
   kernels_k3 K3 against its plain version at every shape the
              window_motion_kernel phase launched it with, plus odd shapes
              (N = 37, F = 8 and 24, PE off, C = 64), in bf16 and fp32
@@ -306,10 +325,10 @@ CONTROLNET_LEVELS = ((1, 40, 2), (4, 80, 2), (16, 160, 2), (64, 160, 1))
 CN_NAMES = ("lllyasviel/sd-controlnet-canny", "lllyasviel/sd-controlnet-hed")
 CN_SCALES = (1.0, 0.5)
 # the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's ControlNets and
-# scales but openpose (M13b)
-LORA_CN_NAMES = ("lllyasviel/control_v11p_sd15_lineart", "lllyasviel/control_v11p_sd15_mlsd",
-                 "lllyasviel/sd-controlnet-hed")
-LORA_CN_SCALES = (0.35, 1.0, 0.4)
+# scales
+LORA_CN_NAMES = ("lllyasviel/control_v11p_sd15_openpose", "lllyasviel/control_v11p_sd15_lineart",
+                 "lllyasviel/control_v11p_sd15_mlsd", "lllyasviel/sd-controlnet-hed")
+LORA_CN_SCALES = (1.0, 0.35, 1.0, 0.4)
 
 
 def unet_k1_shapes(frames_n: int, latent: tuple[int, int]) -> dict:
@@ -344,7 +363,7 @@ K4_ODD_SHAPES = [(2, 9, 37, 64, 64), (1, 1, 16, 64, 64), (1, 13, 21, 32, 32), (3
 # conv_last's weight scale in the seeded RRDBNet (its bias is 0.5): keeps most
 # uint8 outputs of the 6-block network off 0 and 255
 RRDB_LAST_GAIN = 0.3
-WINDOWS = 4  # timed windows of each kind
+WINDOWS = 3  # timed windows of each kind
 # calls K1's and K2's plain versions (10-20x their kernels' time) are timed
 # over, with no warm-up: the check just before ran them at the same shape
 PLAIN_ITERS = 1
@@ -470,14 +489,21 @@ def k1_mismatch(torch, out, ref) -> str | None:
     return None
 
 
+PLAIN_SCORE_BYTES = 20e9  # the plain version's fp32 scores a call, at most
+
+
 def check_kernel(torch, fa, shape, dtype, gen) -> float:
-    """K1 at (B, Nq, Nk, H, D) against its plain version; max abs error."""
+    """K1 at (B, Nq, Nk, H, D) against its plain version; max abs error. The
+    plain version (whose fp32 scores and their rounded copy take 8 B H Nq Nk
+    bytes) runs on slices of the batch when the whole would not fit."""
     B, Nq, Nk, H, D = shape
     q = torch.randn((B, Nq, H, D), generator=gen, device="cuda").to(dtype)
     k, v = (torch.randn((B, Nk, H, D), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     out = fa.flash_attention(q, k, v)
-    ref = fa.flash_attention_plain(q, k, v)
+    step = max(1, int(PLAIN_SCORE_BYTES // (4 * H * Nq * Nk)))
+    ref = torch.cat([fa.flash_attention_plain(q[i:i + step], k[i:i + step], v[i:i + step])
+                     for i in range(0, B, step)])
     bad = k1_mismatch(torch, out, ref)
     if bad:
         raise AssertionError(f"K1 {shape} {dtype}: {bad}")
@@ -1662,6 +1688,118 @@ def small_annotator_reference(torch) -> dict:
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
+def openpose_annotator(torch, sds: dict, device):
+    """The OpenPose annotator of `openpose_checkpoints` state dicts on
+    `device`."""
+    from controlanimate_tpu_torch.models.annotators import openpose as op
+    from controlanimate_tpu_torch.models.annotators.openpose_face import FaceNet
+    from controlanimate_tpu_torch.models.annotators.openpose_hand_face import HandPoseNet
+
+    nets = []
+    for make, fname in zip((op.BodyPoseNet, HandPoseNet, FaceNet), op.WEIGHT_NAMES):
+        with torch.device("meta"):
+            net = make()
+        net.load_state_dict({k: v.to(device) for k, v in sds[fname].items()}, assign=True)
+        nets.append(net)
+    return op.OpenPoseAnnotator(*nets)
+
+
+def small_openpose_reference(torch, card: str = "cuda") -> dict:
+    """OpenPose on the card against the CPU, with the seeded networks
+    (`openpose_checkpoints`, made on the card): the body, hand and face
+    networks on one 128x128 input, each output channel within 1e-3 of its
+    RMS; the crafted
+    maps of two people at 384x256 (`pose_maps`) through INTER_CUBIC, the
+    filter, the peaks, the limbs, the people and the drawing on the card,
+    equal to the CPU's; the hand and face heat maps of those people's boxes
+    made on the card, decoded and drawn on the card and on the CPU: equal
+    canvases, at least one hand and one face drawn; and INTER_CUBIC (uint8
+    768x512 -> 184x128 and a 61x61 crop -> 368x368, float32 23x16x19 ->
+    768x512) and the Gaussian filter (random and plateau maps) on the card
+    equal to the CPU's. `card` names the device ("cpu" rehearses it)."""
+    import numpy as np
+
+    from controlanimate_tpu_torch.models.annotators import openpose as op
+    from controlanimate_tpu_torch.models.annotators.openpose_face import (
+        FACE_PARTS, face_regions_from_body, face_shapes)
+    from controlanimate_tpu_torch.models.annotators.openpose_hand_face import (
+        HAND_PARTS, crop_boxes, crop_heat, hand_regions_from_body, hand_shapes, heat_peaks)
+    from controlanimate_tpu_torch.models.annotators.seeded import (openpose_checkpoints,
+                                                                  pose_maps)
+    from controlanimate_tpu_torch.ops.gaussian import gaussian_filter
+    from controlanimate_tpu_torch.ops.resize import resize_cubic
+    from controlanimate_tpu_torch.ops.warp import fp32_convs
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=card)
+    gen.manual_seed(SEED)
+    sds = openpose_checkpoints(gen)
+    ann_card, ann_cpu = (openpose_annotator(torch, sds, card),
+                         openpose_annotator(torch, sds, "cpu"))
+    del sds
+    ratios = {}
+    x = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(SEED)) - 0.5
+    with torch.no_grad(), fp32_convs():
+        for name in ("body", "hand", "face"):
+            got, want = (getattr(a, name)(t) for a, t in ((ann_card, x.to(card)), (ann_cpu, x)))
+            for i, (g, w) in enumerate(zip(*((got, want) if name == "body"
+                                             else ((got,), (want,))))):
+                dims = (0, 2, 3)  # each output channel
+                rms = w.pow(2).mean(dims).sqrt()
+                ratios[f"{name}_{i}"] = float(((g.cpu() - w).abs().amax(dims) / rms).max())
+    # the body decode and drawing of crafted maps, card against CPU
+    H, W = 384, 256
+    frame = torch.from_numpy(synthetic_video(np, 1, H, W, SEED + 2))
+    h8, w8 = op.body_input_size(H, W)
+    heat8, paf8 = pose_maps(H, W, h8 // 8, w8 // 8)
+    decoded = {}
+    for dev in (card, "cpu"):
+        peaks = op.peak_lists(torch.from_numpy(heat8[None]).to(dev), H, W)
+        conns = op.limb_connections(torch.from_numpy(paf8[None]).to(dev), peaks, H, W)
+        candidate, subset = op.assemble_people(peaks[0], *conns[0])
+        shapes = op.body_shapes(candidate, subset)
+        decoded[dev] = (candidate, subset, shapes,
+                        op.paint_shapes([shapes], H, W, dev)[0].cpu())
+    candidate, subset, body, canvas = decoded[card]
+    body_equal = bool(np.array_equal(candidate, decoded["cpu"][0])
+                      and np.array_equal(subset, decoded["cpu"][1])
+                      and torch.equal(canvas, decoded["cpu"][3]))
+    # the hands' and faces' heat from the card, decoded on both
+    hand_boxes = [(0, *b) for b in hand_regions_from_body(candidate, subset, H, W)]
+    face_boxes = [(0, *b, False) for b in face_regions_from_body(candidate, subset, H, W)]
+    frame_card = frame.to(card)
+    heats = (crop_heat(ann_card.hand, frame_card, crop_boxes(frame.shape, hand_boxes)[1]),
+             crop_heat(ann_card.face, frame_card, crop_boxes(frame.shape, face_boxes)[1]))
+    drawn, canvases = {}, {}
+    for dev in (card, "cpu"):
+        hand_pk, face_pk = (heat_peaks(hs.to(dev), np.array([b[3] for b in boxes]), parts)
+                            .cpu().numpy()
+                            for hs, boxes, parts in ((heats[0], hand_boxes, HAND_PARTS),
+                                                     (heats[1], face_boxes, FACE_PARTS)))
+        hands = [hand_shapes(pk, b[1:]) for pk, b in zip(hand_pk, hand_boxes)]
+        faces = [face_shapes(pk, b[1:4]) for pk, b in zip(face_pk, face_boxes)]
+        drawn[dev] = (sum(bool(h) for h in hands), sum(bool(f) for f in faces))
+        shapes = body + [s for h in hands for s in h] + [s for f in faces for s in f]
+        canvases[dev] = op.paint_shapes([shapes], H, W, dev)[0].cpu()
+    # the operations alone
+    rng = np.random.RandomState(SEED)
+    ops_diff = 0
+    u8 = torch.from_numpy(synthetic_video(np, 2, 768, 512, SEED + 1))
+    crop = u8[:1, 100:161, 200:261].contiguous()
+    maps = torch.from_numpy(rng.randn(2, 23, 16, 19).astype(np.float32))
+    smooth = torch.from_numpy(np.stack([rng.rand(200, 300), np.round(rng.rand(200, 300) * 4) / 4])
+                              .astype(np.float32))
+    for fn, arg in ((lambda t: resize_cubic(t, 184, 128), u8),
+                    (lambda t: resize_cubic(t, 368, 368), crop),
+                    (lambda t: resize_cubic(t, 768, 512), maps), (gaussian_filter, smooth)):
+        ops_diff += int((fn(arg) != fn(arg.to(card)).cpu()).sum())
+    return {"net_err_over_rms": ratios, "people": int(len(subset)),
+            "body_equal": body_equal, "hands_faces_drawn": drawn[card],
+            "canvas_diff": int((canvases[card] != canvases["cpu"]).sum()),
+            "drawn_share": float((canvases[card] > 0).any(-1).float().mean()),
+            "ops_diff": ops_diff, "seconds": round(time.perf_counter() - t0, 3)}
+
+
 def seeded_controlnets(torch, unet_cfg, n: int, device, gen) -> list:
     """`n` ControlNets of `unet_cfg`'s down path, seeded by `init_weights_`
     (the zero-conv heads then are not zero), made on `device`."""
@@ -1933,28 +2071,35 @@ def main() -> int:
         for h in (512, 768) for f in (lambda v: v, lambda v: edge_rich(np, v))])
     ref_hed = step("hed", lambda: small_hed_reference(torch))
     ref_annotators = step("lineart_mlsd", lambda: small_annotator_reference(torch))
+    ref_openpose = step("openpose", lambda: small_openpose_reference(torch))
     ref_cn = step("controlnet", lambda: small_controlnet_reference(torch))
     # the multi-step samplers: Euler under CFG with a ControlNet (on K1,
     # with K2, with K3 at B = 2), the LCM-LoRA tail, DPM-Solver
     fa.reset_launch_counts()
-    ref_cfg = small_reference(torch, controlnet=True, unguided=True, **EULER_CFG)
+    ref_cfg = step("euler_cfg", lambda: small_reference(torch, controlnet=True, unguided=True,
+                                                        **EULER_CFG))
     cfg_k1_batches = sorted({key[0] for key in fa.flash_attention.launches_by_shape})
     ck.reset_launch_counts()
-    ref_cfg_k2 = small_reference(torch, conv_kernel=True, windows=1, **EULER_CFG)
+    ref_cfg_k2 = step("euler_cfg_k2", lambda: small_reference(torch, conv_kernel=True, windows=1,
+                                                              **EULER_CFG))
     k2_cfg_launches = ck.conv3x3_fused.launches
     mk.reset_launch_counts()
-    ref_cfg_k3 = small_reference(torch, motion_kernel=True, windows=1, **EULER_CFG)
+    ref_cfg_k3 = step("euler_cfg_k3", lambda: small_reference(
+        torch, motion_kernel=True, windows=1, **EULER_CFG))
     k3_cfg_batches = sorted({key[0] for key in mk.motion_module_fused.launches_by_shape})
     ref_samplers = {"euler_cfg_controlnet": ref_cfg, "euler_cfg_k2": ref_cfg_k2,
-                    "euler_cfg_k3": ref_cfg_k3, "lcm_lora": small_reference(torch, **LCM_LORA),
-                    "dpm_cfg": small_reference(torch, windows=1, **DPM_CFG)}
+                    "euler_cfg_k3": ref_cfg_k3,
+                    "lcm_lora": step("lcm_lora", lambda: small_reference(torch, **LCM_LORA)),
+                    "dpm_cfg": step("dpm_cfg", lambda: small_reference(torch, windows=1,
+                                                                       **DPM_CFG))}
     phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
           k2_launches=k2_ref_launches, k3_max_lsb=ref_k3["max_lsb"],
           k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches,
           upscale4_max_lsb=ref_up4["max_lsb"], upscale4_mean_lsb=ref_up4["mean_lsb"],
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
           k4_launches=k4_ref_launches, face=ref_face, canny=ref_canny, hed=ref_hed,
-          lineart_mlsd=ref_annotators, controlnet=ref_cn, samplers=ref_samplers,
+          lineart_mlsd=ref_annotators, openpose=ref_openpose, controlnet=ref_cn,
+          samplers=ref_samplers,
           cfg_k1_batches=cfg_k1_batches, cfg_k2_launches=k2_cfg_launches,
           cfg_k3_batches=k3_cfg_batches, step_seconds=step_seconds)
     for r in (ref, ref_k2, ref_k3, *ref_samplers.values()):
@@ -1983,6 +2128,12 @@ def main() -> int:
     if (ra["lineart_max_lsb"] > 1 or ra["mlsd_tp_err_over_rms"] > 1e-3 or ra["mlsd_draw_diff"]
             or not ra["mlsd_drawn_share"] or ra["resize_area_diff"] or ra["line_diff"]):
         raise AssertionError(f"lineart or MLSD on the card differs from the CPU: {ra}")
+    rp = ref_openpose
+    if (max(rp["net_err_over_rms"].values()) > 1e-3 or not rp["body_equal"]
+            or rp["people"] != 2 or min(rp["hands_faces_drawn"]) < 1 or rp["canvas_diff"]
+            or rp["ops_diff"]):
+        raise AssertionError(f"OpenPose on the card differs from the CPU, or drew no person, "
+                             f"hand or face: {rp}")
     if ref_cn["max_lsb"] > 1 or not ref_cn["controlnet_change_max"]:
         raise AssertionError(f"the card's ControlNet window differs from the CPU's, or the "
                              f"ControlNets changed nothing: {ref_cn}")
@@ -2307,14 +2458,15 @@ def main() -> int:
              for net, c, sc in zip(cn_nets, cond, CN_SCALES)]
     cn_device_ms = [device_busy_ms(torch, lambda: net_window(net, c, sc), 2)
                     for net, c, sc in zip(cn_nets, cond, CN_SCALES)]
-    # the disk phase's LCM-LoRA annotators (lineart, MLSD; seeded on the
-    # card, MLSD's head set on this window) beside canny and HED, each on one
-    # 16-frame window at the shipped 512x768, by CUDA events
+    # the disk phase's LCM-LoRA annotators (openpose, lineart, MLSD; seeded
+    # on the card, MLSD's head set on this window) beside canny and HED, each
+    # on one 16-frame window at the shipped 512x768, by CUDA events
     from controlanimate_tpu_torch.models.annotators.edge_nets import (LineartAnnotator,
                                                                      LineartGenerator)
     from controlanimate_tpu_torch.models.annotators.mlsd import MLSDAnnotator
-    from controlanimate_tpu_torch.models.annotators.seeded import (mlsd_checkpoint, mlsd_model,
-                                                                  seed_lineart_)
+    from controlanimate_tpu_torch.models.annotators.openpose import body_input_size
+    from controlanimate_tpu_torch.models.annotators.seeded import (
+        mlsd_checkpoint, mlsd_model, openpose_checkpoints, pose_maps, seed_lineart_)
 
     video_768 = synthetic_video(np, 2 * frames_n - overlap, 768, size, SEED)
     frames_768 = torch.from_numpy(video_768[:frames_n]).cuda()
@@ -2323,23 +2475,56 @@ def main() -> int:
     lineart = LineartAnnotator(seed_lineart_(lineart_net, cgen))
     mlsd_sd = mlsd_checkpoint(cgen, window_frames)
     mlsd_ann = MLSDAnnotator(mlsd_model(mlsd_sd, "cuda"))
-    annotators_768 = {"canny": canny, "hed": hed, "lineart": lineart, "mlsd": mlsd_ann}
+    pose_sds = openpose_checkpoints(cgen)
+    openpose_ann = openpose_annotator(torch, pose_sds, "cuda")
+    annotators_768 = {"canny": canny, "hed": hed, "lineart": lineart, "mlsd": mlsd_ann,
+                      "openpose": openpose_ann}
     # the first two calls warm each annotator up (and must agree)
     maps_768 = {name: a(frames_768) for name, a in annotators_768.items()}
     repeatable = {name: torch.equal(a(frames_768), maps_768[name])
                   for name, a in annotators_768.items()}
     annotator_ms = {name: cuda_ms(torch, lambda a=a: a(frames_768), 1, warmup=0)
                     for name, a in annotators_768.items()}
+    seeded_stats = dict(openpose_ann.stats)
+    # a seeded body network finds no one: openpose's decode, crops and
+    # drawing timed again on crafted maps of two people in every frame
+    h8, w8 = body_input_size(768, size)
+    heat8, paf8 = (torch.from_numpy(m).cuda()[None].expand(frames_n, -1, -1, -1).contiguous()
+                   for m in pose_maps(768, size, h8 // 8, w8 // 8))
+    # warm-up and the repeat check on 2 frames, then one timed 16-frame call
+    two = (frames_768[:2], paf8[:2], heat8[:2])
+    pose_repeatable = torch.equal(openpose_ann.draw(*two), openpose_ann.draw(*two))
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    pose_map = openpose_ann.draw(frames_768, paf8, heat8)
+    events[1].record()
+    torch.cuda.synchronize()
+    pose_ms = events[0].elapsed_time(events[1])
+    pose_stats = dict(openpose_ann.stats)
+    body_ms = cuda_ms(torch, lambda: openpose_ann.body_maps(frames_768), 1, warmup=0)
     print(json.dumps({"annotators_512x768": {
         "frames": frames_n, "ms_per_window": annotator_ms, "repeatable": repeatable,
         "lineart_params": sum(p.numel() for p in lineart_net.parameters()),
         "mlsd_params": sum(p.numel() for p in mlsd_ann.model.parameters()),
+        "openpose_params": {n: sum(p.numel() for p in m.parameters()) for n, m in (
+            ("body", openpose_ann.body), ("hand", openpose_ann.hand),
+            ("face", openpose_ann.face))},
+        "openpose_seeded": seeded_stats, "openpose_body_network_ms": body_ms,
+        "openpose_two_people": {"draw_ms": pose_ms, "repeatable": pose_repeatable,
+                                "drawn_share": float((pose_map > 0).any(-1).float().mean()),
+                                **pose_stats},
         "map_mean": {k: float(m.mean()) for k, m in maps_768.items()},
         "map_std": {k: float(m.std()) for k, m in maps_768.items()}}}), flush=True)
-    if not all(float(m.std()) > 0 for m in maps_768.values()) or not all(repeatable.values()):
+    # the seeded openpose map is black; the others must not be constant
+    if (not all(float(m.std()) > 0 for k, m in maps_768.items() if k != "openpose")
+            or not all(repeatable.values()) or not pose_repeatable):
         raise AssertionError(f"an annotator's 512x768 maps are constant, or differ from one "
-                             f"call to the next: {repeatable}")
-    del window_frames, cond, lat, frames_768, maps_768
+                             f"call to the next: {repeatable}, {pose_repeatable}")
+    if (pose_stats["people"] != 2 * frames_n or pose_stats["hands"] < frames_n
+            or pose_stats["faces"] < frames_n):
+        raise AssertionError(f"openpose drew {pose_stats} on the crafted maps of two people "
+                             f"in {frames_n} frames")
+    del window_frames, cond, lat, frames_768, maps_768, heat8, paf8, pose_map
     phase("controlnet", t0, build_seconds=round(t_cn_build, 4), nets=list(CN_NAMES),
           cond_scale=list(CN_SCALES),
           controlnet_params=sum(p.numel() for p in cn_nets[0].parameters()),
@@ -2626,21 +2811,22 @@ def main() -> int:
                     summary["frames_written"] / (seconds - build), 4),
                 "max_memory_allocated": peak}
 
-    # the controlnet phase's two ControlNets and two more seeded ones (the
-    # LCM-LoRA profile's lineart and MLSD), found under models/ControlNet/,
-    # and the HED, lineart and MLSD networks under models/annotators/, from
-    # the snapshot root as the working directory
+    # the controlnet phase's two ControlNets and three more seeded ones (the
+    # LCM-LoRA profile's openpose, lineart and MLSD), found under
+    # models/ControlNet/, and the HED, lineart, MLSD and OpenPose networks
+    # under models/annotators/, from the snapshot root as the working
+    # directory
     t1 = time.perf_counter()
     lgen = torch.Generator(device="cuda")
     lgen.manual_seed(SEED + 5)
     lora_nets = dict(zip(LORA_CN_NAMES, [
         net.to(torch.bfloat16)  # the run dtype, as the controlnet phase left its nets
-        for net in seeded_controlnets(torch, models.unet.config, 2, "cuda", lgen)]
+        for net in seeded_controlnets(torch, models.unet.config, 3, "cuda", lgen)]
         + [cn_nets[1]]))
     snapshot_bytes.update(write_controlnets(
         torch, SNAPSHOT, {**dict(zip(CN_NAMES, cn_nets)), **lora_nets},
         {"ControlNetHED.pth": hed_net.state_dict(), "sk_model.pth": lineart_net.state_dict(),
-         "mlsd_large_512_fp32.pth": mlsd_sd}))
+         "mlsd_large_512_fp32.pth": mlsd_sd, **pose_sds}))
     cn_write_seconds = time.perf_counter() - t1
 
     # the controlnet phase's native-LCM profile from disk (inference-v2, K2
@@ -2684,12 +2870,14 @@ def main() -> int:
     fields_cn.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del disk_cn_frames, diff, cn_frames
 
-    # the LCM-LoRA profile (SampleConfigLCMLoRA.yaml: `use_lcm` 0,
-    # LCMScheduler, 7 steps, CFG 1.1, a LoRA from `lora_model_paths`, its
-    # ControlNets but openpose: lineart at 0.35, MLSD at 1.0, HED at 0.4) on
+    # the LCM-LoRA profile as shipped (SampleConfigLCMLoRA.yaml: `use_lcm`
+    # 0, LCMScheduler, 7 steps, CFG 1.1, a LoRA from `lora_model_paths`, its
+    # four ControlNets: openpose at 1.0, lineart at 0.35, MLSD at 1.0, HED at
+    # 0.4; 512x768, `upscale` 2, the face enhancer with `upscale_first` 1) on
     # the same snapshot read as `pretrained_model_path` (its UNet's cond_proj
-    # goes unused without `use_lcm`), two windows; against the injected
-    # pipeline after the same fusion, with the same three nets and annotators
+    # goes unused without `use_lcm`), one window (ROADMAP's first cut);
+    # against the injected pipeline after the same fusion, with the same four
+    # nets and annotators, through an Upscaler read from the same files
     import copy
 
     from controlanimate_tpu_torch.pipelines.facade import TextStack
@@ -2706,22 +2894,36 @@ def main() -> int:
     lora_settings = {**LCM_LORA_PROFILE, "pretrained_model_path": str(SNAPSHOT),
                      "lora_model_paths": [str(lora_path)], "lora_weights": [1.0]}
     lora_cn_settings = {"controlnets": LORA_CN_NAMES, "cond_scale": LORA_CN_SCALES}
+    lora_face = {"use_face_enhancer": True, "upscale_first": True}
     with chdir(SNAPSHOT):
         summary, lora_frames, seconds, counts, peak = run_cli(
-            "disk_lcm_lora", ["--max-windows", "2"],
-            input_video_path=str(SNAPSHOT / "frames_512x512"), width=size, height=size,
+            "disk_lcm_lora", ["--max-windows", "1"],
+            input_video_path=str(SNAPSHOT / "frames_512x768"), width=size, height=height_768,
             inference_config_path=str(INFERENCE_V2), motion_module=str(SNAPSHOT / "mm_v2.ckpt"),
-            use_pallas_conv=0, **lora_settings, **lora_cn_settings)
+            use_pallas_conv=0, upscale=2, **lora_face, **face_paths, **lora_settings,
+            **lora_cn_settings)
     lora_window_steps = [make_scheduler("LCMScheduler", make_schedule(), LCM_LORA_PROFILE["steps"],
-                                        strength=st, lcm_origin_steps=cfg.lcm_origin_steps,
-                                        strength_mode="tail").num_steps
-                         for st in (LCM_LORA_PROFILE["strength"],
-                                    LCM_LORA_PROFILE["overlap_strength"])]
-    lora_k1_expected = expected_cfg_k1_launches(lora_window_steps, frames_n, [overlap],
+                                        strength=LCM_LORA_PROFILE["strength"],
+                                        lcm_origin_steps=cfg.lcm_origin_steps,
+                                        strength_mode="tail").num_steps]
+    lora_latent = (height_768 // 8, size // 8)
+    lora_k1 = counts["k1_by_shape"]
+    lora_k1_expected = expected_cfg_k1_launches(lora_window_steps, frames_n, [],
+                                                latent=lora_latent,
                                                 controlnets=len(LORA_CN_NAMES))
-    if counts["k1_by_shape"] != lora_k1_expected or counts["k2_by_shape"] or counts["k3"]:
-        raise AssertionError(f"LCM-LoRA CLI K1 launches {counts['k1_by_shape']}, expected "
+    if lora_k1 != lora_k1_expected or counts["k2_by_shape"] or counts["k3"]:
+        raise AssertionError(f"LCM-LoRA CLI K1 launches {lora_k1}, expected "
                              f"{lora_k1_expected}, or K2 or K3 launched")
+    lora_upscaler = Upscaler(2.0, model_path=face_paths["upscaler_model_path"],
+                             dtype=torch.bfloat16, device="cuda", use_face_enhancer=True,
+                             upscale_first=True,
+                             face_enhancer_model_path=face_paths["face_enhancer_model_path"],
+                             face_detector_model_path=face_paths["face_detector_model_path"])
+    lora_k4 = counts["k4_by_shape"]
+    lora_k4_expected = expected_k4_launches(lora_upscaler, [frames_n - overlap],
+                                            (height_768, size))
+    if lora_k4 != lora_k4_expected:
+        raise AssertionError(f"LCM-LoRA CLI K4 launches {lora_k4}, expected {lora_k4_expected}")
     t1 = time.perf_counter()
     parts = split_lora_by_component(lora_sd)
     fused_unet, fused_n = fuse_lora(unet_2d, parts["unet"])
@@ -2737,19 +2939,27 @@ def main() -> int:
                                        else v.dtype) for k, v in fused_te.items()})
     lora_models = EngineModels(unet=unet_lora, vae=models.vae,
                                controlnets=list(lora_nets.values()),
-                               annotators=[lineart, mlsd_ann, hed])
+                               annotators=[openpose_ann, lineart, mlsd_ann, hed])
     lora_text = TextStack(text.tokenizer, text_lora)
     injected_build_seconds = time.perf_counter() - t1 - fuse_seconds
-    _, injected, injected_seconds, _, _, _ = run_vid2vid(False, "lcm_lora", engine_models=lora_models,
-                                          text_stack=lora_text, max_windows=2,
-                                          **LCM_LORA_PROFILE, **lora_cn_settings)
+    lora_twin = {"engine_models": lora_models, "text_stack": lora_text, "max_windows": 1,
+                 "upscaler": lora_upscaler, "source": video_768, "width": size,
+                 "height": height_768, **lora_face, **LCM_LORA_PROFILE, **lora_cn_settings}
+    _, injected, injected_seconds, _, _, _ = run_vid2vid(False, "lcm_lora", **lora_twin)
+    openpose_stats = dict(openpose_ann.stats)
     # a run stopped by --max-windows keeps its last 8 frames for a resume
-    if (len(lora_frames) != len(injected) or summary["windows"] != 2
-            or len(lora_frames) != 2 * (frames_n - overlap)):
+    if (len(lora_frames) != len(injected) or summary["windows"] != 1
+            or len(lora_frames) != frames_n - overlap
+            or any(f.shape != (2 * height_768, 2 * size, 3) for f in lora_frames)):
         raise AssertionError(f"the LCM-LoRA CLI run wrote {len(lora_frames)} frames in "
                              f"{summary['windows']} windows, the injected one {len(injected)}")
     diff = np.abs(np.stack(lora_frames).astype(np.int16) - np.stack(injected).astype(np.int16))
     fields_lora = {"controlnets": list(LORA_CN_NAMES), "cond_scale": list(LORA_CN_SCALES),
+                   "frame_shape": [2 * height_768, 2 * size, 3],
+                   "openpose_last_map": openpose_stats, "faces": summary["faces"],
+                   "upscale_seconds": summary["timers"]["upscale"]["total_s"],
+                   "k4_launches": sum(lora_k4.values()),
+                   "k1_launches_by_shape": {str(k): n for k, n in sorted(lora_k1.items())},
                    "lora_write_seconds": round(lora_write_seconds, 4),
                    "lora_layers_fused": fused_n + fused_te_n,
                    "host_fuse_seconds": round(fuse_seconds, 4),
@@ -2761,9 +2971,7 @@ def main() -> int:
                    "uint8_diff_vs_injected_mean": float(diff.mean()),
                    "k1_launches": sum(counts["k1_by_shape"].values())}
     if diff.max():
-        _, again, _, _, _, _ = run_vid2vid(False, "lcm_lora_again", engine_models=lora_models,
-                                           text_stack=lora_text, max_windows=2,
-                                           **LCM_LORA_PROFILE, **lora_cn_settings)
+        _, again, _, _, _, _ = run_vid2vid(False, "lcm_lora_again", **lora_twin)
         rerun = np.abs(np.stack(again).astype(np.int16) - np.stack(injected).astype(np.int16))
         fields_lora["injected_rerun_diff_max"] = int(rerun.max())
         if diff.max() > rerun.max():
@@ -2773,7 +2981,8 @@ def main() -> int:
     fields_lora.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del (unet_state, unet_2d, te_state, lora_sd, parts, fused_unet, fused_te, unet_lora, text_lora,
          lora_models, lora_text, lora_frames, injected, diff, cn_models, cn_nets, hed, hed_net,
-         lora_nets, lineart, lineart_net, mlsd_ann, mlsd_sd)
+         lora_nets, lineart, lineart_net, mlsd_ann, mlsd_sd, openpose_ann, pose_sds,
+         lora_upscaler, lora_twin)
     torch.cuda.empty_cache()
 
     # the whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
@@ -2913,9 +3122,9 @@ def main() -> int:
     rows = []
     # the plain version is timed on the main path's shapes and the odd ones
     # (the 512x768 and CFG shapes are checked against it above)
-    untimed_k1 = (set(k1_768) | set(cfg_k1)) - set(by_shape)
+    untimed_k1 = (set(k1_768) | set(cfg_k1) | set(lora_k1)) - set(by_shape)
     check_seconds = 0.0  # of the phase's seconds, those of the checks
-    for shape in sorted(set(by_shape) | set(k1_768) | set(cfg_k1)) + ODD_SHAPES:
+    for shape in sorted(set(by_shape) | set(k1_768) | set(cfg_k1) | set(lora_k1)) + ODD_SHAPES:
         t1 = time.perf_counter()
         err_bf16 = check_kernel(torch, fa, shape, torch.bfloat16, gen)
         err_fp32 = check_kernel(torch, fa, shape, torch.float32, gen)
@@ -2929,6 +3138,7 @@ def main() -> int:
         row = {
             "shape": list(shape), "launches": by_shape.get(shape, 0),
             "launches_512x768": k1_768.get(shape, 0), "launches_cfg": cfg_k1.get(shape, 0),
+            "launches_lcm_lora_512x768": lora_k1.get(shape, 0),
             "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
             "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), iters),
             "plain_ms": None if shape in untimed_k1 else cuda_ms(
@@ -2964,6 +3174,8 @@ def main() -> int:
                         **launched_sums(v2v_counts["k1_by_shape"])},
           controlnet_path={"launches": sum(cn_k1.values()), **launched_sums(cn_k1)},
           cfg_path={"launches": sum(cfg_k1.values()), **launched_sums(cfg_k1, UNTIMED_PLAIN)},
+          lcm_lora_512x768_path={"launches": sum(lora_k1.values()),
+                                 **launched_sums(lora_k1, UNTIMED_PLAIN)},
           per_overlap_window=window_sums(0, 1),
           per_full_window_512x768=window_sums(1, 0, latent, UNTIMED_PLAIN),
           per_overlap_window_512x768=window_sums(0, 1, latent, UNTIMED_PLAIN))

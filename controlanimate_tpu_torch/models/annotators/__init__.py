@@ -5,10 +5,12 @@ ControlNet's model name picks its annotator by substring, in the JAX
 package's order (`ANNOTATOR_ORDER`). An annotator maps (F, H, W, 3) uint8
 frames to (F, H, W, 3) float32 condition maps in [0, 1] on the same device.
 Ported: `canny` (`ops/canny.py`, bit for bit as OpenCV), `hed` and
-`lineart` (`edge_nets.py`) and `mlsd` (`mlsd.py`), the networks read from
-`WEIGHT_FILES` in CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`);
-a missing file raises FileNotFoundError (where the JAX package falls back to
-`cv2.HoughLinesP` for MLSD). Every other annotator of the zoo is M13 and
+`lineart` (`edge_nets.py`), `mlsd` (`mlsd.py`) and `openpose` with hands
+and face (`openpose.py`), the networks read from `WEIGHT_FILES` in
+CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`); a missing file
+raises FileNotFoundError (where the JAX package falls back to
+`cv2.HoughLinesP` for MLSD and skips OpenPose's hands or faces). Every other
+annotator of the zoo is M13 and
 raises NotImplementedError when the pipeline is built; `softedge` does not
 fall back to HED as the JAX package does when its PidiNet weights are
 absent. A name that matches no annotator raises KeyError, as in JAX (there
@@ -26,6 +28,7 @@ import torch
 from ...ops.canny import canny
 from .edge_nets import HEDAnnotator, LineartAnnotator
 from .mlsd import MLSDAnnotator
+from .openpose import WEIGHT_NAMES, OpenPoseAnnotator
 
 # (substring of the lower-cased model name, annotator), first match wins
 ANNOTATOR_ORDER = (
@@ -42,11 +45,13 @@ ANNOTATOR_ORDER = (
     ("depth", "depth"),
     ("scribble", "hed"),
 )
-PORTED = ("canny", "hed", "lineart", "mlsd")
-# the networks' checkpoints (controlnet_aux's names) and their annotators
-WEIGHT_FILES = {"hed": ("ControlNetHED.pth", HEDAnnotator),
-                "lineart": ("sk_model.pth", LineartAnnotator),
-                "mlsd": ("mlsd_large_512_fp32.pth", MLSDAnnotator)}
+PORTED = ("canny", "hed", "lineart", "mlsd", "openpose")
+# the networks' checkpoints (controlnet_aux's names) and the annotators'
+# constructors from their paths
+WEIGHT_FILES = {"hed": (("ControlNetHED.pth",), HEDAnnotator.from_file),
+                "lineart": (("sk_model.pth",), LineartAnnotator.from_file),
+                "mlsd": (("mlsd_large_512_fp32.pth",), MLSDAnnotator.from_file),
+                "openpose": (WEIGHT_NAMES, OpenPoseAnnotator.from_files)}
 ANNOTATOR_ENV = "CONTROLANIMATE_ANNOTATOR_DIR"
 
 Annotator = Callable[[torch.Tensor], torch.Tensor]
@@ -73,9 +78,9 @@ def resolve_annotator(controlnet_name: str, device="cuda") -> Annotator:
     name = annotator_name(controlnet_name)
     if name == "canny":
         return canny
-    fname, annotator = WEIGHT_FILES[name]
-    weights = Path(os.environ.get(ANNOTATOR_ENV, "models/annotators")) / fname
-    return annotator.from_file(weights, device=device)
+    fnames, make = WEIGHT_FILES[name]
+    folder = Path(os.environ.get(ANNOTATOR_ENV, "models/annotators"))
+    return make(*(folder / f for f in fnames), device=device)
 
 
 def annotate_frames(controlnet_name: str, frames) -> torch.Tensor:

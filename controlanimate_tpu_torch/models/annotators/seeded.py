@@ -1,20 +1,26 @@
-"""Seeded stand-ins for the lineart and MLSD checkpoints.
+"""Seeded stand-ins for the lineart, MLSD and OpenPose checkpoints.
 
-The repo ships no annotator weights. These make a `LineartGenerator` and an
+The repo ships no annotator weights. These make a `LineartGenerator`, an
 `mlsd_large_512_fp32.pth` state dict (controlnet_aux's key layout,
-BatchNorm statistics included) from a `torch.Generator`, on its device,
-with maps that are neither constant nor saturated: `chip_smoke.py` and the
-parity tests drive the annotators with them.
+BatchNorm statistics included) and the three OpenPose files from a
+`torch.Generator`, on its device, with maps that are neither constant nor
+saturated; and `pose_maps`, crafted stride-8 OpenPose maps of two people,
+which no seeded network gives. `chip_smoke.py` and the parity tests drive
+the annotators with them.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import mlsd
 from .edge_nets import LineartGenerator
+from .openpose import LIMB_SEQ, MAP_IDX, BodyPoseNet
+from .openpose_face import FaceNet
+from .openpose_hand_face import HandPoseNet
 
 
 def seed_lineart_(net: LineartGenerator, gen: torch.Generator) -> LineartGenerator:
@@ -95,3 +101,88 @@ def mlsd_checkpoint(gen: torch.Generator, frames: torch.Tensor) -> dict:
     sd["block22.conv3.weight"] *= gain[:, None, None, None]
     sd["block22.conv3.bias"] = -out.mean((1, 2, 3)) * gain
     return sd
+
+
+# -- OpenPose -------------------------------------------------------------------
+def _seeded_cpm(net: torch.nn.Module, gen: torch.Generator, heads: dict) -> dict:
+    """A state dict of `net`'s shapes on the generator's device: convs
+    N(0, 2 / fan_in) and zero biases, then each head conv named in `heads`
+    (name -> (std of its output's spread, (C,) bias)) scaled down and
+    biased."""
+    sd = {}
+    for name, p in net.state_dict().items():
+        if name.endswith(".weight"):
+            sd[name] = torch.randn(p.shape, generator=gen, device=gen.device) * math.sqrt(
+                2.0 / p[0].numel())
+        else:
+            sd[name] = torch.zeros(p.shape, device=gen.device)
+    for name, (spread, bias) in heads.items():
+        sd[f"{name}.weight"] *= spread
+        sd[f"{name}.bias"] = bias.to(gen.device)
+    return sd
+
+
+def openpose_checkpoints(gen: torch.Generator) -> dict:
+    """Seeded `body_pose_model.pth`, `hand_pose_model.pth` and `facenet.pth`
+    state dicts (file name -> state dict) on the generator's device. The
+    body's heat head is biased to -0.5 (a seeded trunk finds no person, and
+    noise maps would give thousands of peaks); the hand's and face's last
+    heads are biased to +0.3 on two parts of every three and -0.3 on the
+    third, so that most parts of each crop pass 0.1 and are drawn, hand
+    lines between consecutive parts included."""
+    with torch.device("meta"):  # the shapes alone
+        body, hand, face = BodyPoseNet(), HandPoseNet(), FaceNet()
+
+    def alternate(n):
+        return torch.tensor([0.3 if i % 3 != 2 else -0.3 for i in range(n)])
+
+    return {
+        "body_pose_model.pth": _seeded_cpm(body, gen, {
+            "model6_1.Mconv7_stage6_L1": (0.05, torch.zeros(38)),
+            "model6_2.Mconv7_stage6_L2": (0.05, torch.full((19,), -0.5))}),
+        "hand_pose_model.pth": _seeded_cpm(hand, gen, {
+            "model6.Mconv7_stage6": (0.05, alternate(22))}),
+        "facenet.pth": _seeded_cpm(face, gen, {"Mconv7_stage6": (0.05, alternate(71))}),
+    }
+
+
+# coco-18 keypoints of a standing person, as (x, y) shares of its height
+# from the top of its head
+POSE = ((0.0, 0.12), (0.0, 0.22), (-0.1, 0.22), (-0.17, 0.36), (-0.2, 0.5), (0.1, 0.22),
+        (0.17, 0.36), (0.2, 0.5), (-0.06, 0.52), (-0.07, 0.72), (-0.08, 0.92), (0.06, 0.52),
+        (0.07, 0.72), (0.08, 0.92), (-0.03, 0.1), (0.03, 0.1), (-0.06, 0.11), (0.06, 0.11))
+
+
+def pose_maps(H: int, W: int, h8: int, w8: int,
+              people: int = 2) -> tuple[np.ndarray, np.ndarray]:
+    """Crafted stride-8 (heat (h8, w8, 19), PAF (h8, w8, 38)) float32 maps of
+    one person in the middle of an (H, W) frame or two side by side, each
+    0.8 H tall (`POSE`): each part a Gaussian blob of
+    peak 1 and sigma 1 stride-8 pixel at its keypoint, channel 18 one minus
+    their maximum; each limb's PAF channels its unit vector within 1.5
+    stride-8 pixels of the segment. Every limb, both wrists and all the face
+    points are present, so the decode finds each person, its hands and its
+    face."""
+    yy, xx = np.mgrid[0:h8, 0:w8].astype(np.float64)
+    scale = np.array([w8 / W, h8 / H])
+    heat = np.zeros((h8, w8, 19))
+    paf = np.zeros((h8, w8, 38))
+    pose = np.array(POSE, np.float64) * (0.8 * H)
+    for cx in ((0.5,) if people == 1 else (0.3, 0.7)):
+        person = pose + (cx * W, 0.08 * H)
+        p = (person + 0.5) * scale - 0.5  # full-res pixel -> stride-8 pixel
+        for part in range(18):
+            blob = np.exp(-((xx - p[part, 0]) ** 2 + (yy - p[part, 1]) ** 2) / 2.0)
+            heat[..., part] = np.maximum(heat[..., part], blob)
+        for (a, b), (ca, cb) in zip(LIMB_SEQ, MAP_IDX):
+            pa, pb = p[a - 1], p[b - 1]
+            d = pb - pa
+            length = np.hypot(*d)
+            u = d / length
+            t = ((xx - pa[0]) * u[0] + (yy - pa[1]) * u[1])
+            off = np.abs((xx - pa[0]) * u[1] - (yy - pa[1]) * u[0])
+            on = (t >= -1) & (t <= length + 1) & (off <= 1.5)
+            paf[..., ca - 19][on] = u[0]
+            paf[..., cb - 19][on] = u[1]
+    heat[..., 18] = 1.0 - heat[..., :18].max(-1)
+    return heat.astype(np.float32), paf.astype(np.float32)

@@ -47,6 +47,32 @@ inv_scale):
 Equal sizes copy. Nearest takes source column min(floor(dx * (1 / inv_scale)),
 src - 1), the product in float64, and rows alike. Every table is built on
 the host in OpenCV's precisions; the passes run on the device.
+
+Cubic (`resize_cubic`, INTER_CUBIC) serves the OpenPose annotator
+(`controlanimate_tpu/models/annotators/openpose*.py`: uint8 frames and
+crops to the networks' inputs, float32 heat and PAF maps back up). OpenCV's
+`resizeGeneric_`: the Lanczos4 coordinates with four taps sx - 1 .. sx + 2,
+clamped, and the weights of `interpolateCubic` (A = -0.75, float32). Rows
+of the image are (width * channels) elements long, and the vertical pass
+runs OpenCV's 4-lane vector loop (SSE) over the first elements of each row
+and its scalar loop over the rest:
+
+- float32: a horizontal pass ((s0 w0 + s1 w1) + s2 w2) + s3 w3, then a
+  vertical one, s0 b0 + (s1 b1 + (s2 b2 + s3 b3)) over the first
+  4 * floor(n / 4) elements of a row and ((s0 b0 + s1 b1) + s2 b2) + s3 b3
+  over the rest, each product and sum rounded to float32 (no fused
+  multiply-add);
+- uint8: the weights to fixed point (round(w * 2048), half to even), an
+  exact int32 horizontal pass, then over the first 8 * floor(n / 8)
+  elements the vector loop in float32 (the sums times b / 2^22, summed as
+  above, rounded half to even) and over the rest the exact
+  (sum + 2^21) >> 22; saturated to 0..255.
+
+This is OpenCV's own code path. A build with Intel IPP (the pip wheels)
+hands 1-, 3- and 4-channel 8-bit images (and 1-, 3- and 4-channel float32
+ones) to IPP's resize instead, which differs from it by 1 on a few per cent
+of the pixels (`cv2.setUseOptimized(False)` turns IPP off);
+`resize_cubic_at` is the float32 resize at chosen pixels only.
 """
 
 from __future__ import annotations
@@ -56,6 +82,8 @@ import math
 
 import numpy as np
 import torch
+
+from .host import upload
 
 COEF_BITS = 11
 COEF_SCALE = 1 << COEF_BITS  # 2048
@@ -258,3 +286,134 @@ def resize_nearest(frames: torch.Tensor, height: int, width: int) -> torch.Tenso
     yi = torch.tensor(nearest_table(H, height), device=frames.device)
     xi = torch.tensor(nearest_table(W, width), device=frames.device)
     return frames[:, yi][:, :, xi]
+
+
+def _cubic_weights(fx: np.float32) -> np.ndarray:
+    """OpenCV's `interpolateCubic` (A = -0.75) in float32."""
+    A, one = np.float32(-0.75), np.float32(1.0)
+    x1 = fx + one
+    c0 = ((A * x1 - np.float32(5) * A) * x1 + np.float32(8) * A) * x1 - np.float32(4) * A
+    c1 = ((A + np.float32(2)) * fx - (A + np.float32(3))) * fx * fx + one
+    r = one - fx
+    c2 = ((A + np.float32(2)) * r - (A + np.float32(3))) * r * r + one
+    return np.array([c0, c1, c2, one - c0 - c1 - c2], np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def cubic_table(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """(indices (dst, 4) int64 clamped to [0, src), weights (dst, 4)
+    float32) of one axis of an INTER_CUBIC resize; cached, read-only."""
+    scale = 1.0 / (dst / src)
+    idx = np.empty((dst, 4), np.int64)
+    w = np.empty((dst, 4), np.float32)
+    for d in range(dst):
+        fx = np.float32((d + 0.5) * scale - 0.5)
+        sx = math.floor(fx)
+        fx = np.float32(fx - np.float32(sx))
+        idx[d] = np.clip(np.arange(sx - 1, sx + 3), 0, src - 1)
+        w[d] = _cubic_weights(fx)
+    idx.setflags(write=False)
+    w.setflags(write=False)
+    return idx, w
+
+
+def _sum4(t: list, vector: torch.Tensor) -> torch.Tensor:
+    """Four float32 products summed as OpenCV's vertical pass sums them:
+    t0 + (t1 + (t2 + t3)) where `vector`, ((t0 + t1) + t2) + t3 elsewhere."""
+    return torch.where(vector, t[0] + (t[1] + (t[2] + t[3])), ((t[0] + t[1]) + t[2]) + t[3])
+
+
+def resize_cubic(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(N, H, W, C) uint8 or float32 -> (N, height, width, C), as
+    `cv2.resize(image, (width, height), interpolation=cv2.INTER_CUBIC)` on
+    each image (OpenCV's own code path; see the module's note on IPP)."""
+    if x.ndim != 4 or x.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"x must be (N, H, W, C) uint8 or float32, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    N, H, W, _ = x.shape
+    if (H, W) == (height, width):
+        return x.clone()
+    boxes = np.stack([np.arange(N), np.zeros(N), np.zeros(N), np.full(N, H), np.full(N, W),
+                      np.zeros(N)], -1).astype(np.int64)
+    return resize_cubic_boxes(x, boxes, np.tile([height, width], (N, 1)))
+
+
+def cubic_box_tables(boxes: np.ndarray, out_hw: np.ndarray, uint8: bool) -> list:
+    """Host tables of `resize_cubic_boxes`: for each box (n, y0, x0, h, w,
+    mirrored) the source rows (B, h_max) clamped to the box, the columns'
+    absolute taps (B, W_out, 4) and weights, the rows' taps within the box
+    (B, H_out, 4) and weights, each padded with weight 0."""
+    B = len(boxes)
+    h_max = int(boxes[:, 3].max())
+    Ho, Wo = (int(v) for v in out_hw.max(0))
+    wdt = np.int32 if uint8 else np.float32
+    srow = boxes[:, 1, None] + np.minimum(np.arange(h_max), boxes[:, 3, None] - 1)
+    cidx, cw = np.zeros((B, Wo, 4), np.int64), np.zeros((B, Wo, 4), wdt)
+    ridx, rw = np.zeros((B, Ho, 4), np.int64), np.zeros((B, Ho, 4), wdt)
+    for b, ((_, _, x0, h, w, mirrored), (oh, ow)) in enumerate(zip(boxes, out_hw)):
+        ti, tw = cubic_table(int(w), int(ow))
+        cidx[b, :ow] = x0 + ((w - 1 - ti) if mirrored else ti)
+        cw[b, :ow] = np.rint(tw * np.float32(COEF_SCALE)) if uint8 else tw
+        ti, tw = cubic_table(int(h), int(oh))
+        ridx[b, :oh] = ti
+        rw[b, :oh] = np.rint(tw * np.float32(COEF_SCALE)) if uint8 else tw
+    return [srow, cidx, cw, ridx, rw]
+
+
+def resize_cubic_boxes(x: torch.Tensor, boxes: np.ndarray, out_hw: np.ndarray) -> torch.Tensor:
+    """Each box of (N, H, W, C) uint8 or float32 `x` INTER_CUBIC to its own
+    size, all at once: `boxes` (B, 6) int64 host rows (n, y0, x0, h, w,
+    mirrored) take x[n, y0:y0 + h, x0:x0 + w] (mirrored left to right when
+    `mirrored` is 1, inside the image) to `out_hw` (B, 2) (height, width).
+    Returns (B, H_out, W_out, C), each box's output in its top-left
+    corner, as `cv2.resize` of the box alone (OpenCV copies a box of its
+    output size; the cubic weights of a zero fraction, (0, 1, 0, 0), copy
+    it too)."""
+    uint8 = x.dtype == torch.uint8
+    C = x.shape[3]
+    srow, cidx, cw, ridx, rw, n, ow = upload(
+        cubic_box_tables(boxes, out_hw, uint8) + [boxes[:, 0], out_hw[:, 1]], x.device)
+    src = x.to(torch.int32) if uint8 else x
+    # horizontal: (B, h_max, W_out, C), summed from tap 0 (exact for uint8)
+    rows = None
+    for k in range(4):
+        t = src[n[:, None, None], srow[:, :, None], cidx[:, None, :, k]] * cw[:, None, :, k, None]
+        rows = t if rows is None else rows + t
+    # vertical: OpenCV's vector loop over the first lanes * floor(n / lanes)
+    # of each output row's n = W_out * C elements, its scalar loop after
+    lanes = 8 if uint8 else 4
+    e = torch.arange(int(out_hw[:, 1].max()) * C, device=x.device).reshape(-1, C)
+    vector = (e < (ow * C // lanes * lanes)[:, None, None])[:, None]  # (B, 1, W_out, C)
+    b = torch.arange(len(boxes), device=x.device)[:, None]
+    taps = [rows[b, ridx[:, :, k]] for k in range(4)]  # (B, H_out, W_out, C)
+    if not uint8:
+        return _sum4([t * rw[:, :, k, None, None] for k, t in enumerate(taps)], vector)
+    exact = sum(t.to(torch.int64) * rw[:, :, k, None, None].to(torch.int64)
+                for k, t in enumerate(taps))
+    exact = (exact + (1 << (2 * COEF_BITS - 1))) >> (2 * COEF_BITS)
+    scale = np.float32(1.0 / (1 << 2 * COEF_BITS))  # the vector loop's float32 weights
+    fast = _sum4([t.to(torch.float32) * (rw[:, :, k, None, None].to(torch.float32) * scale)
+                  for k, t in enumerate(taps)], vector)
+    fast = torch.round(fast).clamp_(-32768, 32767).to(torch.int64)
+    return torch.where(vector, fast, exact).clamp_(0, 255).to(torch.uint8)
+
+
+def resize_cubic_at(x: torch.Tensor, n: torch.Tensor, y: torch.Tensor, xs: torch.Tensor,
+                    height: int, width: int) -> torch.Tensor:
+    """`resize_cubic(x, height, width)[n, y, xs]` for (N, H, W, C) float32 x
+    and (P,) int64 image, row and column indices, without the whole map:
+    (P, C) float32."""
+    N, H, W, C = x.shape
+    if (H, W) == (height, width):
+        return x[n, y, xs]
+    xi, xw, yi, yw = upload([*cubic_table(W, width), *cubic_table(H, height)], x.device)
+    cols, a = xi[xs], xw[xs][..., None]  # (P, 4), (P, 4, 1)
+    t = []
+    for k in range(4):
+        src = x[n[:, None], yi[y, k][:, None], cols]  # (P, 4, C)
+        row = src[:, 0] * a[:, 0]
+        for j in range(1, 4):
+            row = row + src[:, j] * a[:, j]
+        t.append(row * yw[y, k][:, None])
+    e = xs[:, None] * C + torch.arange(C, device=x.device)
+    return _sum4(t, e < (width * C) // 4 * 4)

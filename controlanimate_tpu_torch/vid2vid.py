@@ -21,7 +21,8 @@ opened at the upscaled size.
 
 Host / device overlap, as in the JAX loop: with `overlap_host_work` a worker
 thread reads window N+1 and uploads it on a side CUDA stream while window N
-runs; the main stream waits on that upload's event. The checkpoint worker
+runs (not when `max_windows` ends the run with window N); the main stream
+waits on that upload's event. The checkpoint worker
 reads the stitch state back on its own thread; the stitch returns new tensors
 and nothing writes into them, so a snapshot may hold references.
 
@@ -39,7 +40,7 @@ Every window kind of the engine runs here: native LCM, and the multi-step
 samplers with classifier-free guidance (an overlap window at an
 `overlap_strength` below 1 starts from the previous window's outputs). Not
 ported yet, and rejected by `config.require_ported`: segment-parallel runs
-and device meshes (M15), IP-Adapter (M11), the annotators of M13, and M14's
+and device meshes (M15), IP-Adapter (M11), the annotators of M13c, and M14's
 `temporal_band`, `token_merge_ratio` and `encoder_reuse_every`. The C++
 ring buffer frame pipe (`use_native_framepipe`) is not ported: the loop
 takes the Python ffmpeg pipe, as the JAX loop does where that pipe cannot
@@ -487,8 +488,9 @@ def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt
             strength = cfg.overlap_strength if overlaps else cfg.strength
             last_out = state.last_output_frames
 
-            # start the next window's read and upload before this window runs
-            if executor is not None:
+            # start the next window's read and upload before this window runs,
+            # unless `max_windows` ends the run with this one
+            if executor is not None and (max_windows is None or windows_run + 1 < max_windows):
                 tail = list(batch[-overlap_length:]) if overlap_length > 0 else []
                 pending_prefetch = executor.submit(prefetch, tail, state.epoch + 1)
 

@@ -12,7 +12,9 @@ below are the inverse of the JAX package's checkpoint loaders
 `controlnet_params_from_torch`, `models/annotators/edge_nets.py`
 `hed_params_from_torch` and `lineart_params_from_torch`,
 `models/annotators/mlsd_net.py` `mlsd_params_from_torch`, whose folded
-convs the port's `MLSDLarge` holds under the same names), copied here so the port never imports that
+convs the port's `MLSDLarge` holds under the same names, and the OpenPose
+`body_params_from_torch`, `hand_params_from_torch` and
+`face_params_from_torch`), copied here so the port never imports that
 package. Kinds: "conv" HWIO -> OIHW, "dense" (in, out) -> (out, in), "raw"
 as is, "nchw" (1, H, W, C) -> (1, C, H, W), "lead1" with a leading axis of
 1 (a modulated conv's weight), "chan" (C,) -> (1, C, 1, 1), "vec1" () ->
@@ -29,6 +31,9 @@ import torch
 
 from ..models.annotators.edge_nets import LINEART_RES_BLOCKS
 from ..models.annotators.mlsd import IR_SPEC
+from ..models.annotators.openpose import BodyPoseNet
+from ..models.annotators.openpose_face import FaceNet
+from ..models.annotators.openpose_hand_face import HandPoseNet
 from ..models.clip import CLIPTextConfig
 from ..models.retinaface import RESNET50_STAGES, SSH_BRANCHES
 from ..models.unet3d import UNet3DConfig
@@ -217,6 +222,16 @@ def mlsd_mapping() -> Iterator[Entry]:
     for b in range(15, 23):
         for c in ("conv1", "conv2", "conv3") if b == 22 else ("conv1", "conv2"):
             yield from _conv(f"block{b}.{c}", f"block{b}/{c}")
+
+
+def openpose_mapping(make) -> Iterator[Entry]:
+    """An OpenPose network's convs: the port's `a.b` (or `b`) is the JAX
+    package's flat `a_b` (or `b`)."""
+    with torch.device("meta"):
+        net = make()
+    for name, module in net.named_modules():
+        if isinstance(module, torch.nn.Conv2d):
+            yield from _conv(name, name.replace(".", "_"))
 
 
 def _vae_resnet(t: str, f: str, shortcut: bool) -> Iterator[Entry]:
@@ -422,3 +437,15 @@ def lineart_state_dict(params: dict) -> dict[str, torch.Tensor]:
 
 def mlsd_state_dict(params: dict) -> dict[str, torch.Tensor]:
     return _state_dict(params, mlsd_mapping())
+
+
+def openpose_body_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(params, openpose_mapping(BodyPoseNet))
+
+
+def openpose_hand_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(params, openpose_mapping(HandPoseNet))
+
+
+def openpose_face_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(params, openpose_mapping(FaceNet))

@@ -11,7 +11,8 @@ bit against the JAX `decode_lines` + `cv2.line`, the whole annotator against
 `mlsd_net.run` (a stated share of pixels may differ), and its resizes and
 line drawing bit for bit against `cv2.resize` and `cv2.line`; and the
 annotator dispatch by substring, with the annotators of M13 raising and a
-missing weights file raising FileNotFoundError."""
+missing weights file raising FileNotFoundError (OpenPose's own parity tests
+are `test_torch_openpose.py`)."""
 
 import cv2
 import jax
@@ -170,13 +171,14 @@ def test_hed_upsample_is_jax_resize(src, dst):
     ("lllyasviel/control_v11p_sd15_canny", "canny"), ("control_v11p_sd15_scribble", "hed"),
     ("lllyasviel/ControlNet-HED", "hed"), ("lllyasviel/control_v11p_sd15_lineart", "lineart"),
     ("lllyasviel/sd-controlnet-mlsd", "mlsd"), ("lllyasviel/control_v11p_sd15_mlsd", "mlsd"),
+    ("lllyasviel/control_v11p_sd15_openpose", "openpose"),
 ])
 def test_dispatch_by_substring(name, key):
     assert annotators.annotator_name(name) == key
 
 
 @pytest.mark.parametrize("name", [
-    "lllyasviel/control_v11p_sd15_openpose", "lllyasviel/control_v11p_sd15_softedge",
+    "lllyasviel/control_v11p_sd15_softedge",
     "lllyasviel/control_v11f1p_sd15_depth", "lllyasviel/control_v11p_sd15_normalbae",
     "lllyasviel/control_v11p_sd15s2_lineart_anime", "my_pidi_net",
 ])
@@ -194,13 +196,22 @@ def test_unknown_controlnet_name_raises():
         annotators.annotator_name("my-controlnet")
 
 
+OPENPOSE_FILES = ("body_pose_model.pth", "hand_pose_model.pth", "facenet.pth")
+
+
 @pytest.mark.parametrize("name,fname", [("lllyasviel/control_v11p_sd15_lineart", "sk_model.pth"),
                                         ("lllyasviel/sd-controlnet-mlsd",
-                                         "mlsd_large_512_fp32.pth")])
+                                         "mlsd_large_512_fp32.pth")]
+                         + [("lllyasviel/control_v11p_sd15_openpose", f) for f in OPENPOSE_FILES])
 def test_missing_weights_raise(name, fname, tmp_path, monkeypatch):
     """A missing lineart or MLSD file raises FileNotFoundError naming it (the
-    JAX package falls back to Hough lines for MLSD)."""
+    JAX package falls back to Hough lines for MLSD), and so does each of
+    OpenPose's three with the other two present (the JAX package skips the
+    hands or the face without a word)."""
     monkeypatch.setenv(annotators.ANNOTATOR_ENV, str(tmp_path))
+    for other in OPENPOSE_FILES:
+        if other != fname:  # an empty file: the missing one is found first
+            (tmp_path / other).touch()
     with pytest.raises(FileNotFoundError, match=fname):
         annotators.resolve_annotator(name, "cpu")
 

@@ -108,7 +108,7 @@ def test_unported_facade_paths_raise():
     _, _, tclip = clip_pair()
     models = tengine.EngineModels(unet=tunet, vae=tvae)
     text = tfacade.TextStack(CLIPTokenizer.tiny(), tclip)
-    for bad, what in (({"controlnets": ("lllyasviel/control_v11p_sd15_openpose",)}, "M13"),
+    for bad, what in (({"controlnets": ("lllyasviel/control_v11p_sd15_softedge",)}, "M13"),
                       ({"use_ipadapter": True}, "use_ipadapter")):
         with pytest.raises(NotImplementedError, match=what):
             tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, **bad}), models=models,
