@@ -59,17 +59,16 @@ Phases, each printed as one JSON line with its seconds:
              and the small pipeline with two
              ControlNets of its UNet's down path (canny at 1.0, HED at 0.5)
              on the card against the CPU in fp32: uint8 within 1 LSB, and
-             changed by the ControlNets; then the multi-step samplers, card
-             against CPU in fp32 within 1 LSB, at 64x64: Euler under CFG 7.5
-             with a canny ControlNet (guess mode off; K1 must run at
-             B*F = 8; its first window must differ from the same window
-             on the card at guidance 1.0) and the LCM-LoRA tail (`LCMScheduler` without
-             `use_lcm`, CFG 1.1), two windows each (a whole one at strength
-             1, an overlap one at 0.92 from its last two outputs); Euler
-             under CFG with `use_pallas_conv` (K2) and with
-             CONTROLANIMATE_PALLAS_MOTION=1 (K3, which must run at B = 2),
-             and DPM-Solver, one whole window each. The line holds each
-             step's seconds (`step_seconds`).
+             changed by the ControlNets; then one whole 64x64 window of
+             DPM-Solver (3 steps, its second-order update at the middle
+             one) under CFG 7.5 with a canny ControlNet (guess mode off) and
+             CONTROLANIMATE_PALLAS_MOTION=1, card against CPU in fp32
+             within 1 LSB: K1 must run at B*F = 8 and K3 at B = 2, and the
+             window must differ from the same window on the card at
+             guidance 1.0 (Euler under CFG and the LCM-LoRA tail run at
+             full width in the cfg and disk phases; their 64x64
+             card-against-CPU windows are in tests/test_torch_gpu.py). The
+             line holds each step's seconds (`step_seconds`).
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -136,18 +135,16 @@ Phases, each printed as one JSON line with its seconds:
              two people in each frame (`pose_maps`), with the people, hands
              and faces drawn and the decode's host seconds.
   cfg        the multi-step path (SampleConfig.yaml's sampler): the same
-             loop, K2 on, over 24 frames (one whole window at strength 1.0,
-             one overlap-8 window at `overlap_strength` 0.92) with
-             `EulerDiscreteScheduler`, 30 steps, guidance 7.5 over the
+             loop, K2 on, over one whole 16-frame window at strength 1.0
+             with `EulerDiscreteScheduler`, 30 steps, guidance 7.5 over the
              negative and positive prompts, and the controlnet phase's canny
              ControlNet at 1.0; the SD1.5 UNet without the LCM w-embedding
              (`time_cond_proj_dim` None, the window phase's weights). Checks
-             24 frames written, K1's launches by shape (the UNet's 16 and
+             16 frames written, K1's launches by shape (the UNet's 16 and
              the ControlNet's 7 self-attentions a step at B*F = 32, the
-             VAE's mid attention in each decode and in the second window's
-             encode of the 8 last outputs) and K2's against the VAE's
-             calls, and that guidance changes the first window's first
-             step: that step through the engine under CFG 7.5 and again at
+             VAE's mid attention in the decode) and K2's against the VAE's
+             calls, and that guidance changes the window's first step:
+             that step through the engine under CFG 7.5 and again at
              guidance 1.0 from the same latents must differ (that it
              changes a whole window's frames is checked at 64x64 in
              `reference`). Prints new frames/s, one UNet and one ControlNet
@@ -186,28 +183,53 @@ Phases, each printed as one JSON line with its seconds:
              hand_pose_model.pth and facenet.pth, and the next two runs
              start from the snapshot root, which finds them there. First the
              controlnet phase's native-LCM profile at 512x512 on
-             inference-v2.yaml with K2 off, two windows (`--max-windows 2`,
-             16 frames written): its frames must equal the controlnet
-             phase's first 16 and its K1 launches by shape those that two
-             windows with both ControlNets imply. Then the LCM-LoRA profile
-             as shipped (SampleConfigLCMLoRA.yaml: `use_lcm` 0,
-             `LCMScheduler` with tail truncation, 7 steps, CFG 1.1; openpose
-             at 1.0, lineart at 0.35, MLSD at 1.0 and HED at 0.4; 512x768,
-             `upscale` 2 and the face enhancer with `upscale_first` 1, on
-             the files the 512x768 run below reads) on the same snapshot
-             read as `pretrained_model_path`, with a synthetic Kohya-layout
-             LoRA (`kohya_lora`) on the UNet's cross-attention and the text
-             encoder's attention projections, one window (`--max-windows
-             1`, 8 frames of (1536, 1024) written): its K1 launches by shape
-             (B*F = 32 on the 96x64 latent, the four ControlNets' included)
-             and its K4 launches must equal the counts from the code, and
-             its frames the injected pipeline's (the same nets and
-             annotators, through an Upscaler read from the same files)
-             after the same fusion; it prints the people, hands and faces
-             of the last OpenPose map (0 with the seeded body network). In
-             both runs the weights, noise and kernels are those of the
-             injected run (bf16); when the frames differ, the injected loop
-             runs again and the difference may not exceed that rerun's.
+             inference-v2.yaml with K2 off, one window (`--max-windows 1`,
+             8 frames written): its frames must equal the controlnet
+             phase's first 8 and its K1 launches by shape those that one
+             window with both ControlNets implies. Then the LCM-LoRA
+             profile (SampleConfigLCMLoRA.yaml: `use_lcm` 0,
+             `LCMScheduler` with tail truncation, 7 steps, CFG 1.1;
+             openpose at 1.0, lineart at 0.35, MLSD at 1.0 and HED at 0.4;
+             512x768, `upscale` 2 and the face enhancer with `upscale_first`
+             1, on the files the 512x768 run below reads) with a synthetic
+             Kohya-layout LoRA (`kohya_lora`) on the UNet's cross-attention
+             and the text encoder's attention projections, fused on the
+             host: one window of the injected pipeline (the same nets and
+             annotators, through an Upscaler read from the same files; 8
+             frames of (1536, 1024)) must launch K1 by shape (B*F = 32 on
+             the 96x64 latent, the four ControlNets' included) and K4 as the
+             code implies; it prints the people, hands and faces of the
+             last OpenPose map (0 with the seeded body network). Then the
+             IP-Adapter profile as shipped
+             (SampleConfigIPAdapter.yaml, its settings checked against the
+             file: the LCM-LoRA profile's LoRA, ControlNets, geometry,
+             upscale and faces, the ControlNets in guess mode, 12 steps, CFG
+             1.35, `use_ipadapter` at ipa_scale 0.65 and
+             `do_initial_generation`) through the CLI from the snapshot
+             root, the snapshot read as `pretrained_model_path` with the
+             LoRA file, where a seeded full-width CLIP ViT-H/14 image encoder
+             (config.json and HF-key safetensors, bf16, 632 M parameters)
+             and a base-layout ip-adapter_sd15.bin (`image_proj` of 4
+             tokens, `ip_adapter` K/V of the UNet's 16 cross-attentions) lie
+             where the profile names them; one window (`--max-windows 1`),
+             which is the initial double pass (the window from zero image
+             tokens, again from its own last 8 frames at 0.92, the image
+             encoder on the first of them): its K1 launches by shape (the
+             UNet's at B*F = 32 over both passes' 23 steps, the four
+             ControlNets' at B*F = 16, the VAE's, and the image encoder's
+             32 at (1, 257, 257, 16, 80)) and its K4 launches must equal
+             the counts from the code, K2 and K3 must not launch, every
+             tensor of the pipeline the CLI built from disk (the UNet with
+             the LoRA fused and the adapter's K/V, the VAE, the text encoder
+             with the LoRA, the four ControlNets, the image encoder and the
+             projection) must equal the injected one, and its frames must
+             equal the injected pipeline's (the same tensors,
+             its adapter read from the same files: the adapter's build
+             seconds; then the image encoder's ms an embed by CUDA events).
+             In the CLI runs the weights, noise and kernels are those of
+             the injected run (bf16); when the frames differ, the injected
+             loop runs again and the difference may not exceed that
+             rerun's.
              Then the whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
              inference-v1.yaml (no mid-block motion module, non-inflated
              GroupNorm, PE 24 long) with K2 on, `upscale` 2 (the
@@ -237,9 +259,11 @@ Phases, each printed as one JSON line with its seconds:
              memory. Fails if GFPGAN's fp32 output is not finite, or a
              paste leaves its face's centre unchanged.
   kernels    K1 against its plain version at every shape the window phase,
-             the cfg phase and the disk phase's 512x768 and LCM-LoRA runs
-             launched it with (the plain version on slices of the batch
-             where its scores would pass PLAIN_SCORE_BYTES), plus odd
+             the cfg phase and the disk phase's 512x768, LCM-LoRA and
+             IP-Adapter runs launched it with (the image encoder's (1, 257,
+             257, 16, 80) among them, its plain version timed; the plain
+             version on slices of the batch where its scores would pass
+             PLAIN_SCORE_BYTES), plus odd
              lengths, in bf16 and fp32 (`k1_mismatch` states the gates),
              with its achieved TFLOP/s and share of the bound in bf16; K2
              against its plain version at every shape the vid2vid phase and
@@ -255,8 +279,8 @@ Phases, each printed as one JSON line with its seconds:
              PyTorch call's (SDPA for K1, `F.conv2d` on the activated input
              for K2: yardsticks the port never calls) and the bound, and
              their sums over a window at both geometries, and K1's over the
-             vid2vid, controlnet and cfg phases' and the LCM-LoRA run's
-             launches.
+             vid2vid, controlnet and cfg phases' and the LCM-LoRA and
+             IP-Adapter runs' launches, and the image encoder's alone.
   kernels_k3 K3 against its plain version at every shape the
              window_motion_kernel phase launched it with, plus odd shapes
              (N = 37, F = 8 and 24, PE off, C = 64), in bf16 and fp32
@@ -1507,8 +1531,8 @@ def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = Fals
     window's last two outputs. With `controlnet` one canny ControlNet of the
     UNet's down path (scale 1.0, guess mode off) steers the windows. With
     `unguided` the card also runs the first window at guidance 1.0 (the
-    positive prompt alone): `guidance_change_max` is its largest uint8
-    difference from the guided one."""
+    positive prompt alone, K3 off): `guidance_change_max` is its largest
+    uint8 difference from the guided one."""
     import copy
 
     from controlanimate_tpu_torch.ops.canny import canny
@@ -1557,13 +1581,24 @@ CFG_PROFILE = {"use_lcm": False, "scheduler": "EulerDiscreteScheduler", "steps":
 # the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's sampler
 LCM_LORA_PROFILE = {"use_lcm": False, "scheduler": "LCMScheduler", "steps": 7,
                     "guidance_scale": 1.1, "strength": 1.0, "overlap_strength": 0.92}
-# the reference phase's multi-step windows (two each, 64x64): the default
-# profile's Euler under CFG, the LCM-LoRA profile's tail, and DPM-Solver
+# the disk phase's IP-Adapter run: SampleConfigIPAdapter.yaml's sampler,
+# guess mode and adapter settings (checked against the shipped file), its
+# files where the profile names them, from the snapshot root
+IP_ADAPTER_PROFILE = {**LCM_LORA_PROFILE, "steps": 12, "guidance_scale": 1.35,
+                      "guess_mode": True, "use_ipadapter": True, "ipa_scale": 0.65,
+                      "do_initial_generation": True,
+                      "ipadapter_image_encoder_path": "models/IP-Adapter/models/image_encoder",
+                      "ipadapter_ckpt_path": "models/IP-Adapter/models/ip-adapter_sd15.bin"}
+# the CLIP ViT-H/14 image encoder's self-attention (K1): (B, N, N, H, D)
+VISION_K1_SHAPE = (1, 257, 257, 16, 80)
+# the multi-step windows at 64x64 that tests/test_torch_gpu.py holds on the
+# card against the CPU (two each): the default profile's Euler under CFG,
+# the LCM-LoRA profile's tail, and DPM-Solver in three steps (its
+# second-order update runs at the middle one; also the reference phase's
+# window under CFG, with a ControlNet and K3)
 EULER_CFG = {"use_lcm": False, "scheduler": "EulerDiscreteScheduler", "steps": 2,
              "strength": 1.0, "overlap_strength": 0.92, "guidance_scale": 7.5}
 LCM_LORA = {**EULER_CFG, "scheduler": "LCMScheduler", "steps": 4, "guidance_scale": 1.1}
-# three steps (one window): DPM-Solver's second-order update runs at the
-# middle one only
 DPM_CFG = {**EULER_CFG, "scheduler": "DPMSolverMultistepScheduler", "steps": 3}
 
 
@@ -1976,20 +2011,26 @@ def expected_k1_launches(full_windows: int, overlap_windows: int, steps: int,
 
 
 def expected_cfg_k1_launches(window_steps: list, frames_n: int, encodes: list,
-                             latent=(64, 64), controlnets: int = 0) -> dict:
+                             latent=(64, 64), controlnets: int = 0, guess_mode: bool = False,
+                             embeds: int = 0) -> dict:
     """K1 launches by shape of windows under classifier-free guidance
-    (guidance > 1, guess mode off) on `latent` (h, w): the UNet's and each
-    ControlNet's self-attention on the doubled batch (B*F = 2 * frames_n)
-    once a step, `window_steps` holding each window's steps; one VAE
-    mid-block attention in each window's decode (all frames) and one in
-    each encode (`encodes`: the frames each encode takes)."""
+    (guidance > 1) on `latent` (h, w): the UNet's self-attention on the
+    doubled batch (B*F = 2 * frames_n) once a step, `window_steps` holding
+    each window's steps, and each ControlNet's as often, on the doubled
+    batch or in guess mode on the positive half alone (B*F = frames_n); one
+    VAE mid-block attention in each window's decode (all frames) and one in
+    each encode (`encodes`: the frames each encode takes); the CLIP image
+    encoder's 32 layers in each of `embeds` IP-Adapter anchor embeds."""
     from collections import Counter
 
     steps, bf = sum(window_steps), 2 * frames_n
     expected = Counter({shape: n * steps for shape, n in unet_k1_shapes(bf, latent).items()})
     n = latent[0] * latent[1]
+    cn_bf = frames_n if guess_mode else bf
     for div, D, blocks in CONTROLNET_LEVELS:
-        expected[(bf, n // div, n // div, 8, D)] += controlnets * blocks * steps
+        expected[(cn_bf, n // div, n // div, 8, D)] += controlnets * blocks * steps
+    if embeds:
+        expected[VISION_K1_SHAPE] += 32 * embeds
     expected[(frames_n, n, n, 1, 512)] += len(window_steps)
     for frames in encodes:
         expected[(frames, n, n, 1, 512)] += 1
@@ -2073,25 +2114,17 @@ def main() -> int:
     ref_annotators = step("lineart_mlsd", lambda: small_annotator_reference(torch))
     ref_openpose = step("openpose", lambda: small_openpose_reference(torch))
     ref_cn = step("controlnet", lambda: small_controlnet_reference(torch))
-    # the multi-step samplers: Euler under CFG with a ControlNet (on K1,
-    # with K2, with K3 at B = 2), the LCM-LoRA tail, DPM-Solver
+    # a multi-step sampler: DPM-Solver under CFG 7.5 with a canny ControlNet
+    # and K3, K1 and K3 on the doubled batch (B*F = 8, B = 2), and again at
+    # guidance 1.0 (Euler under CFG and the LCM-LoRA tail run at full width
+    # in the cfg and disk phases; their 64x64 card-against-CPU windows are in
+    # tests/test_torch_gpu.py)
     fa.reset_launch_counts()
-    ref_cfg = step("euler_cfg", lambda: small_reference(torch, controlnet=True, unguided=True,
-                                                        **EULER_CFG))
-    cfg_k1_batches = sorted({key[0] for key in fa.flash_attention.launches_by_shape})
-    ck.reset_launch_counts()
-    ref_cfg_k2 = step("euler_cfg_k2", lambda: small_reference(torch, conv_kernel=True, windows=1,
-                                                              **EULER_CFG))
-    k2_cfg_launches = ck.conv3x3_fused.launches
     mk.reset_launch_counts()
-    ref_cfg_k3 = step("euler_cfg_k3", lambda: small_reference(
-        torch, motion_kernel=True, windows=1, **EULER_CFG))
+    ref_cfg_k3 = step("dpm_cfg_controlnet_k3", lambda: small_reference(
+        torch, motion_kernel=True, controlnet=True, windows=1, unguided=True, **DPM_CFG))
+    cfg_k1_batches = sorted({key[0] for key in fa.flash_attention.launches_by_shape})
     k3_cfg_batches = sorted({key[0] for key in mk.motion_module_fused.launches_by_shape})
-    ref_samplers = {"euler_cfg_controlnet": ref_cfg, "euler_cfg_k2": ref_cfg_k2,
-                    "euler_cfg_k3": ref_cfg_k3,
-                    "lcm_lora": step("lcm_lora", lambda: small_reference(torch, **LCM_LORA)),
-                    "dpm_cfg": step("dpm_cfg", lambda: small_reference(torch, windows=1,
-                                                                       **DPM_CFG))}
     phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
           k2_launches=k2_ref_launches, k3_max_lsb=ref_k3["max_lsb"],
           k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches,
@@ -2099,20 +2132,18 @@ def main() -> int:
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
           k4_launches=k4_ref_launches, face=ref_face, canny=ref_canny, hed=ref_hed,
           lineart_mlsd=ref_annotators, openpose=ref_openpose, controlnet=ref_cn,
-          samplers=ref_samplers,
-          cfg_k1_batches=cfg_k1_batches, cfg_k2_launches=k2_cfg_launches,
+          dpm_cfg_controlnet_k3=ref_cfg_k3, cfg_k1_batches=cfg_k1_batches,
           cfg_k3_batches=k3_cfg_batches, step_seconds=step_seconds)
-    for r in (ref, ref_k2, ref_k3, *ref_samplers.values()):
+    for r in (ref, ref_k2, ref_k3, ref_cfg_k3):
         if r["max_lsb"] > 1:
-            raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB: "
-                                 f"{ref_samplers}")
-    if not ref_cfg["guidance_change_max"]:
+            raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB")
+    if not ref_cfg_k3["guidance_change_max"]:
         raise AssertionError("guidance changed nothing: the small CFG window equals the "
                              "unguided one")
-    # 4 frames doubled by CFG on K1 (and the VAE's 4 and 2); K3 at B = 2
-    if 8 not in cfg_k1_batches or k3_cfg_batches != [2] or not k2_cfg_launches:
-        raise AssertionError(f"the CFG references did not run K1 at B*F = 8 ({cfg_k1_batches}), "
-                             f"K3 at B = 2 ({k3_cfg_batches}) or K2 ({k2_cfg_launches})")
+    # 4 frames doubled by CFG on K1 (and the VAE's 4); K3 at B = 2
+    if 8 not in cfg_k1_batches or k3_cfg_batches != [2]:
+        raise AssertionError(f"the CFG reference did not run K1 at B*F = 8 ({cfg_k1_batches}) "
+                             f"or K3 at B = 2 ({k3_cfg_batches})")
     for r in (ref_up4, ref_up2):
         if r["max_lsb"] > 1:
             raise AssertionError(f"card and CPU upscalers differ by {r['max_lsb']} LSB")
@@ -2315,19 +2346,20 @@ def main() -> int:
             return self.pipe.prepare_cond_images(*args, **kw)
 
     def run_vid2vid(conv_kernel: bool, tag: str, upscaler=None, engine_models=None,
-                    text_stack=None, source=None, max_windows=None, **settings):
+                    text_stack=None, source=None, max_windows=None, ip_adapter=None,
+                    **settings):
         vcfg = cfg.replace(**{
             "use_pallas_conv": conv_kernel, "seed": SEED, "overlap_strength": cfg.strength,
             "upscale": 1.0 if upscaler is None else upscaler.scale,
             "output_video_dir": str(ROOT / "build" / "chip_smoke_vid2vid" / tag), **settings})
         rec = Recording(ControlAnimatePipeline(vcfg, models=engine_models or models,
-                                               text_stack=text_stack or text, device="cuda"))
+                                               text_stack=text_stack or text,
+                                               ip_adapter=ip_adapter, device="cuda"))
         sink = ArrayFrameSink()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launch_counts()
-        ck.reset_launch_counts()
-        uk.reset_launch_counts()
+        for module in (fa, ck, mk, uk):
+            module.reset_launch_counts()
         t1 = time.perf_counter()
         summary = v2v.vid2vid(config=vcfg, pipeline=rec,
                               frame_source=ArrayFrameSource(video if source is None else source),
@@ -2338,6 +2370,7 @@ def main() -> int:
                   "k1_by_shape": dict(fa.flash_attention.launches_by_shape),
                   "k2": ck.conv3x3_fused.launches,
                   "k2_by_shape": dict(ck.conv3x3_fused.launches_by_shape),
+                  "k3": mk.motion_module_fused.launches,
                   "k4": uk.upconv3x3.launches,
                   "k4_by_shape": dict(uk.upconv3x3.launches_by_shape)}
         return summary, sink.frames, seconds, rec.raw, counts, torch.cuda.max_memory_allocated()
@@ -2562,7 +2595,7 @@ def main() -> int:
     cfg_models = EngineModels(unet=unet_sd15, vae=models.vae, controlnets=cn_nets[:1],
                               annotators=[canny])
     cfg_settings = {**CFG_PROFILE, "controlnets": CN_NAMES[:1], "cond_scale": CN_SCALES[:1]}
-    cfg_video = video[:2 * frames_n - overlap]  # one whole and one overlap-8 window
+    cfg_video = video[:frames_n]  # one whole window
     summary_cfg, cfg_frames, cfg_seconds, _, counts, cfg_peak = run_vid2vid(
         True, "cfg", engine_models=cfg_models, source=cfg_video, **cfg_settings)
     if summary_cfg["frames_written"] != len(cfg_video) or len(cfg_frames) != len(cfg_video):
@@ -2571,23 +2604,21 @@ def main() -> int:
         raise AssertionError("the CFG loop's frames are not (512, 512, 3) uint8")
     if float(np.stack(cfg_frames).std()) == 0.0:
         raise AssertionError("the CFG loop's frames are constant")
-    # each window's steps as the port's sampler builds them: 30, then 27
+    # the window's steps as the port's sampler builds them: 30
     cfg_window_steps = [make_scheduler(CFG_PROFILE["scheduler"], make_schedule(),
-                                       CFG_PROFILE["steps"], strength=s).num_steps
-                        for s in (CFG_PROFILE["strength"], CFG_PROFILE["overlap_strength"])]
+                                       CFG_PROFILE["steps"],
+                                       strength=CFG_PROFILE["strength"]).num_steps]
     cfg_k1 = counts["k1_by_shape"]
-    # the second window encodes the first window's last 8 outputs
-    cfg_k1_expected = expected_cfg_k1_launches(cfg_window_steps, frames_n, [overlap],
-                                               controlnets=1)
+    cfg_k1_expected = expected_cfg_k1_launches(cfg_window_steps, frames_n, [], controlnets=1)
     per_step = sum(isinstance(m, BasicTransformerBlock)
                    for net in (unet_sd15, cn_nets[0]) for m in net.modules())
-    # and the VAE's mid attention in the two decodes and the one encode
+    # and the VAE's mid attention in the decode
     if (cfg_k1 != cfg_k1_expected
-            or sum(cfg_k1.values()) != per_step * sum(cfg_window_steps) + 2 + 1):
+            or sum(cfg_k1.values()) != per_step * sum(cfg_window_steps) + 1):
         raise AssertionError(f"CFG loop K1 launches {cfg_k1}, expected {cfg_k1_expected} "
                              f"({per_step} self-attentions a step)")
     cfg_k2 = counts["k2_by_shape"]
-    cfg_k2_expected = vae_k2_launches(models.vae, (size, size), [frames_n, frames_n], [overlap])
+    cfg_k2_expected = vae_k2_launches(models.vae, (size, size), [frames_n], [])
     if cfg_k2 != cfg_k2_expected or counts["k4"]:
         raise AssertionError(f"CFG loop K2 launches {cfg_k2}, expected {cfg_k2_expected}, "
                              f"or K4 launched")
@@ -2830,20 +2861,20 @@ def main() -> int:
     cn_write_seconds = time.perf_counter() - t1
 
     # the controlnet phase's native-LCM profile from disk (inference-v2, K2
-    # off), its first two windows: the LCM UNet, VAE, text encoder and
+    # off), its first window: the LCM UNet, VAE, text encoder and
     # motion module read from the snapshot, the two ControlNets and HED from
-    # their folders; its frames must equal the controlnet phase's first 16
+    # their folders; its frames must equal the controlnet phase's first 8
     with chdir(SNAPSHOT):
         summary, disk_cn_frames, seconds, counts, peak = run_cli(
-            "disk_controlnet", ["--max-windows", "2"],
+            "disk_controlnet", ["--max-windows", "1"],
             input_video_path=str(SNAPSHOT / "frames_512x512"), width=size, height=size,
             inference_config_path=str(INFERENCE_V2), motion_module=str(SNAPSHOT / "mm_v2.ckpt"),
             use_pallas_conv=0, **cn_settings)
-    n_cli = 2 * (frames_n - overlap)  # a run stopped by --max-windows keeps 8 for a resume
-    if summary["windows"] != 2 or len(disk_cn_frames) != n_cli:
+    n_cli = frames_n - overlap  # a run stopped by --max-windows keeps 8 for a resume
+    if summary["windows"] != 1 or len(disk_cn_frames) != n_cli:
         raise AssertionError(f"the native-LCM ControlNet CLI run wrote {len(disk_cn_frames)} "
-                             f"frames in {summary['windows']} windows, not {n_cli} in 2")
-    cn_cli_k1_expected = expected_k1_launches(1, 1, steps, frames_n, overlap,
+                             f"frames in {summary['windows']} windows, not {n_cli} in 1")
+    cn_cli_k1_expected = expected_k1_launches(1, 0, steps, frames_n, overlap,
                                               controlnets=len(CN_NAMES))
     if counts["k1_by_shape"] != cn_cli_k1_expected or counts["k2_by_shape"] or counts["k3"]:
         raise AssertionError(f"native-LCM ControlNet CLI K1 launches {counts['k1_by_shape']}, "
@@ -2859,7 +2890,7 @@ def main() -> int:
     if diff.max():
         # the injected pipeline again: the card's own run-to-run difference
         _, again, _, _, _, _ = run_vid2vid(False, "controlnet_again", engine_models=cn_models,
-                                           max_windows=2, **cn_settings)
+                                           max_windows=1, **cn_settings)
         rerun = np.abs(np.stack(again).astype(np.int16)
                        - np.stack(cn_frames[:n_cli]).astype(np.int16))
         fields_cn["injected_rerun_diff_max"] = int(rerun.max())
@@ -2870,17 +2901,26 @@ def main() -> int:
     fields_cn.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del disk_cn_frames, diff, cn_frames
 
-    # the LCM-LoRA profile as shipped (SampleConfigLCMLoRA.yaml: `use_lcm`
-    # 0, LCMScheduler, 7 steps, CFG 1.1, a LoRA from `lora_model_paths`, its
+    # the LCM-LoRA profile (SampleConfigLCMLoRA.yaml: `use_lcm` 0,
+    # LCMScheduler, 7 steps, CFG 1.1, a LoRA from `lora_model_paths`, its
     # four ControlNets: openpose at 1.0, lineart at 0.35, MLSD at 1.0, HED at
     # 0.4; 512x768, `upscale` 2, the face enhancer with `upscale_first` 1) on
     # the same snapshot read as `pretrained_model_path` (its UNet's cond_proj
-    # goes unused without `use_lcm`), one window (ROADMAP's first cut);
-    # against the injected pipeline after the same fusion, with the same four
-    # nets and annotators, through an Upscaler read from the same files
+    # goes unused without `use_lcm`): one window of the injected pipeline
+    # after the LoRA's fusion, with the same four nets and annotators, through
+    # an Upscaler read from the same files (its K1 and K4 launches counted).
+    # The IP-Adapter run below builds the same LoRA, ControlNets and
+    # annotators from disk through the CLI, every tensor of that build held
+    # against the injected ones.
     import copy
 
+    import controlanimate_tpu_torch.pipelines.facade as facade_module
+    from controlanimate_tpu_torch.config import RunConfig
+    from controlanimate_tpu_torch.models.clip import (CLIPVisionConfig,
+                                                      CLIPVisionModelWithProjection)
     from controlanimate_tpu_torch.pipelines.facade import TextStack
+    from controlanimate_tpu_torch.pipelines.ip_adapter import (
+        IPAdapter, ImageProjModel, attn2_paths_in_checkpoint_order)
     from controlanimate_tpu_torch.weights.lora import fuse_lora, split_lora_by_component
 
     t1 = time.perf_counter()
@@ -2891,39 +2931,8 @@ def main() -> int:
     lora_path = SNAPSHOT / "lcm_lora.safetensors"
     snapshot_bytes[lora_path.name] = save_safetensors(torch, lora_path, lora_sd)
     lora_write_seconds = time.perf_counter() - t1
-    lora_settings = {**LCM_LORA_PROFILE, "pretrained_model_path": str(SNAPSHOT),
-                     "lora_model_paths": [str(lora_path)], "lora_weights": [1.0]}
     lora_cn_settings = {"controlnets": LORA_CN_NAMES, "cond_scale": LORA_CN_SCALES}
     lora_face = {"use_face_enhancer": True, "upscale_first": True}
-    with chdir(SNAPSHOT):
-        summary, lora_frames, seconds, counts, peak = run_cli(
-            "disk_lcm_lora", ["--max-windows", "1"],
-            input_video_path=str(SNAPSHOT / "frames_512x768"), width=size, height=height_768,
-            inference_config_path=str(INFERENCE_V2), motion_module=str(SNAPSHOT / "mm_v2.ckpt"),
-            use_pallas_conv=0, upscale=2, **lora_face, **face_paths, **lora_settings,
-            **lora_cn_settings)
-    lora_window_steps = [make_scheduler("LCMScheduler", make_schedule(), LCM_LORA_PROFILE["steps"],
-                                        strength=LCM_LORA_PROFILE["strength"],
-                                        lcm_origin_steps=cfg.lcm_origin_steps,
-                                        strength_mode="tail").num_steps]
-    lora_latent = (height_768 // 8, size // 8)
-    lora_k1 = counts["k1_by_shape"]
-    lora_k1_expected = expected_cfg_k1_launches(lora_window_steps, frames_n, [],
-                                                latent=lora_latent,
-                                                controlnets=len(LORA_CN_NAMES))
-    if lora_k1 != lora_k1_expected or counts["k2_by_shape"] or counts["k3"]:
-        raise AssertionError(f"LCM-LoRA CLI K1 launches {lora_k1}, expected "
-                             f"{lora_k1_expected}, or K2 or K3 launched")
-    lora_upscaler = Upscaler(2.0, model_path=face_paths["upscaler_model_path"],
-                             dtype=torch.bfloat16, device="cuda", use_face_enhancer=True,
-                             upscale_first=True,
-                             face_enhancer_model_path=face_paths["face_enhancer_model_path"],
-                             face_detector_model_path=face_paths["face_detector_model_path"])
-    lora_k4 = counts["k4_by_shape"]
-    lora_k4_expected = expected_k4_launches(lora_upscaler, [frames_n - overlap],
-                                            (height_768, size))
-    if lora_k4 != lora_k4_expected:
-        raise AssertionError(f"LCM-LoRA CLI K4 launches {lora_k4}, expected {lora_k4_expected}")
     t1 = time.perf_counter()
     parts = split_lora_by_component(lora_sd)
     fused_unet, fused_n = fuse_lora(unet_2d, parts["unet"])
@@ -2937,23 +2946,44 @@ def main() -> int:
     text_lora = copy.deepcopy(text.model)
     text_lora.load_state_dict({k: v.to("cuda", torch.bfloat16 if v.is_floating_point()
                                        else v.dtype) for k, v in fused_te.items()})
+    lora_text = TextStack(text.tokenizer, text_lora)
     lora_models = EngineModels(unet=unet_lora, vae=models.vae,
                                controlnets=list(lora_nets.values()),
                                annotators=[openpose_ann, lineart, mlsd_ann, hed])
-    lora_text = TextStack(text.tokenizer, text_lora)
-    injected_build_seconds = time.perf_counter() - t1 - fuse_seconds
+    lora_upscaler = Upscaler(2.0, model_path=face_paths["upscaler_model_path"],
+                             dtype=torch.bfloat16, device="cuda", use_face_enhancer=True,
+                             upscale_first=True,
+                             face_enhancer_model_path=face_paths["face_enhancer_model_path"],
+                             face_detector_model_path=face_paths["face_detector_model_path"])
     lora_twin = {"engine_models": lora_models, "text_stack": lora_text, "max_windows": 1,
                  "upscaler": lora_upscaler, "source": video_768, "width": size,
                  "height": height_768, **lora_face, **LCM_LORA_PROFILE, **lora_cn_settings}
-    _, injected, injected_seconds, _, _, _ = run_vid2vid(False, "lcm_lora", **lora_twin)
+    summary, injected, injected_seconds, _, counts, lora_peak = run_vid2vid(
+        False, "lcm_lora", **lora_twin)
     openpose_stats = dict(openpose_ann.stats)
-    # a run stopped by --max-windows keeps its last 8 frames for a resume
-    if (len(lora_frames) != len(injected) or summary["windows"] != 1
-            or len(lora_frames) != frames_n - overlap
-            or any(f.shape != (2 * height_768, 2 * size, 3) for f in lora_frames)):
-        raise AssertionError(f"the LCM-LoRA CLI run wrote {len(lora_frames)} frames in "
-                             f"{summary['windows']} windows, the injected one {len(injected)}")
-    diff = np.abs(np.stack(lora_frames).astype(np.int16) - np.stack(injected).astype(np.int16))
+    lora_window_steps = [make_scheduler("LCMScheduler", make_schedule(), LCM_LORA_PROFILE["steps"],
+                                        strength=LCM_LORA_PROFILE["strength"],
+                                        lcm_origin_steps=cfg.lcm_origin_steps,
+                                        strength_mode="tail").num_steps]
+    latent = (height_768 // 8, size // 8)
+    lora_k1 = counts["k1_by_shape"]
+    lora_k1_expected = expected_cfg_k1_launches(lora_window_steps, frames_n, [], latent=latent,
+                                                controlnets=len(LORA_CN_NAMES))
+    if lora_k1 != lora_k1_expected or counts["k2_by_shape"] or counts["k3"]:
+        raise AssertionError(f"LCM-LoRA K1 launches {lora_k1}, expected {lora_k1_expected}, "
+                             f"or K2 or K3 launched")
+    lora_k4 = counts["k4_by_shape"]
+    lora_k4_expected = expected_k4_launches(lora_upscaler, [frames_n - overlap],
+                                            (height_768, size))
+    if lora_k4 != lora_k4_expected:
+        raise AssertionError(f"LCM-LoRA K4 launches {lora_k4}, expected {lora_k4_expected}")
+    # a run stopped by `max_windows` keeps its last 8 frames for a resume
+    if (summary["windows"] != 1 or len(injected) != frames_n - overlap
+            or any(f.shape != (2 * height_768, 2 * size, 3) for f in injected)):
+        raise AssertionError(f"the LCM-LoRA window wrote {len(injected)} frames in "
+                             f"{summary['windows']} windows")
+    if float(np.stack(injected).std()) == 0.0:
+        raise AssertionError("the LCM-LoRA window's frames are constant")
     fields_lora = {"controlnets": list(LORA_CN_NAMES), "cond_scale": list(LORA_CN_SCALES),
                    "frame_shape": [2 * height_768, 2 * size, 3],
                    "openpose_last_map": openpose_stats, "faces": summary["faces"],
@@ -2963,26 +2993,174 @@ def main() -> int:
                    "lora_write_seconds": round(lora_write_seconds, 4),
                    "lora_layers_fused": fused_n + fused_te_n,
                    "host_fuse_seconds": round(fuse_seconds, 4),
-                   "injected_build_seconds": round(injected_build_seconds, 4),
-                   "injected_loop_seconds": round(injected_seconds, 4),
-                   "window_steps": lora_window_steps,
+                   "loop_seconds": round(injected_seconds, 4),
+                   "new_frames_per_second_first_window_included": round(
+                       summary["frames_written"] / injected_seconds, 4),
+                   "max_memory_allocated": lora_peak, "window_steps": lora_window_steps,
                    "frames_written": summary["frames_written"],
-                   "uint8_diff_vs_injected_max": int(diff.max()),
-                   "uint8_diff_vs_injected_mean": float(diff.mean()),
-                   "k1_launches": sum(counts["k1_by_shape"].values())}
+                   "k1_launches": sum(lora_k1.values()), "timers": summary["timers"]}
+    del unet_2d, te_state, lora_sd, parts, fused_unet, fused_te, injected, cn_models, cn_nets
+
+    # the IP-Adapter profile as shipped (SampleConfigIPAdapter.yaml: the
+    # LCM-LoRA profile's files, ControlNets in guess mode, 12 steps, CFG
+    # 1.35, `use_ipadapter` with ipa_scale 0.65 and `do_initial_generation`)
+    # through the CLI for one window, which is the initial double pass: a
+    # seeded full-width CLIP ViT-H/14 image encoder (HF keys, bf16) and a
+    # base-layout ip-adapter_sd15.bin (4 tokens, the UNet's 16
+    # cross-attentions) where the profile names them. Against the injected
+    # pipeline of the same tensors, its adapter read from the same files.
+    shipped = RunConfig.from_yaml(ROOT / "configs" / "prompts" / "SampleConfigIPAdapter.yaml")
+    differs = {k: (v, getattr(shipped, k)) for k, v in {
+        **IP_ADAPTER_PROFILE, **lora_cn_settings, **lora_face, "width": size,
+        "height": height_768, "upscale": 2.0, "lora_weights": (1.0,),
+        "overlap_length": overlap, "frame_count": frames_n,
+        "lcm_origin_steps": cfg.lcm_origin_steps}.items()
+        if getattr(shipped, k) != (tuple(v) if isinstance(v, (list, tuple)) else v)}
+    if differs:
+        raise AssertionError(f"the IP-Adapter run's settings are not the shipped profile's: "
+                             f"{differs}")
+    t1 = time.perf_counter()
+    igen = torch.Generator(device="cuda")
+    igen.manual_seed(SEED + 6)
+    vcfg = CLIPVisionConfig()
+    with torch.device("cuda"):
+        vision = CLIPVisionModelWithProjection(vcfg).to(torch.bfloat16)
+        proj = ImageProjModel(models.unet.config.cross_attention_dim, vcfg.projection_dim,
+                              4).to(torch.bfloat16)
+    for module in (vision, proj):
+        init_weights_(torch, module, igen)
+    ip_sd = {}
+    for i, path in enumerate(attn2_paths_in_checkpoint_order(models.unet.config)):
+        to_k = models.unet.get_submodule(f"{path}.transformer_blocks.0.attn2").to_k.weight
+        for name in ("to_k_ip", "to_v_ip"):
+            ip_sd[f"{2 * i + 1}.{name}.weight"] = torch.randn(
+                to_k.shape, generator=igen, device="cuda", dtype=torch.bfloat16
+            ) / math.sqrt(to_k.shape[1])
+    encoder_dir = SNAPSHOT / IP_ADAPTER_PROFILE["ipadapter_image_encoder_path"]
+    encoder_dir.mkdir(parents=True)
+    (encoder_dir / "config.json").write_text(json.dumps({
+        "hidden_size": vcfg.hidden_size, "intermediate_size": vcfg.intermediate_size,
+        "num_attention_heads": vcfg.num_heads, "num_hidden_layers": vcfg.num_layers,
+        "image_size": vcfg.image_size, "patch_size": vcfg.patch_size,
+        "projection_dim": vcfg.projection_dim, "layer_norm_eps": vcfg.layer_norm_eps,
+        "hidden_act": "gelu"}))
+    ip_ckpt = SNAPSHOT / IP_ADAPTER_PROFILE["ipadapter_ckpt_path"]
+    snapshot_bytes.update(write_parallel({
+        "image_encoder": lambda: save_safetensors(torch, encoder_dir / "model.safetensors",
+                                                  vision.state_dict()),
+        ip_ckpt.name: lambda: save_torch(torch, ip_ckpt, {
+            "image_proj": {k: v.cpu() for k, v in proj.state_dict().items()},
+            "ip_adapter": {k: v.cpu() for k, v in ip_sd.items()}})}))
+    ip_write_seconds = time.perf_counter() - t1
+    vision_params = sum(p.numel() for p in vision.parameters())
+    # the injected twin's UNet: the fused one with the checkpoint's K/V
+    with torch.device("meta"):
+        unet_ip = UNet3DConditionModel(dataclasses.replace(models.unet.config, ip_tokens=4))
+    unet_ip.load_state_dict({**unet_lora.state_dict(), **IPAdapter(
+        None, proj, ip_sd).unet_weights(unet_ip.config)}, assign=True)
+    ip_settings = {**IP_ADAPTER_PROFILE, "use_pallas_conv": 0, "upscale": 2, **lora_face,
+                   **lora_cn_settings, **face_paths}
+    cli_pipes = []  # the pipeline the CLI builds, kept for the tensor check
+
+    class KeptPipeline(ControlAnimatePipeline):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            cli_pipes.append(self)
+
+    facade_module.ControlAnimatePipeline = KeptPipeline
+    try:
+        with chdir(SNAPSHOT):
+            summary, ip_frames, seconds, counts, peak = run_cli(
+                "disk_ip_adapter", ["--max-windows", "1"],
+                input_video_path=str(SNAPSHOT / "frames_512x768"), width=size,
+                height=height_768, inference_config_path=str(INFERENCE_V2),
+                motion_module=str(SNAPSHOT / "mm_v2.ckpt"), pretrained_model_path=str(SNAPSHOT),
+                lora_model_paths=[str(lora_path)], lora_weights=[1.0], **ip_settings)
+    finally:
+        facade_module.ControlAnimatePipeline = ControlAnimatePipeline
+    # the CLI's disk build (the LoRA fused on the host, the IP-Adapter's K/V
+    # in the UNet, the ControlNets' folders, the image encoder) tensor by
+    # tensor against the injected models
+    (cli_pipe,) = cli_pipes
+    mismatched = []
+    for name, mine, want in (
+            ("unet", cli_pipe.models.unet, unet_ip), ("vae", cli_pipe.models.vae, models.vae),
+            ("text_encoder", cli_pipe.text.model, text_lora),
+            ("image_encoder", cli_pipe.ip_adapter.vision_model, vision),
+            ("image_proj", cli_pipe.ip_adapter.proj_model, proj),
+            *((f"controlnet {n}", a, b) for n, a, b in zip(
+                LORA_CN_NAMES, cli_pipe.models.controlnets, lora_nets.values()))):
+        mine_sd, want_sd = mine.state_dict(), want.state_dict()
+        if set(mine_sd) != set(want_sd) or not all(torch.equal(mine_sd[k], v)
+                                                   for k, v in want_sd.items()):
+            mismatched.append(name)
+    if mismatched:
+        raise AssertionError(f"the IP-Adapter profile's disk build differs from the injected "
+                             f"models in {mismatched}")
+    del cli_pipes, cli_pipe, mine_sd, want_sd, vision, proj
+    with chdir(SNAPSHOT):
+        # the adapter read alone, for the injected twin
+        t1 = time.perf_counter()
+        ip_adapter = IPAdapter.from_config(RunConfig(**IP_ADAPTER_PROFILE), "cuda",
+                                           torch.bfloat16)
+        torch.cuda.synchronize()
+        ip_build_seconds = time.perf_counter() - t1
+    ip_window_steps = [make_scheduler("LCMScheduler", make_schedule(), IP_ADAPTER_PROFILE["steps"],
+                                      strength=s, lcm_origin_steps=cfg.lcm_origin_steps,
+                                      strength_mode="tail").num_steps
+                       for s in (IP_ADAPTER_PROFILE["strength"],
+                                 IP_ADAPTER_PROFILE["overlap_strength"])]
+    # the UNet at B*F = 32 on both passes, the ControlNets in guess mode at
+    # B*F = 16, the second pass's encode of its 8 anchors, and the image
+    # encoder once (the first pass's tokens are zeros)
+    ip_k1 = counts["k1_by_shape"]
+    ip_k1_expected = expected_cfg_k1_launches(ip_window_steps, frames_n, [overlap], latent=latent,
+                                              controlnets=len(LORA_CN_NAMES), guess_mode=True,
+                                              embeds=1)
+    if ip_k1 != ip_k1_expected or counts["k2_by_shape"] or counts["k3"]:
+        raise AssertionError(f"IP-Adapter CLI K1 launches {ip_k1}, expected {ip_k1_expected}, "
+                             f"or K2 or K3 launched")
+    ip_k4 = counts["k4_by_shape"]
+    if ip_k4 != lora_k4_expected:
+        raise AssertionError(f"IP-Adapter CLI K4 launches {ip_k4}, expected {lora_k4_expected}")
+    if (summary["windows"] != 1 or len(ip_frames) != frames_n - overlap
+            or any(f.shape != (2 * height_768, 2 * size, 3) for f in ip_frames)):
+        raise AssertionError(f"the IP-Adapter CLI run wrote {len(ip_frames)} frames in "
+                             f"{summary['windows']} windows")
+    ip_twin = {**lora_twin, "engine_models": dataclasses.replace(lora_models, unet=unet_ip),
+               "ip_adapter": ip_adapter, **IP_ADAPTER_PROFILE}
+    _, injected, injected_seconds, _, _, _ = run_vid2vid(False, "ip_adapter", **ip_twin)
+    diff = np.abs(np.stack(ip_frames).astype(np.int16) - np.stack(injected).astype(np.int16))
+    # the image encoder alone on an anchor, by CUDA events (uncond cached)
+    anchor = torch.from_numpy(video_768[frames_n - overlap]).cuda()
+    tower_ms = cuda_ms(torch, lambda: ip_adapter.embed_image(anchor), 5)
+    fields_ip = {"settings": {k: v for k, v in IP_ADAPTER_PROFILE.items()
+                              if not k.endswith("_path")},
+                 "frame_shape": [2 * height_768, 2 * size, 3],
+                 "image_encoder_params": vision_params, "ip_tokens": ip_adapter.num_tokens,
+                 "ip_files_write_seconds": round(ip_write_seconds, 4),
+                 "adapter_build_seconds": round(ip_build_seconds, 4),
+                 "image_encoder_ms_per_embed": tower_ms, "window_steps": ip_window_steps,
+                 "faces": summary["faces"], "frames_written": summary["frames_written"],
+                 "upscale_seconds": summary["timers"]["upscale"]["total_s"],
+                 "k4_launches": sum(ip_k4.values()), "k1_launches": sum(ip_k1.values()),
+                 "k1_image_encoder_launches": ip_k1.get(VISION_K1_SHAPE, 0),
+                 "k1_launches_by_shape": {str(k): n for k, n in sorted(ip_k1.items())},
+                 "injected_loop_seconds": round(injected_seconds, 4),
+                 "uint8_diff_vs_injected_max": int(diff.max()),
+                 "uint8_diff_vs_injected_mean": float(diff.mean())}
     if diff.max():
-        _, again, _, _, _, _ = run_vid2vid(False, "lcm_lora_again", **lora_twin)
+        _, again, _, _, _, _ = run_vid2vid(False, "ip_adapter_again", **ip_twin)
         rerun = np.abs(np.stack(again).astype(np.int16) - np.stack(injected).astype(np.int16))
-        fields_lora["injected_rerun_diff_max"] = int(rerun.max())
+        fields_ip["injected_rerun_diff_max"] = int(rerun.max())
         if diff.max() > rerun.max():
-            raise AssertionError(f"the LCM-LoRA CLI run's frames differ from the injected "
+            raise AssertionError(f"the IP-Adapter CLI run's frames differ from the injected "
                                  f"pipeline's by {int(diff.max())}, two injected runs by "
                                  f"{int(rerun.max())}")
-    fields_lora.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
-    del (unet_state, unet_2d, te_state, lora_sd, parts, fused_unet, fused_te, unet_lora, text_lora,
-         lora_models, lora_text, lora_frames, injected, diff, cn_models, cn_nets, hed, hed_net,
-         lora_nets, lineart, lineart_net, mlsd_ann, mlsd_sd, openpose_ann, pose_sds,
-         lora_upscaler, lora_twin)
+    fields_ip.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
+    del (unet_state, unet_lora, text_lora, unet_ip, lora_models, lora_text, ip_adapter, ip_sd,
+         ip_frames, injected, diff, anchor, hed, hed_net, lora_nets, lineart, lineart_net,
+         mlsd_ann, mlsd_sd, openpose_ann, pose_sds, lora_upscaler, lora_twin, ip_twin)
     torch.cuda.empty_cache()
 
     # the whole shipped LCM profile (SampleConfigLCM.yaml): 512x768 on
@@ -3061,7 +3239,7 @@ def main() -> int:
     shutil.rmtree(SNAPSHOT)
     phase("disk", t0, snapshot_write_seconds=round(write_seconds, 4),
           snapshot_bytes=snapshot_bytes, cli_controlnet=fields_cn,
-          cli_lcm_lora_controlnet=fields_lora,
+          lcm_lora_build_and_window=fields_lora, cli_ip_adapter=fields_ip,
           cli_512x768={**loop_fields(summary, seconds, peak), "frame_shape": [up_h, up_w, 3],
                        "uint8_diff_vs_injected_v1_max": 0,
                        "injected_v1_seconds": round(injected_v1_seconds, 4),
@@ -3122,9 +3300,10 @@ def main() -> int:
     rows = []
     # the plain version is timed on the main path's shapes and the odd ones
     # (the 512x768 and CFG shapes are checked against it above)
-    untimed_k1 = (set(k1_768) | set(cfg_k1) | set(lora_k1)) - set(by_shape)
+    launched = set(by_shape) | set(k1_768) | set(cfg_k1) | set(lora_k1) | set(ip_k1)
+    untimed_k1 = launched - set(by_shape) - {VISION_K1_SHAPE}
     check_seconds = 0.0  # of the phase's seconds, those of the checks
-    for shape in sorted(set(by_shape) | set(k1_768) | set(cfg_k1) | set(lora_k1)) + ODD_SHAPES:
+    for shape in sorted(launched) + ODD_SHAPES:
         t1 = time.perf_counter()
         err_bf16 = check_kernel(torch, fa, shape, torch.bfloat16, gen)
         err_fp32 = check_kernel(torch, fa, shape, torch.float32, gen)
@@ -3139,6 +3318,7 @@ def main() -> int:
             "shape": list(shape), "launches": by_shape.get(shape, 0),
             "launches_512x768": k1_768.get(shape, 0), "launches_cfg": cfg_k1.get(shape, 0),
             "launches_lcm_lora_512x768": lora_k1.get(shape, 0),
+            "launches_ip_adapter_512x768": ip_k1.get(shape, 0),
             "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
             "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), iters),
             "plain_ms": None if shape in untimed_k1 else cuda_ms(
@@ -3176,6 +3356,12 @@ def main() -> int:
           cfg_path={"launches": sum(cfg_k1.values()), **launched_sums(cfg_k1, UNTIMED_PLAIN)},
           lcm_lora_512x768_path={"launches": sum(lora_k1.values()),
                                  **launched_sums(lora_k1, UNTIMED_PLAIN)},
+          ip_adapter_512x768_path={"launches": sum(ip_k1.values()),
+                                   **launched_sums(ip_k1, UNTIMED_PLAIN)},
+          image_encoder={"launches": ip_k1.get(VISION_K1_SHAPE, 0),
+                         **{k: by_row[VISION_K1_SHAPE][k] for k in (
+                             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                             "max_abs_err_bf16", "tflops", "share_of_bound")}},
           per_overlap_window=window_sums(0, 1),
           per_full_window_512x768=window_sums(1, 0, latent, UNTIMED_PLAIN),
           per_overlap_window_512x768=window_sums(0, 1, latent, UNTIMED_PLAIN))

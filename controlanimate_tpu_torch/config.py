@@ -281,8 +281,6 @@ def require_ported(cfg: RunConfig) -> None:
     unported = {
         "parallel_segments": (cfg.parallel_segments > 1, "segment-parallel runs (M15)"),
         "mesh_shape": (bool(cfg.mesh_shape), "device meshes (M15)"),
-        "use_ipadapter": (cfg.use_ipadapter, "IP-Adapter (M11)"),
-        "do_initial_generation": (cfg.do_initial_generation, "IP-Adapter (M11)"),
         "temporal_band": (bool(cfg.temporal_band), "banded motion attention (M14)"),
         "token_merge_ratio": (bool(cfg.token_merge_ratio), "token merging (M14)"),
         "encoder_reuse_every": (bool(cfg.encoder_reuse_every), "encoder reuse (M14)"),

@@ -1,11 +1,20 @@
-"""CLIP text encoder (HF CLIPTextModel numerics) in PyTorch.
+"""CLIP text encoder and vision tower (HF CLIP numerics) in PyTorch.
 
-Counterpart of `controlanimate_tpu/models/clip.py` `CLIPTextModel`: pre-LN
-transformer with quick_gelu, causal mask, eos-position pooling and clip-skip
-(the hidden state K layers before the last, through the final layer norm).
+Counterpart of `controlanimate_tpu/models/clip.py`:
+  * `CLIPTextModel`: pre-LN transformer with quick_gelu, causal mask,
+    eos-position pooling and clip-skip (the hidden state K layers before the
+    last, through the final layer norm);
+  * `CLIPVisionModelWithProjection`, the IP-Adapter's image encoder: patch
+    conv, class token, positions, `pre_layrnorm`, non-causal layers (their
+    self-attention on K1 through `dot_product_attention`), `post_layernorm`
+    on the class token and `visual_projection`. It returns `image_embeds`,
+    `pooled_output` and `penultimate_hidden_states` (the input of the last
+    layer).
 Layer norms compute and return fp32, as the JAX model's `nn.LayerNorm(dtype=
-float32)` does. Keys follow the HF checkpoint (`text_model.encoder.layers.0.
-self_attn.q_proj.weight`, ...). The vision tower is not in this slice.
+float32)` does. Keys follow the HF checkpoints (`text_model.encoder.layers.0.
+self_attn.q_proj.weight`, `vision_model.embeddings.patch_embedding.weight`,
+`visual_projection.weight`, ...). Both towers apply quick_gelu whatever a
+config's `hidden_act` says, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -17,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
-from .layers import linear
+from .layers import conv_nhwc, linear
 
 
 @dataclass(frozen=True)
@@ -45,6 +54,33 @@ class CLIPTextConfig:
             layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
             eos_token_id=cfg.get("eos_token_id", 49407),
             num_extra_embeddings=num_extra_embeddings,
+        )
+
+
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    hidden_size: int = 1280
+    num_layers: int = 32
+    num_heads: int = 16
+    intermediate_size: int = 5120
+    image_size: int = 224
+    patch_size: int = 14
+    projection_dim: int = 1024
+    layer_norm_eps: float = 1e-5
+
+    @staticmethod
+    def from_json(cfg: dict) -> "CLIPVisionConfig":
+        """From an HF vision config (the JAX `from_json`: ViT-H/14 defaults;
+        `hidden_act` is not read)."""
+        return CLIPVisionConfig(
+            hidden_size=cfg.get("hidden_size", 1280),
+            num_layers=cfg.get("num_hidden_layers", 32),
+            num_heads=cfg.get("num_attention_heads", 16),
+            intermediate_size=cfg.get("intermediate_size", 5120),
+            image_size=cfg.get("image_size", 224),
+            patch_size=cfg.get("patch_size", 14),
+            projection_dim=cfg.get("projection_dim", 1024),
+            layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
         )
 
 
@@ -93,7 +129,7 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig | CLIPVisionConfig):
         super().__init__()
         self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads)
         self.layer_norm1 = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
@@ -115,7 +151,7 @@ class _Embeddings(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig | CLIPVisionConfig):
         super().__init__()
         self.layers = nn.ModuleList(CLIPLayer(cfg) for _ in range(cfg.num_layers))
 
@@ -155,4 +191,55 @@ class CLIPTextModel(nn.Module):
             "last_hidden_state": last,
             "encoder_hidden_states": encoder_states,
             "pooled_output": pooled,
+        }
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.class_embedding = nn.Parameter(torch.zeros(cfg.hidden_size))
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size,
+                                         stride=cfg.patch_size, bias=False)
+        n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        self.position_embedding = nn.Embedding(n_pos, cfg.hidden_size)
+
+
+class _VisionTransformer(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.embeddings = _VisionEmbeddings(cfg)
+        self.pre_layrnorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.encoder = _Encoder(cfg)
+        self.post_layernorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+
+class CLIPVisionModelWithProjection(nn.Module):
+    def __init__(self, config: CLIPVisionConfig):
+        super().__init__()
+        self.config = config
+        self.vision_model = _VisionTransformer(config)
+        self.visual_projection = nn.Linear(config.hidden_size, config.projection_dim, bias=False)
+
+    def forward(self, pixel_values: torch.Tensor) -> dict:
+        """pixel_values: (B, H, W, 3) CLIP-normalised, channels last. Returns
+        image_embeds (projected, in the weights' dtype), pooled_output and
+        penultimate_hidden_states (fp32)."""
+        vm = self.vision_model
+        emb = vm.embeddings
+        patches = conv_nhwc(pixel_values, emb.patch_embedding)
+        B, C = patches.shape[0], patches.shape[-1]
+        cls = emb.class_embedding.to(patches.dtype).expand(B, 1, C)
+        x = torch.cat([cls, patches.reshape(B, -1, C)], dim=1)
+        x = x + emb.position_embedding.weight[: x.shape[1]].to(x.dtype)
+        x = vm.pre_layrnorm(x)
+        penultimate = None
+        for i, layer in enumerate(vm.encoder.layers):
+            if i == len(vm.encoder.layers) - 1:
+                penultimate = x
+            x = layer(x, causal=False)
+        pooled = vm.post_layernorm(x[:, 0])
+        return {
+            "image_embeds": linear(pooled, self.visual_projection),
+            "pooled_output": pooled,
+            "penultimate_hidden_states": penultimate,
         }

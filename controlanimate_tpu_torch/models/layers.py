@@ -136,7 +136,10 @@ class LayerNorm32(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention over (B, N, C) tokens; self-attention when no
-    context is given. The IP-Adapter dual stream is not in this slice."""
+    context is given. With `ip_tokens` > 0 (the IP-Adapter's dual stream,
+    the cross-attention only) the context's trailing `ip_tokens` tokens are
+    image tokens: `to_k_ip` / `to_v_ip` project them, and `ip_scale` times
+    the attention of the queries over them is added before `to_out`."""
 
     def __init__(
         self,
@@ -146,29 +149,44 @@ class Attention(nn.Module):
         cross_attention_dim: Optional[int] = None,
         out_bias: bool = True,
         upcast_attention: bool = False,
+        ip_tokens: int = 0,
     ):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.dim_head = dim_head
         self.upcast_attention = upcast_attention
+        self.ip_tokens = ip_tokens
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
         self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
+        if ip_tokens:
+            self.to_k_ip = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
+            self.to_v_ip = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias)])
 
-    def forward(self, hidden_states, encoder_hidden_states=None, mask=None, ip_ctx=None):
-        if ip_ctx is not None:
-            raise NotImplementedError("IP-Adapter dual-stream attention is not ported yet")
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], x.shape[1], self.heads, self.dim_head)
+
+    def forward(self, hidden_states, encoder_hidden_states=None, mask=None,
+                ip_scale: float = 1.0):
         ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
-        q = linear(hidden_states, self.to_q)
-        k = linear(ctx, self.to_k)
-        v = linear(ctx, self.to_v)
-        B, N, _ = q.shape
-        q = q.reshape(B, N, self.heads, self.dim_head)
-        k = k.reshape(B, k.shape[1], self.heads, self.dim_head)
-        v = v.reshape(B, v.shape[1], self.heads, self.dim_head)
+        ip_ctx = None
+        if self.ip_tokens and encoder_hidden_states is not None:
+            if ctx.shape[1] <= self.ip_tokens:
+                raise ValueError(f"a context of {ctx.shape[1]} tokens holds no text before "
+                                 f"its {self.ip_tokens} image tokens")
+            ctx, ip_ctx = ctx[:, :-self.ip_tokens], ctx[:, -self.ip_tokens:]
+        q = self._heads(linear(hidden_states, self.to_q))
+        k = self._heads(linear(ctx, self.to_k))
+        v = self._heads(linear(ctx, self.to_v))
         out = dot_product_attention(q, k, v, mask=mask, upcast=self.upcast_attention)
+        if ip_ctx is not None:
+            k_ip = self._heads(linear(ip_ctx, self.to_k_ip))
+            v_ip = self._heads(linear(ip_ctx, self.to_v_ip))
+            out = out + ip_scale * dot_product_attention(q, k_ip, v_ip,
+                                                         upcast=self.upcast_attention)
+        B, N = out.shape[:2]
         return self.to_out[0](out.reshape(B, N, self.heads * self.dim_head))
 
 

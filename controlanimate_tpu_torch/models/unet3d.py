@@ -8,8 +8,10 @@ the diffusers checkpoint keys (`down_blocks.0.resnets.0.conv1.weight`, ...).
 `set_motion_kernel(True)` puts the motion modules on K3 (the facade does so
 under CONTROLANIMATE_PALLAS_MOTION=1). ControlNet residuals (`models/controlnet.py`)
 enter as in the JAX model: each down residual is added to its skip in the
-skip's dtype, the mid residual after the mid block. Encoder reuse is not in
-this slice.
+skip's dtype, the mid residual after the mid block. With `ip_tokens` every
+cross-attention takes the IP-Adapter's image tokens from the context's tail
+(`models/layers.py` `Attention`), scaled by `ip_scale`. Encoder reuse is not
+in this slice.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ class UNet3DConfig:
     token_merge_motion: bool = False
 
     @staticmethod
-    def from_arch(arch: ArchConfig, unet_json: Optional[dict] = None) -> "UNet3DConfig":
+    def from_arch(arch: ArchConfig, unet_json: Optional[dict] = None,
+                  ip_tokens: int = 0) -> "UNet3DConfig":
         """A diffusers unet config.json combined with the AnimateDiff
         inference yaml's architecture (the JAX `UNet3DConfig.from_arch`)."""
         j = unet_json or {}
@@ -86,6 +89,7 @@ class UNet3DConfig:
             motion_module_mid_block=arch.motion_module_mid_block,
             motion_module_decoder_only=arch.motion_module_decoder_only,
             motion=arch.motion_module,
+            ip_tokens=ip_tokens,
             cross_frame_attention=arch.unet_use_cross_frame_attention,
             temporal_attention=arch.unet_use_temporal_attention,
         )
@@ -98,8 +102,6 @@ class _Block(nn.Module):
 class UNet3DConditionModel(nn.Module):
     def __init__(self, config: UNet3DConfig = UNet3DConfig()):
         super().__init__()
-        if config.ip_tokens:
-            raise NotImplementedError("IP-Adapter tokens are not ported yet")
         self.config = cfg = config
         self.use_motion_kernel = False
         ch0 = cfg.block_out_channels[0]
@@ -191,7 +193,7 @@ class UNet3DConditionModel(nn.Module):
             upcast_attention=cfg.upcast_attention, groups=cfg.norm_num_groups,
             cross_frame=cfg.cross_frame_attention,
             temporal_attention=cfg.temporal_attention,
-            tome_ratio=cfg.token_merge_ratio,
+            tome_ratio=cfg.token_merge_ratio, ip_tokens=cfg.ip_tokens,
         )
 
     def set_motion_kernel(self, enabled: bool) -> None:
@@ -224,6 +226,7 @@ class UNet3DConditionModel(nn.Module):
         timestep_cond: Optional[torch.Tensor] = None,  # (B, cond_dim) LCM w-embedding
         down_block_additional_residuals=None,
         mid_block_additional_residual=None,
+        ip_scale: float = 1.0,
     ) -> torch.Tensor:
         cfg = self.config
         B = sample.shape[0]
@@ -240,7 +243,7 @@ class UNet3DConditionModel(nn.Module):
             for j, resnet in enumerate(blk.resnets):
                 sample = resnet(sample, temb)
                 if hasattr(blk, "attentions"):
-                    sample = blk.attentions[j](sample, ctx)
+                    sample = blk.attentions[j](sample, ctx, ip_scale)
                 if hasattr(blk, "motion_modules"):
                     sample = blk.motion_modules[j](sample)
                 skips.append(sample)
@@ -250,7 +253,7 @@ class UNet3DConditionModel(nn.Module):
 
         mid = self.mid_block
         sample = mid.resnets[0](sample, temb)
-        sample = mid.attentions[0](sample, ctx)
+        sample = mid.attentions[0](sample, ctx, ip_scale)
         if hasattr(mid, "motion_modules"):
             sample = mid.motion_modules[0](sample)
         sample = mid.resnets[1](sample, temb)
@@ -269,7 +272,7 @@ class UNet3DConditionModel(nn.Module):
                 skip = skips.pop()
                 sample = resnet(torch.cat([sample, skip.to(sample.dtype)], dim=-1), temb)
                 if hasattr(blk, "attentions"):
-                    sample = blk.attentions[j](sample, ctx)
+                    sample = blk.attentions[j](sample, ctx, ip_scale)
                 if hasattr(blk, "motion_modules"):
                     sample = blk.motion_modules[j](sample)
             if hasattr(blk, "upsamplers"):

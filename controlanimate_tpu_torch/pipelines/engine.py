@@ -34,7 +34,9 @@ residuals summed over the nets enter the UNet. Under native LCM, without
 CFG, or in guess mode (cond-only) the nets take the single scaled latents
 and the positive text, and under CFG their residuals serve both halves;
 otherwise they take the doubled latents, both texts and the maps twice.
-IP-Adapter tokens (M11) raise.
+With IP-Adapter tokens (`ip_tokens`) at the text's tail, the UNet's
+cross-attentions take them at `ipa_scale` and the ControlNets see the text
+without them.
 """
 
 from __future__ import annotations
@@ -128,7 +130,8 @@ class WindowStatic:
     lcm_origin_steps: int = 50
     guess_mode: bool = False  # ControlNet residuals scaled by logspace(-1, 0)
     use_img2img: bool = False  # non-overlap frames from the input frames' latents
-    ip_tokens: int = 0  # IP-Adapter image tokens (M11, not ported)
+    ipa_scale: float = 1.0  # the UNet's image stream (IP-Adapter)
+    ip_tokens: int = 0  # IP-Adapter image tokens at the text's tail
     frame_count: int = 16  # txt2vid geometry (no input frames to infer it from)
     height: int = 512
     width: int = 512
@@ -260,8 +263,9 @@ class AnimationEngine:
                 latents: torch.Tensor, noise: NoiseSource,
                 cond_images: Sequence[torch.Tensor] = ()) -> torch.Tensor:
         n_cn = len(self.m.controlnets)
-        if st.ip_tokens:
-            raise NotImplementedError("IP-Adapter tokens are not ported yet (M11)")
+        if st.ip_tokens != self.m.unet.config.ip_tokens:
+            raise ValueError(f"the window has {st.ip_tokens} IP-Adapter tokens, the UNet takes "
+                             f"{self.m.unet.config.ip_tokens}")
         if len(cond_images) != n_cn or len(self.m.cond_scales) != n_cn:
             raise ValueError(f"{n_cn} ControlNets, {len(self.m.cond_scales)} conditioning "
                              f"scales and {len(cond_images)} condition maps")
@@ -273,6 +277,9 @@ class AnimationEngine:
         # runs without guess mode
         cn_cond_only = st.use_lcm or st.guess_mode or not cfg
         cn_text = text_embeds[B:] if cfg and cn_cond_only else text_embeds
+        if st.ip_tokens:
+            # the ControlNets are text-only: the image tokens stay the UNet's
+            cn_text = cn_text[:, :-st.ip_tokens]
         if not cn_cond_only:
             cond_images = [torch.cat([c, c]) for c in cond_images]
         w_emb = None
@@ -294,7 +301,8 @@ class AnimationEngine:
                 mid_res = torch.cat([mid_res, mid_res])
             model_out = self.m.unet(model_in, ts[i], text_embeds, timestep_cond=w_emb,
                                     down_block_additional_residuals=down_res,
-                                    mid_block_additional_residual=mid_res).float()
+                                    mid_block_additional_residual=mid_res,
+                                    ip_scale=st.ipa_scale).float()
             if cfg:
                 uncond, cond = model_out.chunk(2)
                 model_out = uncond + st.guidance_scale * (cond - uncond)

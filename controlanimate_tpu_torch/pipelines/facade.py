@@ -47,6 +47,17 @@ defaults whatever the file says; they agree for every SD1.5 ControlNet), and
 a `scheduler` that names no sampler raises KeyError when the pipeline is
 built (JAX raises it at the first window).
 
+IP-Adapter (`use_ipadapter`): the adapter is built first, from
+`ipadapter_ckpt_path` and the image encoder at `ipadapter_image_encoder_path`
+(`pipelines/ip_adapter.py`), since its checkpoint decides how many image
+tokens the UNet's cross-attentions take; its `to_k_ip` / `to_v_ip` weights
+go into the UNet, the disk-built one or an injected one (or pass
+`ip_adapter=` an adapter whose weights the injected UNet already holds).
+`animate` appends to the prompts the adapter's tokens of the first last
+output, cond to the positive and uncond to the negative, or zeros when the
+window has no last outputs. The SDXL-family checkpoints (xl, plus-xl) raise
+NotImplementedError, as in JAX.
+
 The run dtype comes from `RunConfig.dtype` ("float16"/"fp16" mean bf16, as
 in the JAX package); models are moved to `device` in that dtype.
 `RunConfig.use_pallas_conv` turns K2 on or off on the VAE, and
@@ -54,8 +65,8 @@ CONTROLANIMATE_PALLAS_MOTION=1 (the JAX package's opt-in, read when the
 pipeline is built) puts the UNet's motion modules on K3.
 `RunConfig.use_pallas_attention` has no effect: K1 runs every unmasked
 self-attention whatever it says, and the build warns so. Every setting
-`config.require_ported` rejects (IP-Adapter, meshes, an annotator of M13,
-...) raises.
+`config.require_ported` rejects (meshes, an annotator of M13, ...)
+raises.
 """
 
 from __future__ import annotations
@@ -66,10 +77,9 @@ import time
 import warnings
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
-from torch import nn
 
 from ..config import ArchConfig, RunConfig, require_ported, torch_dtype
 from ..models.annotators import resolve_annotator
@@ -88,6 +98,7 @@ from ..weights.textual_inversion import register_textual_inversions
 from ..weights.unet_weights import strip_module_prefix, unet_state_dict_from_torch
 from ..weights.vae_weights import vae_state_dict_from_torch
 from .engine import AnimationEngine, EngineModels, NoiseSource, TorchNoise, WindowStatic
+from .ip_adapter import IPAdapter
 from .prompt_weighting import encode_weighted_prompt
 
 # the JAX package's opt-in for the fused motion module (K3)
@@ -119,6 +130,7 @@ class ControlAnimatePipeline:
         *,
         models: Optional[EngineModels] = None,
         text_stack: Optional[TextStack] = None,
+        ip_adapter: Optional[IPAdapter] = None,
         arch: Optional[ArchConfig] = None,
         device="cuda",
     ):
@@ -129,11 +141,23 @@ class ControlAnimatePipeline:
         cond_scales = controlnet_scales(config)
         if (models is None) != (text_stack is None):
             raise ValueError("pass both models= and text_stack=, or neither for a disk build")
+        # the adapter first: its checkpoint decides the UNet's image tokens
+        adapter_from_disk = config.use_ipadapter and ip_adapter is None
+        if adapter_from_disk:
+            ip_adapter = IPAdapter.from_config(config, device, torch_dtype(config.dtype))
+            if ip_adapter.variant in ("xl", "plus-xl"):
+                raise NotImplementedError(
+                    f"IP-Adapter checkpoint {config.ipadapter_ckpt_path} is the SDXL-family "
+                    f"{ip_adapter.variant!r} variant; it needs an SDXL UNet, which is outside "
+                    "the SD1.5 path. Use an sd15 checkpoint (base, plus or full)")
         if models is None:
             if arch is None:
                 arch = ArchConfig.from_yaml(
                     _existing(config.inference_config_path, "inference_config_path"))
-            models, text_stack = build_from_disk(config, arch, device, torch_dtype(config.dtype))
+            models, text_stack = build_from_disk(config, arch, device, torch_dtype(config.dtype),
+                                                 ip_adapter)
+        elif adapter_from_disk:
+            ip_adapter.inject(models.unet)
         self.config = config
         self.arch = arch if arch is not None else ArchConfig()
         self.device = torch.device(device)
@@ -158,6 +182,8 @@ class ControlAnimatePipeline:
             "the PyTorch port: the flash-attention kernel (K1) runs every unmasked "
             "self-attention", stacklevel=2)
         text_stack.model.to(device=self.device, dtype=self.dtype).eval()
+        self.ip_adapter = (ip_adapter.to(self.device, self.dtype) if ip_adapter is not None
+                           else None)
         self.models = models
         self.text = text_stack
         schedule = make_schedule(
@@ -212,6 +238,8 @@ class ControlAnimatePipeline:
             lcm_origin_steps=cfg.lcm_origin_steps,
             guess_mode=cfg.guess_mode,
             use_img2img=cfg.use_img2img,
+            ipa_scale=float(cfg.ipa_scale),
+            ip_tokens=self.ip_adapter.num_tokens if self.ip_adapter is not None else 0,
             frame_count=frame_count or cfg.frame_count,
             height=cfg.height,
             width=cfg.width,
@@ -281,6 +309,15 @@ class ControlAnimatePipeline:
         maps from `prepare_cond_images`, staged here when not given."""
         cfg = self.config
         pos, neg = self._encode_prompts(cfg.prompt, cfg.n_prompt, cfg.clip_skip)
+        if self.ip_adapter is not None:
+            # the image tokens of the first last output, or zeros without one
+            if last_output_frames is not None and len(last_output_frames):
+                img_c, img_u = self.ip_adapter.embed_image(last_output_frames[0])
+            else:
+                img_c = img_u = torch.zeros((1, self.ip_adapter.num_tokens, pos.shape[-1]),
+                                            device=pos.device)
+            pos = torch.cat([pos, img_c.to(pos.dtype)], dim=1)
+            neg = torch.cat([neg, img_u.to(neg.dtype)], dim=1)
 
         reuse = self._reuse_overlap(input_frames is not None)
         head_latents = None
@@ -348,26 +385,14 @@ def _require_fused(count: int, path) -> None:
         raise ValueError(f"LoRA {path}: no layer matches a weight of the model")
 
 
-def _load(make: Callable[[], nn.Module], state: dict[str, torch.Tensor], device,
-          dtype: torch.dtype, convert: Callable) -> nn.Module:
-    """`make()` on the meta device, given `convert(state, its keys)` cast to
-    `dtype` on `device` (integer tensors keep theirs); its non-persistent
-    buffers (made on the host at construction) then move to `device`."""
-    with torch.device("meta"):
-        module = make()
-    sd = convert(state, module.state_dict().keys())
-    sd = {k: v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
-          for k, v in sd.items()}
-    module.load_state_dict(sd, strict=True, assign=True)
-    return module.to(device)
-
-
 def build_from_disk(cfg: RunConfig, arch: ArchConfig, device="cuda",
-                    dtype: torch.dtype = torch.bfloat16) -> tuple[EngineModels, TextStack]:
+                    dtype: torch.dtype = torch.bfloat16,
+                    ip_adapter: Optional[IPAdapter] = None) -> tuple[EngineModels, TextStack]:
     """The pipeline's models from the model zoo named by `cfg`, on `device` in
-    `dtype` (the JAX `_build_from_disk`, without IP-Adapter tokens and token
-    merging, which `require_ported` rejects). The annotators are built by the
-    pipeline."""
+    `dtype` (the JAX `_build_from_disk`, without token merging, which
+    `require_ported` rejects); with `ip_adapter`, the UNet's cross-attentions
+    take its tokens and its `to_k_ip` / `to_v_ip` weights. The annotators
+    are built by the pipeline."""
     base = Path(cfg.pretrained_lcm_model_path if cfg.use_lcm else cfg.pretrained_model_path)
     if not base.is_dir():
         raise FileNotFoundError(f"model snapshot {base} not found")
@@ -407,7 +432,10 @@ def build_from_disk(cfg: RunConfig, arch: ArchConfig, device="cuda",
             fused += fused_te
         _require_fused(fused, lp)
 
-    ucfg = UNet3DConfig.from_arch(arch, unet_json)
+    ucfg = UNet3DConfig.from_arch(arch, unet_json,
+                                  ip_tokens=0 if ip_adapter is None else ip_adapter.num_tokens)
+    if ip_adapter is not None:
+        unet_sd = {**unet_sd, **ip_adapter.unet_weights(ucfg)}
     motion_sd = None
     if cfg.motion_module:
         # the prefix goes before fusing, so LoRA keys match the prefixed blocks too
@@ -424,20 +452,20 @@ def build_from_disk(cfg: RunConfig, arch: ArchConfig, device="cuda",
 
     tcfg = CLIPTextConfig.from_json(te_json, num_extra_embeddings=0 if extra is None
                                     else len(extra))
-    text_model = _load(lambda: CLIPTextModel(tcfg), te_sd, device, dtype,
-                       lambda sd, keys: text_state_dict_from_torch(sd, keys, extra))
-    vae = _load(lambda: AutoencoderKL(
+    text_model = ingest.build_module(lambda: CLIPTextModel(tcfg), te_sd, device, dtype,
+                                     lambda sd, keys: text_state_dict_from_torch(sd, keys, extra))
+    vae = ingest.build_module(lambda: AutoencoderKL(
         block_out_channels=tuple(vae_json.get("block_out_channels", (128, 256, 512, 512))),
         scaling_factor=vae_json.get("scaling_factor", 0.18215),
         groups=vae_json.get("norm_num_groups", 32)), vae_sd, device, dtype,
         vae_state_dict_from_torch)
-    unet = _load(lambda: UNet3DConditionModel(ucfg), unet_sd, device, dtype,
-                 lambda sd, keys: unet_state_dict_from_torch(sd, keys, motion_sd))
+    unet = ingest.build_module(lambda: UNet3DConditionModel(ucfg), unet_sd, device, dtype,
+                               lambda sd, keys: unet_state_dict_from_torch(sd, keys, motion_sd))
     controlnets = []
     for name in cfg.controlnets:
         cn_json, cn_sd = ingest.load_hf_component(controlnet_dir(name), "")
         cn_cfg, cond_channels = controlnet_config_from_json(cn_json)
-        controlnets.append(_load(
+        controlnets.append(ingest.build_module(
             lambda: ControlNetModel(cn_cfg, cond_channels), cn_sd, device, dtype,
             lambda sd, keys: controlnet_state_dict_from_torch(sd, cn_cfg, len(cond_channels))))
     return (EngineModels(unet=unet, vae=vae, controlnets=controlnets),

@@ -38,10 +38,15 @@ reuse is off (the facade's rule).
 
 Every window kind of the engine runs here: native LCM, and the multi-step
 samplers with classifier-free guidance (an overlap window at an
-`overlap_strength` below 1 starts from the previous window's outputs). Not
-ported yet, and rejected by `config.require_ported`: segment-parallel runs
-and device meshes (M15), IP-Adapter (M11), the annotators of M13c, and M14's
-`temporal_band`, `token_merge_ratio` and `encoder_reuse_every`. The C++
+`overlap_strength` below 1 starts from the previous window's outputs). With
+`use_ipadapter` and `do_initial_generation` the run's first window runs
+twice, as in the JAX loop: once as any window, then again with its own last
+`overlap_length` frames as the last outputs (the IP-Adapter's anchor is the
+first of them) at `overlap_strength`, the first pass's first frame the
+stitch's color-match anchor. Not ported yet, and rejected by
+`config.require_ported`: segment-parallel runs and device meshes (M15), the
+annotators of M13c, and M14's `temporal_band`, `token_merge_ratio` and
+`encoder_reuse_every`. The C++
 ring buffer frame pipe (`use_native_framepipe`) is not ported: the loop
 takes the Python ffmpeg pipe, as the JAX loop does where that pipe cannot
 be built. JAX behaviours not copied: a missing RealESRGAN file raises FileNotFoundError
@@ -354,6 +359,8 @@ def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt
         consumed = frames_written = 0
     window = cfg.frame_count
     overlap_length = cfg.overlap_length
+    # the IP-Adapter's initial double pass runs on the run's first window
+    initial_pass = cfg.use_ipadapter and cfg.do_initial_generation
 
     def read_n(n: int) -> list[np.ndarray]:
         out = []
@@ -503,6 +510,16 @@ def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt
                     input_frames, last_out, overlaps=overlaps, strength=strength,
                     seed=seed, epoch=state.epoch, **cond_kw,
                 )
+                if initial_pass:
+                    # again, anchored on its own tail at `overlap_strength`;
+                    # its first frame becomes the color-match anchor
+                    initial_pass = False
+                    state.last_output_frame = frames_dev[0]
+                    anchors = frames_dev[-max(overlap_length, 1):]
+                    frames_dev = pipeline.animate(
+                        input_frames, anchors, overlaps=int(anchors.shape[0]),
+                        strength=cfg.overlap_strength, seed=seed, epoch=state.epoch, **cond_kw,
+                    )
 
             # the previous window's emit, while this window computes
             flush_emit()

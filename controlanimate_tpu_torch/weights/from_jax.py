@@ -14,11 +14,12 @@ below are the inverse of the JAX package's checkpoint loaders
 `models/annotators/mlsd_net.py` `mlsd_params_from_torch`, whose folded
 convs the port's `MLSDLarge` holds under the same names, and the OpenPose
 `body_params_from_torch`, `hand_params_from_torch` and
-`face_params_from_torch`), copied here so the port never imports that
-package. Kinds: "conv" HWIO -> OIHW, "dense" (in, out) -> (out, in), "raw"
-as is, "nchw" (1, H, W, C) -> (1, C, H, W), "lead1" with a leading axis of
-1 (a modulated conv's weight), "chan" (C,) -> (1, C, 1, 1), "vec1" () ->
-(1,).
+`face_params_from_torch`, `clip_weights.py` `vision_params_from_torch` and
+the IP-Adapter projections of `pipelines/ip_adapter.py` `build_projection`),
+copied here so the port never imports that package. Kinds: "conv" HWIO ->
+OIHW, "dense" (in, out) -> (out, in), "raw" as is, "nchw" (1, H, W, C) ->
+(1, C, H, W), "lead1" with a leading axis of 1 (a modulated conv's weight),
+"chan" (C,) -> (1, C, 1, 1), "vec1" () -> (1,).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from ..models.annotators.mlsd import IR_SPEC
 from ..models.annotators.openpose import BodyPoseNet
 from ..models.annotators.openpose_face import FaceNet
 from ..models.annotators.openpose_hand_face import HandPoseNet
-from ..models.clip import CLIPTextConfig
+from ..models.clip import CLIPTextConfig, CLIPVisionConfig
 from ..models.retinaface import RESNET50_STAGES, SSH_BRANCHES
 from ..models.unet3d import UNet3DConfig
 
@@ -86,12 +87,15 @@ def _ff(t: str, f: str) -> Iterator[Entry]:
     yield from _dense(f"{t}.net.2", f"{f}/net_2")
 
 
-def _spatial(t: str, f: str) -> Iterator[Entry]:
+def _spatial(t: str, f: str, ip: bool = False) -> Iterator[Entry]:
     yield from _norm(f"{t}.norm", f"{f}/norm")
     yield from _conv(f"{t}.proj_in", f"{f}/proj_in")
     tb, fb = f"{t}.transformer_blocks.0", f"{f}/transformer_blocks_0"
     yield from _attn(f"{tb}.attn1", f"{fb}/attn1")
     yield from _attn(f"{tb}.attn2", f"{fb}/attn2")
+    if ip:
+        for name in ("to_k_ip", "to_v_ip"):
+            yield f"{tb}.attn2.{name}.weight", f"{fb}/attn2/{name}/kernel", "dense"
     for n in ("norm1", "norm2", "norm3"):
         yield from _norm(f"{tb}.{n}", f"{fb}/{n}")
     yield from _ff(f"{tb}.ff", f"{fb}/ff")
@@ -113,6 +117,7 @@ def _motion(t: str, f: str, cfg: UNet3DConfig) -> Iterator[Entry]:
 
 
 def unet_mapping(cfg: UNet3DConfig) -> Iterator[Entry]:
+    ip = bool(cfg.ip_tokens)
     yield from _conv("conv_in", "conv_in/conv")
     yield from _dense("time_embedding.linear_1", "time_embedding/linear_1")
     yield from _dense("time_embedding.linear_2", "time_embedding/linear_2")
@@ -130,14 +135,14 @@ def unet_mapping(cfg: UNet3DConfig) -> Iterator[Entry]:
             t, f = f"down_blocks.{i}", f"down_blocks_{i}"
             yield from _resnet(f"{t}.resnets.{j}", f"{f}_resnets_{j}", j == 0 and in_ch != out_ch)
             if bt == "CrossAttnDownBlock3D":
-                yield from _spatial(f"{t}.attentions.{j}", f"{f}_attentions_{j}")
+                yield from _spatial(f"{t}.attentions.{j}", f"{f}_attentions_{j}", ip)
             if use_motion:
                 yield from _motion(f"{t}.motion_modules.{j}", f"{f}_motion_modules_{j}", cfg)
         if i < n_down - 1:
             yield from _conv(f"down_blocks.{i}.downsamplers.0.conv",
                              f"down_blocks_{i}_downsamplers_0/conv/conv")
     yield from _resnet("mid_block.resnets.0", "mid_block_resnets_0", False)
-    yield from _spatial("mid_block.attentions.0", "mid_block_attentions_0")
+    yield from _spatial("mid_block.attentions.0", "mid_block_attentions_0", ip)
     if cfg.use_motion_module and cfg.motion_module_mid_block:
         yield from _motion("mid_block.motion_modules.0", "mid_block_motion_modules_0", cfg)
     yield from _resnet("mid_block.resnets.1", "mid_block_resnets_1", False)
@@ -148,7 +153,7 @@ def unet_mapping(cfg: UNet3DConfig) -> Iterator[Entry]:
             t, f = f"up_blocks.{i}", f"up_blocks_{i}"
             yield from _resnet(f"{t}.resnets.{j}", f"{f}_resnets_{j}", True)
             if bt == "CrossAttnUpBlock3D":
-                yield from _spatial(f"{t}.attentions.{j}", f"{f}_attentions_{j}")
+                yield from _spatial(f"{t}.attentions.{j}", f"{f}_attentions_{j}", ip)
             if use_motion:
                 yield from _motion(f"{t}.motion_modules.{j}", f"{f}_motion_modules_{j}", cfg)
         if i < n_up - 1:
@@ -289,14 +294,56 @@ def clip_text_mapping(num_layers: int) -> Iterator[Entry]:
     yield f"{p}.embeddings.token_embedding.weight", "token_embedding/embedding", "raw"
     yield f"{p}.embeddings.position_embedding.weight", "position_embedding/embedding", "raw"
     for i in range(num_layers):
-        t, f = f"{p}.encoder.layers.{i}", f"layers_{i}"
-        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            yield from _dense(f"{t}.self_attn.{name}", f"{f}/self_attn/{name}")
-        yield from _norm(f"{t}.layer_norm1", f"{f}/layer_norm1")
-        yield from _norm(f"{t}.layer_norm2", f"{f}/layer_norm2")
-        yield from _dense(f"{t}.mlp.fc1", f"{f}/mlp_fc1")
-        yield from _dense(f"{t}.mlp.fc2", f"{f}/mlp_fc2")
+        yield from _clip_layer(f"{p}.encoder.layers.{i}", f"layers_{i}")
     yield from _norm(f"{p}.final_layer_norm", "final_layer_norm")
+
+
+def _clip_layer(t: str, f: str) -> Iterator[Entry]:
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        yield from _dense(f"{t}.self_attn.{name}", f"{f}/self_attn/{name}")
+    yield from _norm(f"{t}.layer_norm1", f"{f}/layer_norm1")
+    yield from _norm(f"{t}.layer_norm2", f"{f}/layer_norm2")
+    yield from _dense(f"{t}.mlp.fc1", f"{f}/mlp_fc1")
+    yield from _dense(f"{t}.mlp.fc2", f"{f}/mlp_fc2")
+
+
+def clip_vision_mapping(num_layers: int) -> Iterator[Entry]:
+    p = "vision_model"
+    yield f"{p}.embeddings.class_embedding", "class_embedding", "raw"
+    yield f"{p}.embeddings.patch_embedding.weight", "patch_embedding/kernel", "conv"
+    yield f"{p}.embeddings.position_embedding.weight", "position_embedding/embedding", "raw"
+    yield from _norm(f"{p}.pre_layrnorm", "pre_layrnorm")
+    for i in range(num_layers):
+        yield from _clip_layer(f"{p}.encoder.layers.{i}", f"layers_{i}")
+    yield from _norm(f"{p}.post_layernorm", "post_layernorm")
+    yield "visual_projection.weight", "visual_projection/kernel", "dense"
+
+
+def image_proj_mapping(depth: int = 0) -> Iterator[Entry]:
+    """The base `ImageProjModel`'s keys, or with `depth` the `Resampler`'s."""
+    if not depth:
+        yield from _dense("proj", "proj")
+        yield from _norm("norm", "norm")
+        return
+    yield "latents", "latents", "raw"
+    yield from _dense("proj_in", "proj_in")
+    yield from _dense("proj_out", "proj_out")
+    yield from _norm("norm_out", "norm_out")
+    for i in range(depth):
+        a = f"layers_{i}_attn"
+        yield from _norm(f"layers.{i}.0.norm1", f"{a}/norm1")
+        yield from _norm(f"layers.{i}.0.norm2", f"{a}/norm2")
+        for name in ("to_q", "to_kv", "to_out"):
+            yield from _dense(f"layers.{i}.0.{name}", f"{a}/{name}", bias=False)
+        yield from _norm(f"layers.{i}.1.0", f"layers_{i}_ff_norm")
+        yield from _dense(f"layers.{i}.1.1", f"layers_{i}_ff_0", bias=False)
+        yield from _dense(f"layers.{i}.1.3", f"layers_{i}_ff_2", bias=False)
+
+
+def mlp_proj_mapping() -> Iterator[Entry]:
+    yield from _dense("proj.0", "proj_0")
+    yield from _dense("proj.2", "proj_2")
+    yield from _norm("proj.3", "norm")
 
 
 def rrdbnet_mapping(num_block: int) -> Iterator[Entry]:
@@ -408,6 +455,18 @@ def vae_state_dict(params: dict, block_out_channels=(128, 256, 512, 512)) -> dic
 
 def clip_text_state_dict(params: dict, cfg: CLIPTextConfig) -> dict[str, torch.Tensor]:
     return _state_dict(params, clip_text_mapping(cfg.num_layers))
+
+
+def clip_vision_state_dict(params: dict, cfg: CLIPVisionConfig) -> dict[str, torch.Tensor]:
+    return _state_dict(params, clip_vision_mapping(cfg.num_layers))
+
+
+def image_proj_state_dict(params: dict, depth: int = 0) -> dict[str, torch.Tensor]:
+    return _state_dict(params, image_proj_mapping(depth))
+
+
+def mlp_proj_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(params, mlp_proj_mapping())
 
 
 def rrdbnet_state_dict(params: dict, num_block: int) -> dict[str, torch.Tensor]:

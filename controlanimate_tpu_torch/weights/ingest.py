@@ -15,7 +15,9 @@ Counterpart of `controlanimate_tpu/weights/ingest.py`:
     `.bin`, and transformers' `pytorch_model.bin`; a single remaining
     weights file. More than one candidate at the deciding step raises
     ValueError naming them; a missing directory, `config.json` or weight
-    file raises FileNotFoundError.
+    file raises FileNotFoundError;
+  * `build_module` makes a module on the meta device and gives it such a
+    state dict on the target device in the run dtype.
 
 JAX behaviour not copied: the JAX `load_hf_component` loads every
 `*.safetensors`, then every `*.bin`, then every `*.ckpt` of the directory and
@@ -29,10 +31,11 @@ from __future__ import annotations
 import json
 import struct
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch import nn
 
 # safetensors dtype -> numpy dtype of the stored words (BF16 read as 16-bit
 # words and viewed as torch.bfloat16)
@@ -138,3 +141,18 @@ def load_hf_component(snapshot: str | Path, component: str) -> tuple[dict, dict[
     for path in component_weight_files(d):
         state.update(load_state_dict(path))
     return json.loads(cfg_path.read_text()), state
+
+
+def build_module(make: Callable[[], nn.Module], state: dict[str, torch.Tensor], device,
+                 dtype: torch.dtype, convert: Callable) -> nn.Module:
+    """`make()` on the meta device, given `convert(state, its keys)` cast to
+    `dtype` on `device` (integer tensors keep theirs); its non-persistent
+    buffers (made on the host at construction) then move to `device`. No
+    copy of the module is made in another dtype on the device."""
+    with torch.device("meta"):
+        module = make()
+    sd = convert(state, module.state_dict().keys())
+    sd = {k: v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
+          for k, v in sd.items()}
+    module.load_state_dict(sd, strict=True, assign=True)
+    return module.to(device)

@@ -159,15 +159,16 @@ def test_lcm_window_with_two_controlnets_matches_jax(engines, guess_mode):
 
 
 def test_unported_window_settings_raise(engines):
-    """A window with IP-Adapter tokens (M11) raises NotImplementedError. A
-    window without `use_lcm` runs (M10); with a name the registry lacks it
-    raises KeyError listing the names, and with overlap-latent reuse
-    (native LCM only) ValueError."""
+    """A window whose IP-Adapter token count differs from the UNet's raises
+    ValueError (JAX splits the wrong tokens off without a word). A window
+    without `use_lcm` runs (M10); with a name the registry lacks it raises
+    KeyError listing the names, and with overlap-latent reuse (native LCM
+    only) ValueError."""
     _, teng = engines
     frames, ctx = _inputs(15)
     draws = JaxDraws(jax.random.PRNGKey(0))
     _, tst = _window(ip_tokens=4)
-    with pytest.raises(NotImplementedError, match="M11"):
+    with pytest.raises(ValueError, match="IP-Adapter tokens"):
         teng.generate_window(tst, torch.from_numpy(ctx), draws,
                              input_frames=torch.from_numpy(frames))
     ctx2 = torch.from_numpy(np.concatenate([ctx, ctx * 0.5]))

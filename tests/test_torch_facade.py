@@ -96,8 +96,8 @@ def test_default_noise_is_seeded(pipelines):
 
 
 def test_unported_facade_paths_raise():
-    """M13 annotators and IP-Adapter raise NotImplementedError. A run
-    without `use_lcm` is ported; a `scheduler` that names no sampler raises
+    """M13 annotators raise NotImplementedError (IP-Adapter is ported:
+    tests/test_torch_ip_adapter.py). A run without `use_lcm` is ported; a `scheduler` that names no sampler raises
     KeyError when the pipeline is built, before the disk build reads a file
     (JAX raises it at the first window)."""
     with pytest.raises(KeyError, match="EulerDiscreteScheduler"):
@@ -108,8 +108,7 @@ def test_unported_facade_paths_raise():
     _, _, tclip = clip_pair()
     models = tengine.EngineModels(unet=tunet, vae=tvae)
     text = tfacade.TextStack(CLIPTokenizer.tiny(), tclip)
-    for bad, what in (({"controlnets": ("lllyasviel/control_v11p_sd15_softedge",)}, "M13"),
-                      ({"use_ipadapter": True}, "use_ipadapter")):
+    for bad, what in (({"controlnets": ("lllyasviel/control_v11p_sd15_softedge",)}, "M13"),):
         with pytest.raises(NotImplementedError, match=what):
             tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, **bad}), models=models,
                                            text_stack=text, device="cpu")
@@ -148,7 +147,8 @@ def test_cfg_windows_match_jax():
     assert _lsb(out2_t.numpy(), out_t.numpy()) > 1
 
 
-@pytest.mark.parametrize("name", ["SampleConfigLCM", "SampleConfig", "SampleConfigTxt2Vid"])
+@pytest.mark.parametrize("name", ["SampleConfigLCM", "SampleConfig", "SampleConfigTxt2Vid",
+                                  "SampleConfigIPAdapter"])
 def test_config_loaders_match_jax(name):
     """The port's copy of the config reads the shipped YAML profiles as the
     JAX package does, for every field it keeps; the rest lands in extras."""

@@ -8,7 +8,9 @@ the card against the CPU, the ControlNet slice: canny and HED on the
 card against the CPU, and a small pipeline with two ControlNets; and the
 multi-step samplers: small windows under classifier-free guidance (Euler
 with a ControlNet, the LCM-LoRA tail, DPM-Solver) on the card against the
-CPU.
+CPU; the IP-Adapter's image encoder: K1 at its (1, 257, 16, 80) shape, and a
+narrow tower of its token count and head width in bf16 (on K1) against the
+same tower in fp32 through the plain attention.
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -67,6 +69,52 @@ def test_kernel_matches_plain(cuda, shape, nk, dtype):
     assert flash_attention.launches == before + 1
     bad = chip_smoke.k1_mismatch(torch, out, flash_attention_plain(q, k, v))
     assert bad is None, bad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_the_image_encoder_shape(cuda, dtype):
+    """K1 at the CLIP ViT-H/14 tower's self-attention, (1, 257, 16, 80):
+    257 = 4 * 64 + 1 leaves one valid row in the last query and key tiles;
+    `chip_smoke.k1_mismatch`'s gates."""
+    import chip_smoke
+
+    q, k, v = _qkv((1, 257, 16, 80), cuda, dtype, seed=3)
+    bad = chip_smoke.k1_mismatch(torch, flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    assert bad is None, bad
+
+
+def test_image_encoder_bf16_on_k1_matches_fp32_plain(cuda, monkeypatch):
+    """A CLIP vision tower of ViT-H/14's token count and head width (224 px,
+    patch 14: 257 tokens; 2 heads of 80; 4 layers), seeded: in bf16 its
+    self-attention runs on K1 (4 launches at (2, 257, 257, 2, 80) for two
+    frames); in fp32 with the plain attention it is the reference. Gate:
+    each output within 5e-2 of the reference's largest magnitude (bf16
+    activations through four layers)."""
+    from controlanimate_tpu_torch.models.clip import (CLIPVisionConfig,
+                                                      CLIPVisionModelWithProjection)
+    from controlanimate_tpu_torch.ops import attention as attention_module
+    from controlanimate_tpu_torch.pipelines.ip_adapter import preprocess_clip_image
+
+    torch.manual_seed(0)
+    tower = CLIPVisionModelWithProjection(CLIPVisionConfig(
+        hidden_size=160, num_layers=4, num_heads=2, intermediate_size=320,
+        projection_dim=64)).to(cuda).eval()
+    frames = torch.randint(0, 256, (2, 96, 72, 3), dtype=torch.uint8, device=cuda)
+    px = preprocess_clip_image(frames)
+    with torch.no_grad():
+        fp32_tower = CLIPVisionModelWithProjection(tower.config).to(cuda).eval()
+        fp32_tower.load_state_dict(tower.state_dict())
+        with monkeypatch.context() as m:
+            m.setattr(attention_module, "flash_attention", flash_attention_plain)
+            want = fp32_tower(px)
+        tower.to(torch.bfloat16)
+        flash_attention.launches_by_shape.clear()
+        got = tower(px.to(torch.bfloat16))
+    assert dict(flash_attention.launches_by_shape) == {(2, 257, 257, 2, 80): 4}
+    for key in ("image_embeds", "pooled_output", "penultimate_hidden_states"):
+        ref = want[key].float()
+        err = float((got[key].float() - ref).abs().max())
+        assert err <= 5e-2 * float(ref.abs().max()), (key, err)
 
 
 def test_kernel_reads_strided_inputs(cuda):

@@ -61,3 +61,11 @@ def test_the_controlnet_slice_is_checked():
     assert {f"controlanimate_tpu_torch/{m}" for m in (
         "models/controlnet.py", "ops/canny.py", "models/annotators/__init__.py",
         "models/annotators/edge_nets.py", "weights/controlnet_weights.py")} <= names
+
+
+def test_the_ip_adapter_slice_is_checked():
+    """The IP-Adapter slice's modules are among the files checked above."""
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {f"controlanimate_tpu_torch/{m}" for m in (
+        "pipelines/ip_adapter.py", "models/clip.py", "weights/clip_weights.py",
+        "models/layers.py")} <= names

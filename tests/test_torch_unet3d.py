@@ -36,10 +36,13 @@ def test_unet_matches_jax(kw, motion, frames):
 
 
 def test_unported_unet_options_raise():
-    """IP-Adapter tokens are not ported; ControlNet residuals are, and a list
-    that does not match the skips raises (JAX's zip drops the extra ones)."""
-    with pytest.raises(NotImplementedError):
-        UNet3DConditionModel(UNet3DConfig(**TINY_UNET, ip_tokens=4))
+    """IP-Adapter tokens are ported (tests/test_torch_ip_adapter.py): a
+    context with no text before its image tokens raises. ControlNet
+    residuals are ported, and a list that does not match the skips raises
+    (JAX's zip drops the extra ones)."""
+    ip_model = UNet3DConditionModel(UNet3DConfig(**TINY_UNET, ip_tokens=4))
+    with pytest.raises(ValueError, match="image tokens"):
+        ip_model(torch.zeros(1, 2, 8, 8, 4), torch.tensor([1]), torch.zeros(1, 4, 24))
     tmodel = UNet3DConditionModel(UNet3DConfig(**TINY_UNET))
     x = torch.zeros(1, 2, 8, 8, 4)
     with pytest.raises(ValueError, match="residuals"):
