@@ -67,8 +67,15 @@ Phases, each printed as one JSON line with its seconds:
              window must differ from the same window on the card at
              guidance 1.0 (Euler under CFG and the LCM-LoRA tail run at
              full width in the cfg and disk phases; their 64x64
-             card-against-CPU windows are in tests/test_torch_gpu.py). The
-             line holds each step's seconds (`step_seconds`).
+             card-against-CPU windows are in tests/test_torch_gpu.py); then
+             the segment-parallel loop (`small_segment_reference`: the
+             small fp32 pipeline, `parallel_segments` 2, 12 frames, two
+             windows a segment) on the card against the CPU, each window
+             within 1 LSB (the written frames, which the color match
+             chains, reported), and its first window against the
+             sequential loop on each segment's frames alone on the card,
+             within 1 LSB. The line holds each step's seconds
+             (`step_seconds`).
   window     the native-LCM window at full SD1.5 width through the facade
              (512x512, 16 frames, 4 LCM steps, no CFG, strength 0.9), random
              bf16 weights made on the card from a seed. One warm-up window,
@@ -115,10 +122,10 @@ Phases, each printed as one JSON line with its seconds:
              `lllyasviel/sd-controlnet-hed` at 0.5; seeded by
              `init_weights_`, so their zero-conv heads are not zero) and a
              full-width HED seeded by `init_hed_`: each window annotated on
-             the card, both nets run each step, their residuals summed into
-             the UNet. Checks 40 frames written, frames that differ from
+             the UNet, over the first 24 frames (one whole and one overlap
+             window). Checks 24 frames written, frames that differ from
              vid2vid_plain_conv's, and K1's launches by shape: the UNet's,
-             the VAE's and each ControlNet's 7 self-attentions a step (488
+             the VAE's and each ControlNet's 7 self-attentions a step (244
              at 512x512). Prints new frames/s beside vid2vid_plain_conv's,
              peak memory, the loop's timers (`annotate` among them), and by
              CUDA events each annotator's time on a 16-frame window and
@@ -153,15 +160,17 @@ Phases, each printed as one JSON line with its seconds:
   vid2vid_upscale
              the upscale path: the same loop (K2 off) with `upscale` 4 and
              a full-width RealESRGAN x4 RRDBNet (64 features, 6 blocks,
-             random weights seeded on the card, run in bf16), its tail on K4.
-             Checks 40 frames of (2048, 2048, 3) uint8 written and K4's
+             random weights seeded on the card, run in bf16), its tail on K4,
+             over the first 24 frames (one whole and one overlap window).
+             Checks 24 frames of (2048, 2048, 3) uint8 written and K4's
              launches by shape against what the upscaler's chunking implies
              (3 a chunk); prints new frames/s, peak memory, the loop's
              timers, the device time of one emit's upscale and of its RRDB
              body (CUDA events), the share of output values at 0 or 255,
              and the uint8
              difference against the same upscaler applied on the card to the
-             vid2vid_plain_conv phase's frames (reported, not gated).
+             vid2vid_plain_conv phase's frames of the two windows' emits
+             (reported, not gated).
   disk       the disk build and the CLI, the path of the shipped profiles:
              writes a synthetic HF-layout snapshot of the window phase's
              bf16 models under build/chip_smoke_snapshot/ (unet/, vae/,
@@ -187,19 +196,15 @@ Phases, each printed as one JSON line with its seconds:
              8 frames written): its frames must equal the controlnet
              phase's first 8 and its K1 launches by shape those that one
              window with both ControlNets implies. Then the LCM-LoRA
-             profile (SampleConfigLCMLoRA.yaml: `use_lcm` 0,
-             `LCMScheduler` with tail truncation, 7 steps, CFG 1.1;
-             openpose at 1.0, lineart at 0.35, MLSD at 1.0 and HED at 0.4;
-             512x768, `upscale` 2 and the face enhancer with `upscale_first`
-             1, on the files the 512x768 run below reads) with a synthetic
+             profile's files (SampleConfigLCMLoRA.yaml: openpose at 1.0,
+             lineart at 0.35, MLSD at 1.0 and HED at 0.4; 512x768,
+             `upscale` 2 and the face enhancer with `upscale_first` 1, on
+             the files the 512x768 run below reads) with a synthetic
              Kohya-layout LoRA (`kohya_lora`) on the UNet's cross-attention
              and the text encoder's attention projections, fused on the
-             host: one window of the injected pipeline (the same nets and
-             annotators, through an Upscaler read from the same files; 8
-             frames of (1536, 1024)) must launch K1 by shape (B*F = 32 on
-             the 96x64 latent, the four ControlNets' included) and K4 as the
-             code implies; it prints the people, hands and faces of the
-             last OpenPose map (0 with the seeded body network). Then the
+             host into the injected pipeline (the same nets and
+             annotators, an Upscaler read from the same files) that the
+             next run is held against. Then the
              IP-Adapter profile as shipped
              (SampleConfigIPAdapter.yaml, its settings checked against the
              file: the LCM-LoRA profile's LoRA, ControlNets, geometry,
@@ -225,7 +230,9 @@ Phases, each printed as one JSON line with its seconds:
              projection) must equal the injected one, and its frames must
              equal the injected pipeline's (the same tensors,
              its adapter read from the same files: the adapter's build
-             seconds; then the image encoder's ms an embed by CUDA events).
+             seconds; then the image encoder's ms an embed by CUDA events;
+             the people, hands and faces of the last OpenPose map, 0 with
+             the seeded body network).
              In the CLI runs the weights, noise and kernels are those of
              the injected run (bf16); when the frames differ, the injected
              loop runs again and the difference may not exceed that
@@ -236,8 +243,8 @@ Phases, each printed as one JSON line with its seconds:
              vid2vid_upscale phase's RealESRGAN, its tail on K4, then
              Lanczos4), the face enhancer with `upscale_first` 1 (a
              full-width GFPGANv1.3 and RetinaFace-ResNet50, seeded, written
-             into the snapshot in their release layouts), over 24 frames
-             (one whole and one overlap-8 window) to (1536, 1024) PNGs.
+             into the snapshot in their release layouts), over 16 frames
+             (one window) to (1536, 1024) PNGs.
              Its K1, K2 and K4 launches by shape must equal what the UNet,
              the VAE and the upscaler's chunking imply, and its frames must
              equal those of the injected pipeline on inference-v1.yaml with
@@ -245,8 +252,23 @@ Phases, each printed as one JSON line with its seconds:
              (difference 0). The seeded detector finds no face at 0.97
              (`retinaface_checkpoint`), so nothing is restored there; the
              run reports the faces found and the detector's time a frame
-             (CUDA events). Prints the
-             snapshot's write seconds and bytes, each run's disk-build
+             (CUDA events). Then the shipped SampleConfigMultiChip.yaml
+             (its settings checked against the file) through the CLI
+             without its `mesh_shape` (the port takes no mesh; JAX's
+             make_mesh refuses [4, 2] on one device): 64 seeded 512x512
+             PNGs in 4 segments of one 16-frame window each, run as one
+             window at B*F = 64 (native LCM, 4 steps, inference-v1.yaml
+             with mm_v1.ckpt, CONTROLANIMATE_PALLAS_MOTION=1, the VAE
+             decoding 16 frames a pass): 64 frames of (512, 512, 3) not
+             constant, K3's launches by shape at B = 4 (80: 20 v1 motion
+             modules x 4 steps) and K1's as `expected_k1_launches` implies
+             at batch 4, no K2, and its frames equal to the injected
+             pipeline's S = 4 run of the same weights (difference 0); that
+             run's loop seconds, new frames/s and peak memory beside the
+             sequential loop's over each segment's 16 frames alone (the
+             same injected pipeline), and the uint8 difference between
+             them (reported, not gated: bf16 at two batch sizes). Prints
+             the snapshot's write seconds and bytes, each run's disk-build
              seconds (the loop's `build_pipeline` timer), loop seconds and
              new frames/s (the PNG source and sink included), peak memory
              and timers; deletes the snapshot.
@@ -259,8 +281,8 @@ Phases, each printed as one JSON line with its seconds:
              memory. Fails if GFPGAN's fp32 output is not finite, or a
              paste leaves its face's centre unchanged.
   kernels    K1 against its plain version at every shape the window phase,
-             the cfg phase and the disk phase's 512x768, LCM-LoRA and
-             IP-Adapter runs launched it with (the image encoder's (1, 257,
+             the cfg phase and the disk phase's 512x768, IP-Adapter and
+             segment runs launched it with (the image encoder's (1, 257,
              257, 16, 80) among them, its plain version timed; the plain
              version on slices of the batch where its scores would pass
              PLAIN_SCORE_BYTES), plus odd
@@ -279,10 +301,12 @@ Phases, each printed as one JSON line with its seconds:
              PyTorch call's (SDPA for K1, `F.conv2d` on the activated input
              for K2: yardsticks the port never calls) and the bound, and
              their sums over a window at both geometries, and K1's over the
-             vid2vid, controlnet and cfg phases' and the LCM-LoRA and
-             IP-Adapter runs' launches, and the image encoder's alone.
+             vid2vid, controlnet and cfg phases' and the IP-Adapter and
+             segment runs' launches, and the image encoder's alone.
   kernels_k3 K3 against its plain version at every shape the
-             window_motion_kernel phase launched it with, plus odd shapes
+             window_motion_kernel phase and the disk phase's segment run
+             (v1, B = 4; its plain version checked, not timed) launched it
+             with, plus odd shapes
              (N = 37, F = 8 and 24, PE off, C = 64), in bf16 and fp32
              (`k3_mismatch` states the gates); then K3's time, its plain
              version's, the port's dense `TemporalTransformer3D`'s in bf16
@@ -295,7 +319,8 @@ Phases, each printed as one JSON line with its seconds:
              K3's and the dense path's time on the card alone
              (`device_ms`, `library_device_ms`: torch.profiler's summed
              activity, without the waits for the host that the CUDA-event
-             times include).
+             times include); the line sums K3's times over the segment
+             run's launches (`segments_path`).
   kernels_k4 K4 against its plain version at every shape vid2vid_upscale
              launched it with and at the disk phase's 512x768 run's (bf16
              as launched, there each frame of the batch against the plain
@@ -771,11 +796,12 @@ def k3_inputs(torch, shape, gen):
     return mod, x
 
 
-def check_k3(torch, mk, shape, gen) -> dict:
+def check_k3(torch, mk, shape, gen, fp32: bool = True) -> dict:
     """K3 at (B, F, N, C, heads, use_pe) against its plain version, in fp32
     and in bf16 on the same weights and input; the max abs errors, and the
     bf16 kernel's and the bf16 plain version's max abs error against the fp32
-    plain version (how far each is from the function in fp32)."""
+    plain version (how far each is from the function in fp32). Without
+    `fp32` the fp32 kernel does not run (its error is None)."""
     import copy
 
     mod32, x32 = k3_inputs(torch, shape, gen)
@@ -784,15 +810,18 @@ def check_k3(torch, mk, shape, gen) -> dict:
     with torch.no_grad():
         for mod, x in ((mod32, x32), (copy.deepcopy(mod32).to(torch.bfloat16), x32.bfloat16())):
             p, pe = mod.fused_operands(x)
-            out = mk.motion_module_fused(x, p, heads=heads, pe=pe)
             ref = mk.motion_module_plain(x, p, heads=heads, pe=pe)
+            if x.dtype == torch.float32 and not fp32:
+                outs[x.dtype] = (None, ref.float())
+                continue
+            out = mk.motion_module_fused(x, p, heads=heads, pe=pe)
             bad = k3_mismatch(torch, out, ref)
             if bad:
                 raise AssertionError(f"K3 {shape} {x.dtype}: {bad}")
             outs[x.dtype] = (out.float(), ref.float())
     (out32, ref32), (out16, ref16) = outs[torch.float32], outs[torch.bfloat16]
     return {"max_abs_err_bf16": (out16 - ref16).abs().max().item(),
-            "max_abs_err_fp32": (out32 - ref32).abs().max().item(),
+            "max_abs_err_fp32": None if out32 is None else (out32 - ref32).abs().max().item(),
             "bf16_kernel_vs_fp32": (out16 - ref32).abs().max().item(),
             "bf16_plain_vs_fp32": (ref16 - ref32).abs().max().item()}
 
@@ -1131,10 +1160,11 @@ def unet_k3_calls(unet, latent: int):
     return calls
 
 
-def expected_k3_launches(unet, latent: int, frames_n: int, steps: int, windows: int) -> dict:
+def expected_k3_launches(unet, latent: int, frames_n: int, steps: int, windows: int,
+                         batch: int = 1) -> dict:
     """K3 launches by (B, F, N, C, heads) over `windows` windows of `steps`
-    UNet forwards each (batch 1: no CFG)."""
-    return {(1, frames_n, n, c, h): k * steps * windows
+    UNet forwards each, at `batch` (no CFG; the segments of a segment run)."""
+    return {(batch, frames_n, n, c, h): k * steps * windows
             for (n, c, h), k in unet_k3_calls(unet, latent).items()}
 
 
@@ -1430,13 +1460,13 @@ def kohya_lora(torch, unet_sd: dict, te_sd: dict, gen, rank: int = 4) -> dict:
     return lora
 
 
-def write_frames(np, directory: Path, frames) -> None:
-    """Frames as numbered PNGs (a frame directory the loop reads without
-    ffmpeg)."""
+def write_frames(np, directory: Path, frames, start: int = 0) -> None:
+    """Frames as PNGs numbered from start + 1 (a frame directory the loop
+    reads without ffmpeg)."""
     from PIL import Image
 
     def save(i):
-        Image.fromarray(np.asarray(frames[i])).save(directory / f"{i + 1:04d}.png",
+        Image.fromarray(np.asarray(frames[i])).save(directory / f"{start + i + 1:04d}.png",
                                                     compress_level=1)
 
     directory.mkdir(parents=True, exist_ok=True)
@@ -1572,6 +1602,74 @@ def small_reference(torch, conv_kernel: bool = False, motion_kernel: bool = Fals
         out = plain.animate(frames, None, seed=SEED, noise=HostNoise(SEED, "cuda")).cpu()
         seconds["guidance_change_max"] = int((out.int() - outs[1][0].int()).abs().max())
     return {"max_lsb": int(diff.max()), "mean_lsb": float(diff.float().mean()), **seconds}
+
+
+class RecordedNoise:
+    """A pipeline that draws its noise on the host (`HostNoise`) and keeps
+    each window's frames (`animate` returns, on the CPU), for the segment
+    checks."""
+
+    def __init__(self, pipe):
+        self.pipe, self.device, self.windows = pipe, pipe.device, []
+
+    def animate(self, *args, seed, **kw):
+        out = self.pipe.animate(*args, seed=seed, noise=HostNoise(seed, self.device), **kw)
+        self.windows.append(out.cpu())
+        return out
+
+
+def small_segment_reference(torch, out_dir: Path = ROOT / "build" / "chip_smoke_segments",
+                            card: str = "cuda") -> dict:
+    """The small fp32 pipeline's segment-parallel loop (`parallel_segments`
+    2, 12 frames: two windows of 4 frames, overlap 2, a segment) on `card`
+    against the same run on the CPU (same weights, host-drawn noise): each
+    window's uint8 frames (both segments) within 1 LSB (`max_lsb`), and the
+    frames written, whose stitch color-matches window 2 to window 1, as far
+    apart (`frames_max_lsb`, reported). Then the sequential loop on `card`
+    over each segment's first 4 frames alone: its window against the segment
+    run's first window of that segment (`sequential_max_lsb`), within 1 LSB
+    (the parity contract of tests/test_vid2vid_e2e.py:538)."""
+    import copy
+
+    import numpy as np
+
+    from controlanimate_tpu_torch import vid2vid as v2v
+    from controlanimate_tpu_torch.io.media import ArrayFrameSink, ArrayFrameSource
+    from controlanimate_tpu_torch.pipelines.facade import ControlAnimatePipeline
+
+    cfg, models, text = small_models(torch, "float32", False)
+    cfg = cfg.replace(parallel_segments=2, checkpoint_interval=0, seed=SEED,
+                      overlap_strength=0.85, ffmpeg_path=str(out_dir / "no-ffmpeg"))
+    frames = synthetic_video(np, 12, 64, 64, SEED)
+    runs, sinks = {}, {}
+    for device in ("cpu", card):
+        pipe = ControlAnimatePipeline(cfg, models=copy.deepcopy(models),
+                                      text_stack=copy.deepcopy(text), device=device)
+        runs[device], sinks[device] = RecordedNoise(pipe), ArrayFrameSink()
+        summary = v2v.vid2vid(config=cfg.replace(output_video_dir=str(out_dir / device)),
+                              pipeline=runs[device], frame_source=ArrayFrameSource(frames),
+                              frame_sink=sinks[device])
+        if summary["windows"] != 2 or summary["segments"] != 2 or summary[
+                "frames_written"] != len(frames):
+            raise AssertionError(f"the small segment run on {device}: {summary}")
+    card_pipe = runs[card].pipe
+    window_diff = max(int((a.int() - b.int()).abs().max())
+                      for a, b in zip(runs["cpu"].windows, runs[card].windows))
+    frames_diff = np.abs(np.stack(sinks["cpu"].frames).astype(np.int16)
+                         - np.stack(sinks[card].frames).astype(np.int16))
+    seq_diff = 0
+    for s in range(2):
+        seq = RecordedNoise(card_pipe)
+        v2v.vid2vid(config=cfg.replace(parallel_segments=0,
+                                       output_video_dir=str(out_dir / f"sequential_{s}")),
+                    pipeline=seq, frame_source=ArrayFrameSource(frames[6 * s:6 * s + 4]),
+                    frame_sink=ArrayFrameSink())
+        seq_diff = max(seq_diff, int((seq.windows[0].int()
+                                      - runs[card].windows[0][s].int()).abs().max()))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"max_lsb": window_diff, "frames_max_lsb": int(frames_diff.max()),
+            "frames_mean_lsb": float(frames_diff.mean()), "sequential_max_lsb": seq_diff,
+            "windows": len(runs[card].windows)}
 
 
 # the cfg phase's profile: SampleConfig.yaml's sampler (with one canny
@@ -1990,24 +2088,28 @@ def plain_attention(attention_module, plain):
 
 def expected_k1_launches(full_windows: int, overlap_windows: int, steps: int,
                          frames_n: int, overlap: int, latent=(64, 64),
-                         controlnets: int = 0) -> dict:
-    """K1 launches by shape that windows on `latent` (h, w) imply: the UNet's
-    self-attention `steps` times a window, each ControlNet's (its down and
-    mid path) as often, one VAE mid-block attention in the decode (all
-    frames) and one in the encode (all frames, or only the new ones when the
-    overlap latents are reused)."""
-    windows = full_windows + overlap_windows
-    expected = {shape: n * steps * windows
-                for shape, n in unet_k1_shapes(frames_n, latent).items()}
+                         controlnets: int = 0, batch: int = 1, decode_chunk: int = 0) -> dict:
+    """K1 launches by shape that windows of `batch` segments on `latent` (h,
+    w) imply: the UNet's self-attention `steps` times a window at B*F =
+    batch * frames_n, each ControlNet's (its down and mid path) as often,
+    one VAE mid-block attention in the decode (all B*F frames, or
+    `decode_chunk` frames a pass) and one in the encode (all frames, or only
+    the new ones when the overlap latents are reused)."""
+    from collections import Counter
+
+    windows, bf = full_windows + overlap_windows, batch * frames_n
+    expected = Counter({shape: n * steps * windows
+                        for shape, n in unet_k1_shapes(bf, latent).items()})
     n = latent[0] * latent[1]
     for div, D, blocks in CONTROLNET_LEVELS:
-        key = (frames_n, n // div, n // div, 8, D)
-        expected[key] += controlnets * blocks * steps * windows
+        expected[(bf, n // div, n // div, 8, D)] += controlnets * blocks * steps * windows
     # the VAE's mid block sees the latent grid with one head of 512
-    expected[(frames_n, n, n, 1, 512)] = windows + full_windows
+    chunk = decode_chunk or bf
+    expected[(chunk, n, n, 1, 512)] += windows * (bf // chunk)
+    expected[(bf, n, n, 1, 512)] += full_windows
     if overlap_windows:
-        expected[(frames_n - overlap, n, n, 1, 512)] = overlap_windows
-    return expected
+        expected[(batch * (frames_n - overlap), n, n, 1, 512)] += overlap_windows
+    return {shape: k for shape, k in expected.items() if k}
 
 
 def expected_cfg_k1_launches(window_steps: list, frames_n: int, encodes: list,
@@ -2125,6 +2227,9 @@ def main() -> int:
         torch, motion_kernel=True, controlnet=True, windows=1, unguided=True, **DPM_CFG))
     cfg_k1_batches = sorted({key[0] for key in fa.flash_attention.launches_by_shape})
     k3_cfg_batches = sorted({key[0] for key in mk.motion_module_fused.launches_by_shape})
+    # the segment-parallel loop, 2 segments of two windows, card against CPU
+    # and against the sequential loop on each segment
+    ref_seg = step("segments", lambda: small_segment_reference(torch))
     phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
           k2_launches=k2_ref_launches, k3_max_lsb=ref_k3["max_lsb"],
           k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches,
@@ -2132,11 +2237,14 @@ def main() -> int:
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
           k4_launches=k4_ref_launches, face=ref_face, canny=ref_canny, hed=ref_hed,
           lineart_mlsd=ref_annotators, openpose=ref_openpose, controlnet=ref_cn,
-          dpm_cfg_controlnet_k3=ref_cfg_k3, cfg_k1_batches=cfg_k1_batches,
+          dpm_cfg_controlnet_k3=ref_cfg_k3, segments=ref_seg, cfg_k1_batches=cfg_k1_batches,
           cfg_k3_batches=k3_cfg_batches, step_seconds=step_seconds)
     for r in (ref, ref_k2, ref_k3, ref_cfg_k3):
         if r["max_lsb"] > 1:
             raise AssertionError(f"card and CPU pipelines differ by {r['max_lsb']} LSB")
+    if ref_seg["max_lsb"] > 1 or ref_seg["sequential_max_lsb"] > 1:
+        raise AssertionError(f"the card's segment run differs from the CPU's, or its first "
+                             f"window from the sequential runs', by more than 1 LSB: {ref_seg}")
     if not ref_cfg_k3["guidance_change_max"]:
         raise AssertionError("guidance changed nothing: the small CFG window equals the "
                              "unguided one")
@@ -2449,20 +2557,22 @@ def main() -> int:
                              annotators=[canny, hed])
     torch.cuda.synchronize()
     t_cn_build = time.perf_counter() - t0
+    # one whole and one overlap window
+    cn_n = 2 * frames_n - overlap
     summary_cn, cn_frames, cn_seconds, _, counts, cn_peak = run_vid2vid(
-        False, "controlnet", engine_models=cn_models, **cn_settings)
-    if summary_cn["frames_written"] != len(video) or len(cn_frames) != len(video):
+        False, "controlnet", engine_models=cn_models, source=video[:cn_n], **cn_settings)
+    if summary_cn["frames_written"] != cn_n or len(cn_frames) != cn_n:
         raise AssertionError(f"the ControlNet loop wrote {summary_cn['frames_written']} frames")
     if any(f.shape != (size, size, 3) or f.dtype != np.uint8 for f in cn_frames):
         raise AssertionError("the ControlNet loop's frames are not (512, 512, 3) uint8")
     cn_change = np.abs(np.stack(cn_frames).astype(np.int16)
-                       - np.stack(plain_frames).astype(np.int16))
+                       - np.stack(plain_frames[:cn_n]).astype(np.int16))
     if not cn_change.max():
         raise AssertionError("the ControlNets left vid2vid_plain_conv's frames unchanged")
     if counts["k2"] or counts["k4"]:
         raise AssertionError("the ControlNet loop launched K2 or K4")
     cn_k1 = counts["k1_by_shape"]
-    cn_k1_expected = expected_k1_launches(1, V2V_OVERLAP_WINDOWS, steps, frames_n, overlap,
+    cn_k1_expected = expected_k1_launches(1, 1, steps, frames_n, overlap,
                                           controlnets=len(CN_NAMES))
     cn_blocks = sum(isinstance(m, BasicTransformerBlock) for m in cn_nets[0].modules())
     if cn_k1 != cn_k1_expected or cn_blocks != sum(n for *_, n in CONTROLNET_LEVELS):
@@ -2712,15 +2822,17 @@ def main() -> int:
     upscaler.upscale_batch_device(torch.from_numpy(video[:1]).cuda())
     torch.cuda.synchronize()
     t_up_build = time.perf_counter() - t0
-    summary_up, up_frames, up_seconds, _, counts, up_peak = run_vid2vid(False, "upscale",
-                                                                        upscaler)
+    # one whole and one overlap window
+    up_n = 2 * frames_n - overlap
+    summary_up, up_frames, up_seconds, _, counts, up_peak = run_vid2vid(
+        False, "upscale", upscaler, source=video[:up_n])
     up_size = 4 * size
-    if summary_up["frames_written"] != len(video) or len(up_frames) != len(video):
+    if summary_up["frames_written"] != up_n or len(up_frames) != up_n:
         raise AssertionError(f"vid2vid with upscale wrote {summary_up['frames_written']} frames "
-                             f"({len(up_frames)} in the sink) of {len(video)}")
+                             f"({len(up_frames)} in the sink) of {up_n}")
     if any(f.shape != (up_size, up_size, 3) or f.dtype != np.uint8 for f in up_frames):
         raise AssertionError(f"upscaled frames are not ({up_size}, {up_size}, 3) uint8")
-    emits = [frames_n - overlap] * v2v_windows + [overlap]
+    emits = [frames_n - overlap] * 2 + [overlap]
     k4_expected = expected_k4_launches(upscaler, emits, (size, size))
     k4_by_shape = counts["k4_by_shape"]
     if k4_by_shape != k4_expected:
@@ -2728,9 +2840,10 @@ def main() -> int:
     if counts["k2"]:
         raise AssertionError("K2 launched in vid2vid_upscale, where use_pallas_conv is off")
     # the same upscaler on the vid2vid_plain_conv phase's frames (the loop's
-    # frames before the upscale, if the pipeline repeats itself)
+    # frames before the upscale, if the pipeline repeats itself), the two
+    # windows' emits (the tail, unblended here, is blended in that run)
     diff_sum, diff_max, clipped = 0, 0, 0
-    for i in range(0, len(video), frames_n - overlap):
+    for i in range(0, up_n - overlap, frames_n - overlap):
         want = upscaler.upscale_batch_device(
             torch.from_numpy(np.stack(plain_frames[i:i + frames_n - overlap])).cuda())
         got = torch.from_numpy(np.stack(up_frames[i:i + frames_n - overlap])).cuda()
@@ -2739,7 +2852,7 @@ def main() -> int:
         diff_max = max(diff_max, int(d.max()))
         clipped += int(((got == 0) | (got == 255)).sum())
         del want, got, d
-    n_values = len(up_frames) * up_size * up_size * 3
+    n_values = (up_n - overlap) * up_size * up_size * 3
     # the device time of one emit's upscale, and of the RRDB body within it
     emit_frames = torch.from_numpy(video[:frames_n - overlap]).cuda()
     emit_x = (emit_frames.float() / 255.0).to(torch.bfloat16)
@@ -2798,7 +2911,7 @@ def main() -> int:
                   "face_detector_model_path": str(SNAPSHOT / "detection_Resnet50_Final.pth")}
     height_768 = 768  # video_768 (the controlnet phase's): one whole and one overlap-8 window
     write_frames(np, SNAPSHOT / "frames_512x512", video)
-    write_frames(np, SNAPSHOT / "frames_512x768", video_768)
+    write_frames(np, SNAPSHOT / "frames_512x768", video_768[:frames_n])
     write_seconds = time.perf_counter() - t1
 
     def run_cli(tag: str, argv=(), **settings):
@@ -2829,7 +2942,9 @@ def main() -> int:
         seconds = time.perf_counter() - t1
         counts = {"k1_by_shape": dict(fa.flash_attention.launches_by_shape),
                   "k2_by_shape": dict(ck.conv3x3_fused.launches_by_shape),
-                  "k3": mk.motion_module_fused.launches, "k4": uk.upconv3x3.launches,
+                  "k3": mk.motion_module_fused.launches,
+                  "k3_by_shape": dict(mk.motion_module_fused.launches_by_shape),
+                  "k4": uk.upconv3x3.launches,
                   "k4_by_shape": dict(uk.upconv3x3.launches_by_shape)}
         return (summary, read_frames(np, out_dir / "frames"), seconds, counts,
                 torch.cuda.max_memory_allocated())
@@ -2901,17 +3016,16 @@ def main() -> int:
     fields_cn.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del disk_cn_frames, diff, cn_frames
 
-    # the LCM-LoRA profile (SampleConfigLCMLoRA.yaml: `use_lcm` 0,
-    # LCMScheduler, 7 steps, CFG 1.1, a LoRA from `lora_model_paths`, its
-    # four ControlNets: openpose at 1.0, lineart at 0.35, MLSD at 1.0, HED at
-    # 0.4; 512x768, `upscale` 2, the face enhancer with `upscale_first` 1) on
-    # the same snapshot read as `pretrained_model_path` (its UNet's cond_proj
-    # goes unused without `use_lcm`): one window of the injected pipeline
-    # after the LoRA's fusion, with the same four nets and annotators, through
-    # an Upscaler read from the same files (its K1 and K4 launches counted).
-    # The IP-Adapter run below builds the same LoRA, ControlNets and
-    # annotators from disk through the CLI, every tensor of that build held
-    # against the injected ones.
+    # the LCM-LoRA profile's files (SampleConfigLCMLoRA.yaml: a LoRA from
+    # `lora_model_paths`, its four ControlNets: openpose at 1.0, lineart at
+    # 0.35, MLSD at 1.0, HED at 0.4; 512x768, `upscale` 2, the face enhancer
+    # with `upscale_first` 1) on the same snapshot read as
+    # `pretrained_model_path`: the injected pipeline after the LoRA's fusion,
+    # with the same four nets and annotators, and an Upscaler read from the
+    # same files. The IP-Adapter run below builds the same LoRA, ControlNets
+    # and annotators from disk through the CLI, every tensor of that build
+    # held against the injected ones, and runs the profile's LCMScheduler
+    # tail under CFG at B*F = 32 (its window in guess mode).
     import copy
 
     import controlanimate_tpu_torch.pipelines.facade as facade_module
@@ -2958,48 +3072,16 @@ def main() -> int:
     lora_twin = {"engine_models": lora_models, "text_stack": lora_text, "max_windows": 1,
                  "upscaler": lora_upscaler, "source": video_768, "width": size,
                  "height": height_768, **lora_face, **LCM_LORA_PROFILE, **lora_cn_settings}
-    summary, injected, injected_seconds, _, counts, lora_peak = run_vid2vid(
-        False, "lcm_lora", **lora_twin)
-    openpose_stats = dict(openpose_ann.stats)
-    lora_window_steps = [make_scheduler("LCMScheduler", make_schedule(), LCM_LORA_PROFILE["steps"],
-                                        strength=LCM_LORA_PROFILE["strength"],
-                                        lcm_origin_steps=cfg.lcm_origin_steps,
-                                        strength_mode="tail").num_steps]
     latent = (height_768 // 8, size // 8)
-    lora_k1 = counts["k1_by_shape"]
-    lora_k1_expected = expected_cfg_k1_launches(lora_window_steps, frames_n, [], latent=latent,
-                                                controlnets=len(LORA_CN_NAMES))
-    if lora_k1 != lora_k1_expected or counts["k2_by_shape"] or counts["k3"]:
-        raise AssertionError(f"LCM-LoRA K1 launches {lora_k1}, expected {lora_k1_expected}, "
-                             f"or K2 or K3 launched")
-    lora_k4 = counts["k4_by_shape"]
+    # one window's emit (8 frames) through the upscaler: the IP-Adapter run's
+    # K4 launches
     lora_k4_expected = expected_k4_launches(lora_upscaler, [frames_n - overlap],
                                             (height_768, size))
-    if lora_k4 != lora_k4_expected:
-        raise AssertionError(f"LCM-LoRA K4 launches {lora_k4}, expected {lora_k4_expected}")
-    # a run stopped by `max_windows` keeps its last 8 frames for a resume
-    if (summary["windows"] != 1 or len(injected) != frames_n - overlap
-            or any(f.shape != (2 * height_768, 2 * size, 3) for f in injected)):
-        raise AssertionError(f"the LCM-LoRA window wrote {len(injected)} frames in "
-                             f"{summary['windows']} windows")
-    if float(np.stack(injected).std()) == 0.0:
-        raise AssertionError("the LCM-LoRA window's frames are constant")
     fields_lora = {"controlnets": list(LORA_CN_NAMES), "cond_scale": list(LORA_CN_SCALES),
-                   "frame_shape": [2 * height_768, 2 * size, 3],
-                   "openpose_last_map": openpose_stats, "faces": summary["faces"],
-                   "upscale_seconds": summary["timers"]["upscale"]["total_s"],
-                   "k4_launches": sum(lora_k4.values()),
-                   "k1_launches_by_shape": {str(k): n for k, n in sorted(lora_k1.items())},
                    "lora_write_seconds": round(lora_write_seconds, 4),
                    "lora_layers_fused": fused_n + fused_te_n,
-                   "host_fuse_seconds": round(fuse_seconds, 4),
-                   "loop_seconds": round(injected_seconds, 4),
-                   "new_frames_per_second_first_window_included": round(
-                       summary["frames_written"] / injected_seconds, 4),
-                   "max_memory_allocated": lora_peak, "window_steps": lora_window_steps,
-                   "frames_written": summary["frames_written"],
-                   "k1_launches": sum(lora_k1.values()), "timers": summary["timers"]}
-    del unet_2d, te_state, lora_sd, parts, fused_unet, fused_te, injected, cn_models, cn_nets
+                   "host_fuse_seconds": round(fuse_seconds, 4)}
+    del unet_2d, te_state, lora_sd, parts, fused_unet, fused_te, cn_models, cn_nets
 
     # the IP-Adapter profile as shipped (SampleConfigIPAdapter.yaml: the
     # LCM-LoRA profile's files, ControlNets in guess mode, 12 steps, CFG
@@ -3148,7 +3230,8 @@ def main() -> int:
                  "k1_launches_by_shape": {str(k): n for k, n in sorted(ip_k1.items())},
                  "injected_loop_seconds": round(injected_seconds, 4),
                  "uint8_diff_vs_injected_max": int(diff.max()),
-                 "uint8_diff_vs_injected_mean": float(diff.mean())}
+                 "uint8_diff_vs_injected_mean": float(diff.mean()),
+                 "openpose_last_map": dict(openpose_ann.stats)}
     if diff.max():
         _, again, _, _, _, _ = run_vid2vid(False, "ip_adapter_again", **ip_twin)
         rerun = np.abs(np.stack(again).astype(np.int16) - np.stack(injected).astype(np.int16))
@@ -3174,21 +3257,21 @@ def main() -> int:
         height=height_768, inference_config_path=str(INFERENCE_V1),
         motion_module=str(SNAPSHOT / "mm_v1.ckpt"), use_pallas_conv=1, upscale=2,
         use_face_enhancer=1, upscale_first=1, **face_paths)
-    if summary["frames_written"] != len(video_768) or len(frames_768) != len(video_768):
+    if summary["frames_written"] != frames_n or len(frames_768) != frames_n:
         raise AssertionError(f"the 512x768 CLI run wrote {summary['frames_written']} frames "
-                             f"({len(frames_768)} PNGs) of {len(video_768)}")
+                             f"({len(frames_768)} PNGs) of {frames_n}")
     if any(f.shape != (up_h, up_w, 3) for f in frames_768):
         raise AssertionError(f"the 512x768 CLI run's frames are not ({up_h}, {up_w}, 3)")
     if float(np.stack(frames_768).std()) == 0.0:
         raise AssertionError("the 512x768 CLI run's frames are constant")
-    if summary["faces"]["frames_searched"] != len(video_768):
+    if summary["faces"]["frames_searched"] != frames_n:
         raise AssertionError(f"the face detector searched {summary['faces']} frames")
     k1_768 = counts["k1_by_shape"]
-    k1_768_expected = expected_k1_launches(1, 1, steps, frames_n, overlap, latent=latent)
+    k1_768_expected = expected_k1_launches(1, 0, steps, frames_n, overlap, latent=latent)
     if k1_768 != k1_768_expected:
         raise AssertionError(f"512x768 K1 launches {k1_768}, expected {k1_768_expected}")
     k2_768 = counts["k2_by_shape"]
-    k2_768_expected = expected_k2_launches(models.vae, (height_768, size), frames_n, overlap, 1, 1)
+    k2_768_expected = expected_k2_launches(models.vae, (height_768, size), frames_n, overlap, 1, 0)
     if k2_768 != k2_768_expected:
         raise AssertionError(f"512x768 K2 launches {k2_768}, expected {k2_768_expected}")
     if counts["k3"]:
@@ -3216,12 +3299,13 @@ def main() -> int:
                            face_enhancer_model_path=face_paths["face_enhancer_model_path"],
                            face_detector_model_path=face_paths["face_detector_model_path"])
     k4_768 = counts["k4_by_shape"]
-    k4_768_expected = expected_k4_launches(v1_upscaler, [frames_n - overlap] * 3,
+    k4_768_expected = expected_k4_launches(v1_upscaler, [frames_n - overlap] * 2,
                                            (height_768, size))
     if k4_768 != k4_768_expected:
         raise AssertionError(f"512x768 K4 launches {k4_768}, expected {k4_768_expected}")
     v1_sink = ArrayFrameSink()
-    v2v.vid2vid(config=v1_cfg, pipeline=v1_pipe, frame_source=ArrayFrameSource(video_768),
+    v2v.vid2vid(config=v1_cfg, pipeline=v1_pipe,
+                frame_source=ArrayFrameSource(video_768[:frames_n]),
                 frame_sink=v1_sink, upscaler=v1_upscaler)
     injected_v1_seconds = time.perf_counter() - t1  # its build included
     if len(v1_sink.frames) != len(frames_768):
@@ -3235,22 +3319,134 @@ def main() -> int:
     detector = v1_upscaler.face_enhancer.detector
     frame_up = torch.from_numpy(frames_768[0]).cuda()
     detector_ms = cuda_ms(torch, lambda: detector.detect_faces(frame_up), 5)
-    del unet_v1, v2_state, v1_pipe, v1_sink, v1_upscaler, detector, frame_up
+    fields_768 = {**loop_fields(summary, seconds, peak), "frame_shape": [up_h, up_w, 3],
+                  "uint8_diff_vs_injected_v1_max": 0,
+                  "injected_v1_seconds": round(injected_v1_seconds, 4),
+                  "upscale_seconds": summary["timers"]["upscale"]["total_s"],
+                  "detector_ms_per_frame": detector_ms, "faces": summary["faces"],
+                  "k1_launches": sum(k1_768.values()), "k2_launches": sum(k2_768.values()),
+                  "k4_launches": sum(k4_768.values()),
+                  "k1_launches_by_shape": {str(k): n for k, n in sorted(k1_768.items())},
+                  "k2_launches_by_shape": {str(k): n for k, n in sorted(k2_768.items())},
+                  "k4_launches_by_shape": {str(k): n for k, n in sorted(k4_768.items())},
+                  "timers": summary["timers"]}
+    del v1_pipe, v1_sink, v1_upscaler, detector, frame_up
+
+    # the shipped SampleConfigMultiChip.yaml through the CLI without its
+    # mesh_shape (one card; JAX's make_mesh refuses [4, 2] on one device
+    # too): 4 segments of one 16-frame 512x512 window each as one batched
+    # window (B*F = 64), native LCM at 4 steps, inference-v1.yaml with
+    # mm_v1.ckpt, the motion modules on K3. Its frames against the injected
+    # pipeline's S = 4 run of the same weights, which is timed against the
+    # sequential loop over each segment alone.
+    import yaml
+
+    seg_shipped = yaml.safe_load((ROOT / "configs" / "prompts"
+                                  / "SampleConfigMultiChip.yaml").read_text())
+    seg_n = 4 * frames_n
+    if (seg_shipped.pop("mesh_shape") != [4, 2] or seg_shipped["parallel_segments"] != 4
+            or (seg_shipped["width"], seg_shipped["height"]) != (size, size)
+            or (seg_shipped["frame_count"], seg_shipped["overlap_length"]) != (frames_n, overlap)
+            or seg_shipped["steps"] != steps or not seg_shipped["use_lcm"]
+            or seg_shipped["controlnets"]
+            or Path(seg_shipped["inference_config_path"]).name != INFERENCE_V1.name):
+        raise AssertionError(f"SampleConfigMultiChip.yaml is not the profile this run drives: "
+                             f"{seg_shipped}")
+    # the vid2vid phase's 40 frames (their PNGs copied) and 24 more
+    t1 = time.perf_counter()
+    extra = synthetic_video(np, seg_n - len(video), size, size, SEED + 9)
+    video_seg = np.concatenate([video, extra])
+    (SNAPSHOT / "frames_segments").mkdir()
+    for i in range(len(video)):
+        shutil.copyfile(SNAPSHOT / "frames_512x512" / f"{i + 1:04d}.png",
+                        SNAPSHOT / "frames_segments" / f"{i + 1:04d}.png")
+    write_frames(np, SNAPSHOT / "frames_segments", extra, start=len(video))
+    seg_write_seconds = time.perf_counter() - t1
+    seg_settings = {**{k: v for k, v in seg_shipped.items() if k != "output_video_dir"},
+                    "input_video_path": str(SNAPSHOT / "frames_segments"),
+                    "pretrained_lcm_model_path": str(SNAPSHOT),
+                    "inference_config_path": str(INFERENCE_V1),
+                    "motion_module": str(SNAPSHOT / "mm_v1.ckpt"),
+                    "ffmpeg_path": str(SNAPSHOT / "no-ffmpeg"), "textual_inversion_paths": []}
+    with motion_env(True):
+        summary, seg_frames, seconds, counts, peak = run_cli("disk_segments", **seg_settings)
+    if (summary["segments"] != 4 or summary["windows"] != 1
+            or summary["frames_written"] != seg_n or len(seg_frames) != seg_n
+            or any(f.shape != (size, size, 3) for f in seg_frames)):
+        raise AssertionError(f"the segment CLI run wrote {len(seg_frames)} frames: {summary}")
+    if float(np.stack(seg_frames).std()) == 0.0:
+        raise AssertionError("the segment CLI run's frames are constant")
+    seg_k3 = counts["k3_by_shape"]
+    seg_k3_expected = expected_k3_launches(unet_v1, size // 8, frames_n, steps, 1, batch=4)
+    seg_chunk = ControlAnimatePipeline.pick_decode_chunk(seg_n, size * size)
+    seg_k1 = counts["k1_by_shape"]
+    seg_k1_expected = expected_k1_launches(1, 0, steps, frames_n, overlap, batch=4,
+                                           decode_chunk=seg_chunk)
+    if seg_k3 != seg_k3_expected or sum(seg_k3.values()) != 80:
+        raise AssertionError(f"segment CLI K3 launches {seg_k3}, expected {seg_k3_expected} "
+                             f"(80: 20 v1 motion modules x 4 steps)")
+    if seg_k1 != seg_k1_expected or counts["k2_by_shape"]:
+        raise AssertionError(f"segment CLI K1 launches {seg_k1}, expected {seg_k1_expected}, "
+                             f"or K2 launched")
+    fields_seg = {**loop_fields(summary, seconds, peak), "segments": summary["segments"],
+                  "windows": summary["windows"], "frames_written": summary["frames_written"],
+                  "frames_write_seconds": round(seg_write_seconds, 4), "decode_chunk": seg_chunk,
+                  "k1_launches": sum(seg_k1.values()), "k3_launches": sum(seg_k3.values()),
+                  "k1_launches_by_shape": {str(k): n for k, n in sorted(seg_k1.items())},
+                  "k3_launches_by_shape": {str(k): n for k, n in sorted(seg_k3.items())},
+                  "timers": summary["timers"]}
+    # the injected pipeline of the same weights (the v1 UNet above), the
+    # profile as the CLI read it: the batched run, then the sequential loop
+    # on each segment's 16 frames alone
+    seg_cfg = RunConfig.from_yaml(SNAPSHOT / "disk_segments.yaml")
+    with motion_env(True):
+        seg_pipe = ControlAnimatePipeline(
+            seg_cfg, models=EngineModels(unet=unet_v1, vae=models.vae), text_stack=text,
+            arch=arch_v1, device="cuda")
+
+    def segment_loop(config, source, tag):
+        sink = ArrayFrameSink()
+        config = config.replace(output_video_dir=str(ROOT / "build" / "chip_smoke_vid2vid" / tag))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        summary = v2v.vid2vid(config=config, pipeline=seg_pipe,
+                              frame_source=ArrayFrameSource(source), frame_sink=sink)
+        torch.cuda.synchronize()
+        return (summary, sink.frames, time.perf_counter() - t1,
+                torch.cuda.max_memory_allocated())
+
+    _, batched, batched_seconds, batched_peak = segment_loop(seg_cfg, video_seg, "segments")
+    diff_seg = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                   for a, b in zip(seg_frames, batched))
+    if len(batched) != seg_n or diff_seg:
+        raise AssertionError(f"the segment CLI run's frames differ from the injected S = 4 "
+                             f"run's by {diff_seg} ({len(batched)} frames)")
+    sequential, seq_seconds, seq_peak = [], 0.0, 0
+    for s in range(4):
+        _, part, part_seconds, part_peak = segment_loop(
+            seg_cfg.replace(parallel_segments=0), video_seg[s * frames_n:(s + 1) * frames_n],
+            f"segment_{s}")
+        sequential += part
+        seq_seconds += part_seconds
+        seq_peak = max(seq_peak, part_peak)
+    diff = np.abs(np.stack(batched).astype(np.int16) - np.stack(sequential).astype(np.int16))
+    fields_seg.update(
+        uint8_diff_vs_injected_max=0, injected_batched_loop_seconds=round(batched_seconds, 4),
+        injected_batched_new_frames_per_second=round(seg_n / batched_seconds, 4),
+        injected_batched_max_memory_allocated=batched_peak,
+        sequential_loop_seconds=round(seq_seconds, 4),
+        sequential_new_frames_per_second=round(seg_n / seq_seconds, 4),
+        sequential_max_memory_allocated=seq_peak,
+        uint8_diff_batched_vs_sequential_max=int(diff.max()),
+        uint8_diff_batched_vs_sequential_mean=float(diff.mean()))
+    del (unet_v1, v2_state, seg_pipe, seg_frames, batched, sequential, diff, video_seg,
+         seg_shipped)
     shutil.rmtree(SNAPSHOT)
     phase("disk", t0, snapshot_write_seconds=round(write_seconds, 4),
           snapshot_bytes=snapshot_bytes, cli_controlnet=fields_cn,
-          lcm_lora_build_and_window=fields_lora, cli_ip_adapter=fields_ip,
-          cli_512x768={**loop_fields(summary, seconds, peak), "frame_shape": [up_h, up_w, 3],
-                       "uint8_diff_vs_injected_v1_max": 0,
-                       "injected_v1_seconds": round(injected_v1_seconds, 4),
-                       "upscale_seconds": summary["timers"]["upscale"]["total_s"],
-                       "detector_ms_per_frame": detector_ms, "faces": summary["faces"],
-                       "k1_launches": sum(k1_768.values()), "k2_launches": sum(k2_768.values()),
-                       "k4_launches": sum(k4_768.values()),
-                       "k1_launches_by_shape": {str(k): n for k, n in sorted(k1_768.items())},
-                       "k2_launches_by_shape": {str(k): n for k, n in sorted(k2_768.items())},
-                       "k4_launches_by_shape": {str(k): n for k, n in sorted(k4_768.items())},
-                       "timers": summary["timers"]})
+          lcm_lora_build=fields_lora, cli_ip_adapter=fields_ip, cli_512x768=fields_768,
+          cli_segments=fields_seg)
     del plain_frames
     torch.cuda.empty_cache()
 
@@ -3300,13 +3496,17 @@ def main() -> int:
     rows = []
     # the plain version is timed on the main path's shapes and the odd ones
     # (the 512x768 and CFG shapes are checked against it above)
-    launched = set(by_shape) | set(k1_768) | set(cfg_k1) | set(lora_k1) | set(ip_k1)
+    launched = set(by_shape) | set(k1_768) | set(cfg_k1) | set(ip_k1) | set(seg_k1)
     untimed_k1 = launched - set(by_shape) - {VISION_K1_SHAPE}
+    # fp32 K1 runs in the reference phase alone: the segment run's own
+    # shapes (B*F = 64) are checked in bf16
+    bf16_only = set(seg_k1) - (set(by_shape) | set(k1_768) | set(cfg_k1) | set(ip_k1))
     check_seconds = 0.0  # of the phase's seconds, those of the checks
     for shape in sorted(launched) + ODD_SHAPES:
         t1 = time.perf_counter()
         err_bf16 = check_kernel(torch, fa, shape, torch.bfloat16, gen)
-        err_fp32 = check_kernel(torch, fa, shape, torch.float32, gen)
+        err_fp32 = (None if shape in bf16_only
+                    else check_kernel(torch, fa, shape, torch.float32, gen))
         check_seconds += time.perf_counter() - t1
         B, Nq, Nk, H, D = shape
         q = torch.randn((B, Nq, H, D), generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -3317,7 +3517,7 @@ def main() -> int:
         row = {
             "shape": list(shape), "launches": by_shape.get(shape, 0),
             "launches_512x768": k1_768.get(shape, 0), "launches_cfg": cfg_k1.get(shape, 0),
-            "launches_lcm_lora_512x768": lora_k1.get(shape, 0),
+            "launches_segments": seg_k1.get(shape, 0),
             "launches_ip_adapter_512x768": ip_k1.get(shape, 0),
             "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
             "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), iters),
@@ -3354,8 +3554,8 @@ def main() -> int:
                         **launched_sums(v2v_counts["k1_by_shape"])},
           controlnet_path={"launches": sum(cn_k1.values()), **launched_sums(cn_k1)},
           cfg_path={"launches": sum(cfg_k1.values()), **launched_sums(cfg_k1, UNTIMED_PLAIN)},
-          lcm_lora_512x768_path={"launches": sum(lora_k1.values()),
-                                 **launched_sums(lora_k1, UNTIMED_PLAIN)},
+          segments_path={"launches": sum(seg_k1.values()),
+                         **launched_sums(seg_k1, UNTIMED_PLAIN)},
           ip_adapter_512x768_path={"launches": sum(ip_k1.values()),
                                    **launched_sums(ip_k1, UNTIMED_PLAIN)},
           image_encoder={"launches": ip_k1.get(VISION_K1_SHAPE, 0),
@@ -3435,29 +3635,35 @@ def main() -> int:
     phase("kernels_k2", t0, shapes=len(k2_rows), check_seconds=round(check_seconds, 3),
           per_full_window=k2_window_sums(1, 0),
           per_overlap_window=k2_window_sums(0, 1),
-          per_full_window_512x768=k2_window_sums(1, 0, (height_768, size), UNTIMED_PLAIN),
-          per_overlap_window_512x768=k2_window_sums(0, 1, (height_768, size), UNTIMED_PLAIN))
+          per_full_window_512x768=k2_window_sums(1, 0, (height_768, size), UNTIMED_PLAIN))
 
     # -- K3 at every shape the window_motion_kernel phase launched it with --
     t0 = time.perf_counter()
     k3_rows = []
-    k3_shapes = [key + (True,) for key in sorted(k3_by_shape)] + K3_ODD_SHAPES
+    # the main path's shapes, the segment run's (v1, B = 4), the odd ones
+    k3_shapes = [key + (True,) for key in sorted(set(k3_by_shape) | set(seg_k3))] + K3_ODD_SHAPES
     for shape in k3_shapes:
-        errs = check_k3(torch, mk, shape, gen)
+        # fp32 K3 runs in the reference phase alone: the segment run's own
+        # shapes (B = 4) are checked in bf16
+        errs = check_k3(torch, mk, shape, gen,
+                        fp32=shape[:5] in k3_by_shape or shape[:5] not in seg_k3)
         torch.cuda.empty_cache()
         mod, x = k3_inputs(torch, shape, gen)
         mod, x = mod.to(torch.bfloat16), x.bfloat16()
         p, pe = mod.fused_operands(x)
         heads = shape[4]
         packed = mk.pack_weights(p, x.dtype)
-        iters = 5 if shape[2] * shape[1] * shape[3] >= 16 * 1024 * 320 else 20
+        iters = 5 if math.prod(shape[:4]) >= 16 * 1024 * 320 else 20
+        # the plain version is timed at the main path's and the odd shapes
+        timed_plain = shape[:5] in k3_by_shape or shape[:5] not in seg_k3
         with torch.no_grad():
             row = {
-                "shape": list(shape), "launches": k3_by_shape.get(shape[:5], 0), **errs,
+                "shape": list(shape), "launches": k3_by_shape.get(shape[:5], 0),
+                "launches_segments": seg_k3.get(shape[:5], 0), **errs,
                 "ms": cuda_ms(torch, lambda: mk.motion_module_fused(
                     x, p, heads=heads, pe=pe, packed=packed), iters),
                 "plain_ms": cuda_ms(torch, lambda: mk.motion_module_plain(
-                    x, p, heads=heads, pe=pe), iters),
+                    x, p, heads=heads, pe=pe), iters) if timed_plain else None,
                 "library_ms": cuda_ms(torch, lambda: mod(x), iters),
             }
         row["ops_ms"], row["bytes_ms"] = motion_bound_ms(shape, 2)
@@ -3479,7 +3685,10 @@ def main() -> int:
     per_window = {key: sum(n * k3_by_row[k][key] for k, n in k3_by_shape.items()) / WINDOWS
                   for key in ("ms", "plain_ms", "library_ms", "bound_ms", "chain_bytes_ms",
                               "device_ms", "library_device_ms")}
-    phase("kernels_k3", t0, shapes=len(k3_rows), per_window=per_window)
+    segments_path = {key: sum(n * k3_by_row[k][key] for k, n in seg_k3.items())
+                     for key in ("ms", "library_ms", "bound_ms")}
+    phase("kernels_k3", t0, shapes=len(k3_rows), per_window=per_window,
+          segments_path={"launches": sum(seg_k3.values()), **segments_path})
 
     # -- K4 at every shape the vid2vid_upscale phase launched it with ------
     t0 = time.perf_counter()
@@ -3541,10 +3750,10 @@ def main() -> int:
         del x, w, bias, xc, w_oihw, b16, packed
         torch.cuda.empty_cache()
     k4_by_row = {tuple(r["shape"]) + (r["upsample"],): r for r in k4_rows}
-    per_frame = {k: sum(n * k4_by_row[key][k] for key, n in k4_by_shape.items()) / len(video)
+    per_frame = {k: sum(n * k4_by_row[key][k] for key, n in k4_by_shape.items()) / up_n
                  for k in ("ms", "unpacked_ms", "plain_ms", "library_ms", "bound_ms",
                            "folded_gflop", "useful_gflop")}
-    per_frame_768 = {k: sum(n * k4_by_row[key][k] for key, n in k4_768.items()) / len(video_768)
+    per_frame_768 = {k: sum(n * k4_by_row[key][k] for key, n in k4_768.items()) / frames_n
                      for k in ("ms", "unpacked_ms", "library_ms", "bound_ms", "useful_gflop")}
     phase("kernels_k4", t0, shapes=len(k4_rows), per_frame=per_frame,
           per_frame_512x768=per_frame_768)

@@ -279,8 +279,7 @@ def require_ported(cfg: RunConfig) -> None:
     for name in cfg.controlnets:
         annotator_name(name)
     unported = {
-        "parallel_segments": (cfg.parallel_segments > 1, "segment-parallel runs (M15)"),
-        "mesh_shape": (bool(cfg.mesh_shape), "device meshes (M15)"),
+        "mesh_shape": (bool(cfg.mesh_shape), "device meshes (M15b)"),
         "temporal_band": (bool(cfg.temporal_band), "banded motion attention (M14)"),
         "token_merge_ratio": (bool(cfg.token_merge_ratio), "token merging (M14)"),
         "encoder_reuse_every": (bool(cfg.encoder_reuse_every), "encoder reuse (M14)"),

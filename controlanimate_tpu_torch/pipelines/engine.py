@@ -18,7 +18,11 @@ Counterpart of `controlanimate_tpu/pipelines/engine.py`:
     guided output uncond + g * (cond - uncond) goes to the sampler's `step`
     with its history state. The latents, the guidance combination and the
     sampler arithmetic stay fp32; only the model inputs take the run dtype.
-  * decode: VAE decode of the whole window in one pass, quantised to uint8.
+  * decode: VAE decode of the window's B*F frames, quantised to uint8: in
+    one pass, or `decode_chunk` frames at a time (the facade's rule: 16 for
+    the 64 frames of four 512x512 segments, which bounds the decoder's
+    activations); frames decode independently (in bf16 on the card the
+    convolutions may round otherwise at another batch).
 
 Every random draw comes from one `NoiseSource`, whose key tree follows the JAX
 engine's: (k_prep, k_loop) = split(key); (k_noise, k_in, k_out) =
@@ -136,6 +140,7 @@ class WindowStatic:
     height: int = 512
     width: int = 512
     output_uint8: bool = False
+    decode_chunk: int = 0  # frames a VAE decode pass (0: all B*F at once)
     tail_latents: int = 0  # also return this many clean tail latents (LCM only)
 
     @property
@@ -172,13 +177,22 @@ class AnimationEngine:
         lat = self.m.vae.encode(flat, noise.repeat(B, 1, 1, 1))
         return lat.reshape(B, F_, *lat.shape[1:])
 
-    def decode_latents(self, latents: torch.Tensor, to_uint8: bool = False) -> torch.Tensor:
-        """(B, F, h, w, 4) -> (B, F, H, W, 3) in [0, 1], or uint8 [0, 255]."""
+    def decode_latents(self, latents: torch.Tensor, to_uint8: bool = False,
+                       chunk: int = 0) -> torch.Tensor:
+        """(B, F, h, w, 4) -> (B, F, H, W, 3) in [0, 1], or uint8 [0, 255];
+        `chunk` frames a decode pass when it divides B*F (else one pass, as
+        the JAX engine falls back)."""
         B, F_ = latents.shape[:2]
-        img = self.m.vae.decode(latents.reshape(B * F_, *latents.shape[2:]))
-        img = (img / 2 + 0.5).clamp(0.0, 1.0)
-        if to_uint8:
-            img = (img.float() * 255.0 + 0.5).to(torch.uint8)
+        flat = latents.reshape(B * F_, *latents.shape[2:])
+
+        def dec(z):
+            img = (self.m.vae.decode(z) / 2 + 0.5).clamp(0.0, 1.0)
+            return (img.float() * 255.0 + 0.5).to(torch.uint8) if to_uint8 else img
+
+        if chunk and B * F_ > chunk and B * F_ % chunk == 0:
+            img = torch.cat([dec(z) for z in flat.split(chunk)])
+        else:
+            img = dec(flat)
         return img.reshape(B, F_, *img.shape[1:])
 
     # -- prepare -------------------------------------------------------------
@@ -348,5 +362,5 @@ class AnimationEngine:
         if st.tail_latents:
             latents, tail = latents
         latents = self.denoise(st, sched, text_embeds, latents, noise, cond_images)
-        out = self.decode_latents(latents, st.output_uint8)
+        out = self.decode_latents(latents, st.output_uint8, st.decode_chunk)
         return (out, tail) if st.tail_latents else out

@@ -11,7 +11,19 @@ tail truncation), with classifier-free guidance over the stacked
 [negative, positive] prompts when `guidance_scale` > 1. With
 `reuse_overlap_latents` (native LCM only) the clean latents of a window's
 last `overlap_length` input frames are cached, and the next window
-(`epoch + 1`, `overlaps` = that length) encodes only its new frames.
+(`epoch + 1`, `overlaps` = that length, the same batch) encodes only its new
+frames.
+
+Segment-parallel windows (`animate(..., segments=S)`, S > 1): S segments of
+a video run as one batched window, the segment axis the engine's batch
+axis: (S, F, H, W, 3) input and last-output frames in, (S, F, H, W, 3)
+uint8 out; one prompt for every segment, each segment's own IP-Adapter
+anchor, and draws shared across the batch, so that each segment gets what a
+run of that segment alone with the same seed gets. The VAE decodes at most
+24 frames a pass once a window's B*F frames reach 32 at 512x512 or more
+(`decode_chunk`, the JAX facade's rule): frames decode independently, and a
+pass of 16 frames holds a quarter of the one-pass decode's activations at
+64 frames (`vae_chunk_probe.py`). The encode runs in one pass.
 
 ControlNets (`controlnets`, `cond_scale`, `guess_mode`): `prepare_cond_images`
 annotates a window's uint8 frames on the device (one annotator a net,
@@ -222,13 +234,24 @@ class ControlAnimatePipeline:
             and has_input_frames
         )
 
+    @staticmethod
+    def pick_decode_chunk(total_frames: int, pixels: int) -> int:
+        """Frames a VAE decode pass: 0 (one pass) below 32 frames or below
+        512x512 pixels, else the largest divisor of `total_frames` up to 24
+        (the JAX facade's rule)."""
+        if total_frames < 32 or pixels < 512 * 512:
+            return 0
+        return next(c for c in range(min(24, total_frames), 0, -1) if total_frames % c == 0)
+
     def window_static(self, *, strength: Optional[float] = None,
                       has_input_frames: bool = True,
-                      frame_count: Optional[int] = None) -> WindowStatic:
-        """The window configuration `animate` runs for these call conditions.
-        The JAX facade's decode-chunk rule was sized for a 16 GB TPU and does
-        not carry over: the window decodes in one pass."""
+                      frame_count: Optional[int] = None, segments: int = 0,
+                      window_frames: Optional[int] = None) -> WindowStatic:
+        """The window configuration `animate` runs for these call conditions;
+        `window_frames` (the input's frames a segment, else the window's
+        frame count) and `segments` set the decode chunk."""
         cfg = self.config
+        frames = window_frames or frame_count or cfg.frame_count
         return WindowStatic(
             scheduler_name=cfg.scheduler,
             steps=cfg.steps,
@@ -244,17 +267,21 @@ class ControlAnimatePipeline:
             height=cfg.height,
             width=cfg.width,
             output_uint8=True,
+            decode_chunk=self.pick_decode_chunk(frames * max(int(segments), 1),
+                                                cfg.height * cfg.width),
             tail_latents=cfg.overlap_length if self._reuse_overlap(has_input_frames) else 0,
         )
 
     def _to_device(self, frames):
-        """(F, H, W, 3) uint8 frames (numpy or tensor) -> (1, F, H, W, 3) on device."""
+        """(F, H, W, 3) uint8 frames (numpy or tensor) -> (1, F, H, W, 3) on
+        device; (S, F, H, W, 3) segment frames keep their segment axis."""
         if frames is None:
             return None
         t = torch.as_tensor(frames)
         if t.dtype != torch.uint8:
             raise TypeError(f"frames must be uint8, got {t.dtype}")
-        return t.to(self.device)[None]
+        t = t.to(self.device)
+        return t if t.ndim == 5 else t[None]
 
     def _dump_condition_maps(self, net_name: str, maps: torch.Tensor, epoch: int) -> None:
         """save_frames: a window's uint8 maps of one net as PNGs under
@@ -274,25 +301,28 @@ class ControlAnimatePipeline:
     def prepare_cond_images(self, input_frames, epoch: int = 0) -> list[torch.Tensor]:
         """The window's condition maps, one (1, F, H, W, 3) uint8 tensor on the
         device a ControlNet, annotated on the device from the (F, H, W, 3)
-        uint8 input frames (numpy or tensor); [] without ControlNets."""
+        uint8 input frames (numpy or tensor); from (S, F, H, W, 3) segment
+        frames the S*F frames are annotated as one stack and each map is (S,
+        F, H, W, 3). [] without ControlNets."""
         if not self.models.controlnets:
             return []
         if input_frames is None:
             raise ValueError("ControlNets need input frames to annotate")
-        frames = self._to_device(input_frames)[0]
+        batch = self._to_device(input_frames)
+        frames = batch.reshape(-1, *batch.shape[2:])
         cond_images = []
         for name, annotate in zip(self.config.controlnets, self.models.annotators):
             maps = annotate(frames)
             maps_u8 = (maps.float() * 255.0 + 0.5).to(torch.uint8)
             if self.config.save_frames:
                 self._dump_condition_maps(name, maps_u8, epoch)
-            cond_images.append(maps_u8[None])
+            cond_images.append(maps_u8.reshape(*batch.shape[:2], *maps_u8.shape[1:]))
         return cond_images
 
     def animate(
         self,
-        input_frames,  # (F, H, W, 3) uint8, or None for txt2vid
-        last_output_frames,  # (K, H, W, 3) uint8, or None
+        input_frames,  # (F, H, W, 3) uint8, (S, F, H, W, 3) with segments, or None
+        last_output_frames,  # (K, H, W, 3) uint8, (S, K, H, W, 3) with segments, or None
         *,
         overlaps: int = 0,
         strength: Optional[float] = None,
@@ -301,21 +331,33 @@ class ControlAnimatePipeline:
         frame_count: Optional[int] = None,
         noise: Optional[NoiseSource] = None,
         cond_images: Optional[list] = None,
+        segments: int = 0,
     ) -> torch.Tensor:
         """Generate one window; returns its (F, H, W, 3) uint8 frames on the
-        device. Every call with the same seed draws the same noise (the
-        reference re-seeds per window); `noise` overrides the default
-        `TorchNoise(seed, device)`. `cond_images` are the window's condition
-        maps from `prepare_cond_images`, staged here when not given."""
+        device, or with `segments` S > 1 the (S, F, H, W, 3) frames of S
+        lockstep segments. Every call with the same seed draws the same noise
+        (the reference re-seeds per window), shared by the segments; `noise`
+        overrides the default `TorchNoise(seed, device)`. `cond_images` are
+        the window's condition maps from `prepare_cond_images`, staged here
+        when not given."""
         cfg = self.config
+        S = max(int(segments), 0)
+        batched = S > 1
         pos, neg = self._encode_prompts(cfg.prompt, cfg.n_prompt, cfg.clip_skip)
+        if batched:
+            # one prompt a segment, tiled before each segment's image tokens
+            pos, neg = (e.expand(S, *e.shape[1:]) for e in (pos, neg))
         if self.ip_adapter is not None:
-            # the image tokens of the first last output, or zeros without one
+            # the image tokens of the first last output (of each segment), or
+            # zeros without one
             if last_output_frames is not None and len(last_output_frames):
-                img_c, img_u = self.ip_adapter.embed_image(last_output_frames[0])
+                if batched:
+                    img_c, img_u = self.ip_adapter.embed_images(last_output_frames[:, 0])
+                else:
+                    img_c, img_u = self.ip_adapter.embed_image(last_output_frames[0])
             else:
-                img_c = img_u = torch.zeros((1, self.ip_adapter.num_tokens, pos.shape[-1]),
-                                            device=pos.device)
+                img_c = img_u = torch.zeros((pos.shape[0], self.ip_adapter.num_tokens,
+                                             pos.shape[-1]), device=pos.device)
             pos = torch.cat([pos, img_c.to(pos.dtype)], dim=1)
             neg = torch.cat([neg, img_u.to(neg.dtype)], dim=1)
 
@@ -323,14 +365,18 @@ class ControlAnimatePipeline:
         head_latents = None
         if reuse and overlaps and self._overlap_latent_cache is not None:
             cache_epoch, cached_tail = self._overlap_latent_cache
-            if cache_epoch == epoch and cached_tail.shape[1] == overlaps:
+            if (cache_epoch == epoch and cached_tail.shape[1] == overlaps
+                    and cached_tail.shape[0] == (S if batched else 1)):
                 head_latents = cached_tail
 
         if cond_images is None:
             cond_images = self.prepare_cond_images(input_frames, epoch)
+        window_frames = None if input_frames is None else int(
+            input_frames.shape[1] if input_frames.ndim == 5 else input_frames.shape[0])
         st = self.window_static(strength=strength,
                                 has_input_frames=input_frames is not None,
-                                frame_count=frame_count)
+                                frame_count=frame_count, segments=S,
+                                window_frames=window_frames)
         text_embeds = torch.cat([neg, pos]) if st.do_cfg else pos
         out = self.engine.generate_window(
             st, text_embeds, noise if noise is not None else TorchNoise(seed, self.device),
@@ -342,7 +388,7 @@ class ControlAnimatePipeline:
         if st.tail_latents:
             out, tail = out
             self._overlap_latent_cache = (epoch + 1, tail)
-        return out[0]
+        return out if batched else out[0]
 
 
 def controlnet_scales(cfg: RunConfig) -> list[float]:

@@ -43,10 +43,26 @@ samplers with classifier-free guidance (an overlap window at an
 twice, as in the JAX loop: once as any window, then again with its own last
 `overlap_length` frames as the last outputs (the IP-Adapter's anchor is the
 first of them) at `overlap_strength`, the first pass's first frame the
-stitch's color-match anchor. Not ported yet, and rejected by
-`config.require_ported`: segment-parallel runs and device meshes (M15), the
-annotators of M13c, and M14's `temporal_band`, `token_merge_ratio` and
-`encoder_reuse_every`. The C++
+stitch's color-match anchor.
+
+Segment-parallel runs (`parallel_segments` S > 1, on one device; the JAX
+loop's `_run_segments`): the source is read whole and split into S
+contiguous segments of equal length (the last padded with repeats of its
+final frame), and window w of every segment runs as one batched window,
+the segment axis the engine's batch axis, so that each segment comes out as
+a run of that segment alone with the same seed would. The prefetch worker
+uploads (and annotates) window w+1 on the side stream while window w runs;
+the batched stitch keeps every segment's overlap, anchor and blend to
+itself; each window's emit is read back while the next one runs and held on
+the host; after the last window the segments go to the sink in order,
+their pad trimmed, upscaled F frames at a time. No checkpoint is written
+(`resume` and `save_frames` raise ValueError, as does a run without input
+frames or with `overlap_length` >= `frame_count`), and a stop request ends
+the run with nothing written (`canceled`).
+
+Not ported yet, and rejected by `config.require_ported`: device meshes
+(M15b), the annotators of M13c, and M14's `temporal_band`,
+`token_merge_ratio` and `encoder_reuse_every`. The C++
 ring buffer frame pipe (`use_native_framepipe`) is not ported: the loop
 takes the Python ffmpeg pipe, as the JAX loop does where that pipe cannot
 be built. JAX behaviours not copied: a missing RealESRGAN file raises FileNotFoundError
@@ -72,7 +88,7 @@ import torch
 
 from .config import RunConfig, StitchState, require_ported, torch_dtype
 from .io import media
-from .ops.stitch import stitch_window
+from .ops.stitch import stitch_window, stitch_window_batch
 from .ops.yuv import rgb_to_yuv420
 from .utils.profiling import PhaseTimers, maybe_trace
 
@@ -229,15 +245,21 @@ def vid2vid(
     models' paths with `use_face_enhancer`) when `upscale` > 1; with a face
     enhancer the summary counts the faces its detector found. `progress`, if
     given, is called after every window with {"windows", "frames_written",
-    "frames_generated"}. `should_stop`, if
+    "frames_generated"} ({"windows", "segments", "frames_generated"} in a
+    segment-parallel run, whose summary also has `segments` and counts
+    `windows` a segment). `should_stop`, if
     given, is polled at every window boundary; a truthy return stops the run
     as a `max_windows` interruption does (pending emits flush, a resumable
-    checkpoint is saved) and the summary says `canceled`."""
+    checkpoint is saved) and the summary says `canceled`; a segment-parallel
+    run stops with nothing written."""
     cfg = config or RunConfig.from_yaml(config_path)
     require_ported(cfg)
+    has_input = bool(cfg.input_video_path) and Path(cfg.input_video_path).exists()
+    segmented = cfg.parallel_segments > 1
+    if segmented:
+        _check_segments(cfg, has_input or frame_source is not None)
 
     # geometry: multiples of 64, probed from the input video when unset
-    has_input = bool(cfg.input_video_path) and Path(cfg.input_video_path).exists()
     width, height = cfg.width, cfg.height
     if has_input and (not width or not height):
         _, _, width, height = media.probe_video(cfg.input_video_path, cfg.ffmpeg_path)
@@ -313,19 +335,27 @@ def vid2vid(
             cleanup.callback(frame_source.close)
         if own_sink:
             cleanup.callback(frame_sink.close)
-        summary = _run(cfg, pipeline, upscaler, device, frame_source, frame_sink,
-                       sink_pix_fmt, resumed, seed, segment, out_dir, timers, cleanup,
-                       max_windows, progress, should_stop)
+        if segmented:
+            summary = _run_segments(cfg, pipeline, upscaler, device, frame_source, frame_sink,
+                                    sink_pix_fmt, seed, timers, cleanup, max_windows, progress,
+                                    should_stop)
+        else:
+            summary = _run(cfg, pipeline, upscaler, device, frame_source, frame_sink,
+                           sink_pix_fmt, resumed, seed, segment, out_dir, timers, cleanup,
+                           max_windows, progress, should_stop)
 
-    # audio mux and frame interpolation of the encoded video
+    # audio mux and frame interpolation of the encoded video (a canceled
+    # segment-parallel run wrote nothing)
     final_path = out_dir / "output.mp4"
     if (own_sink and isinstance(frame_sink, media.FFMPEGFrameSink)
-            and media.ffmpeg_available(cfg.ffmpeg_path)):
-        segments = sorted(out_dir.glob("output_raw_*.mp4"))
+            and media.ffmpeg_available(cfg.ffmpeg_path)
+            and not (segmented and summary["canceled"])):
+        # the parts of a resumed run; a segment-parallel run is never resumed
+        parts = [raw_video_path] if segmented else sorted(out_dir.glob("output_raw_*.mp4"))
         src = raw_video_path
-        if len(segments) > 1:
+        if len(parts) > 1:
             src = out_dir / "output_raw_joined.mp4"
-            media.concat_videos([str(s) for s in segments], str(src), cfg.ffmpeg_path)
+            media.concat_videos([str(s) for s in parts], str(src), cfg.ffmpeg_path)
         media.video_to_high_fps(
             str(final_path), str(src),
             cfg.input_video_path if has_input else None,
@@ -419,16 +449,9 @@ def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt
             return upscaler.upscale_batch_device(frames)
 
     def write_frames(frames, upscale: bool) -> None:
-        """Write (N, H, W, 3) uint8 frames (device or host) to the sink,
-        through the upscaler first when `upscale`, as I420 rows when the sink
-        takes yuv420p."""
+        """`_write_rgb`, through the upscaler first when `upscale`."""
         t = torch.as_tensor(frames)
-        if upscale:
-            t = upscaled(t.to(device))
-        if sink_pix_fmt == "yuv420p":
-            t = rgb_to_yuv420(t.to(device))
-        for fr in _host(t):
-            frame_sink.write(fr)
+        _write_rgb(frame_sink, sink_pix_fmt, device, upscaled(t.to(device)) if upscale else t)
 
     windows_run = 0
     source_exhausted = stop_requested = False
@@ -603,6 +626,188 @@ def _run(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt
         (out_dir / STATE_FILE).unlink(missing_ok=True)
     return {"frames_written": frames_written, "seed": seed, "windows": windows_run,
             "canceled": stop_requested}
+
+
+def _write_rgb(frame_sink, sink_pix_fmt: str, device, frames) -> None:
+    """Write (N, H, W, 3) uint8 frames (device or host) to the sink, as I420
+    rows when the sink takes yuv420p."""
+    t = torch.as_tensor(frames)
+    if sink_pix_fmt == "yuv420p":
+        t = rgb_to_yuv420(t.to(device))
+    for fr in _host(t):
+        frame_sink.write(fr)
+
+
+def _check_segments(cfg: RunConfig, has_input: bool) -> None:
+    """The settings a segment-parallel run refuses, before any file opens:
+    ValueError for `resume`, `save_frames`, no input frames (txt2vid windows
+    depend on the window before) and `overlap_length` >= `frame_count`."""
+    if cfg.resume:
+        raise ValueError("resume is not supported with parallel_segments: a segment-parallel "
+                         "run writes no checkpoint (run without parallel_segments to resume)")
+    if cfg.save_frames:
+        raise ValueError("save_frames is not supported with parallel_segments (its dumps "
+                         "number one sequential stream)")
+    if not has_input:
+        raise ValueError("parallel_segments needs input frames: txt2vid windows each depend "
+                         "on the window before")
+    if cfg.frame_count - cfg.overlap_length <= 0 and cfg.overlap_length > 0:
+        raise ValueError(f"parallel_segments requires overlap_length < frame_count (got "
+                         f"overlap_length={cfg.overlap_length}, "
+                         f"frame_count={cfg.frame_count})")
+
+
+def _run_segments(cfg, pipeline, upscaler, device, frame_source, frame_sink, sink_pix_fmt,
+                  seed, timers, cleanup, max_windows, progress, should_stop) -> dict:
+    """The segment-parallel loop of `vid2vid` (the JAX `_run_segments`):
+    `max_windows` bounds the windows of each segment without moving the
+    segment boundaries. Threads it starts are shut down through `cleanup`."""
+    S = int(cfg.parallel_segments)
+    F, ov = cfg.frame_count, cfg.overlap_length
+    novel = F - ov if ov > 0 else F
+
+    # drain the source and lay the segments out
+    frames = []
+    with timers.phase("read_input"):
+        while (f := frame_source.read()) is not None:
+            frames.append(f)
+    T = len(frames)
+    if T == 0:
+        return {"frames_written": 0, "seed": seed, "windows": 0, "segments": S,
+                "canceled": False}
+    per_seg = -(-T // S)
+    k = 1 if per_seg <= F else 1 + -(-(per_seg - F) // novel)
+    # the boundaries come from the whole input; max_windows bounds k after
+    seg_len = F + (k - 1) * novel
+    arr = np.stack(frames)
+    del frames
+    if S * seg_len > T:
+        arr = np.concatenate([arr, np.repeat(arr[-1:], S * seg_len - T, axis=0)])
+    segs = arr.reshape(S, seg_len, *arr.shape[1:])
+    if max_windows is not None:
+        k = min(k, max_windows)
+
+    to_yuv = sink_pix_fmt == "yuv420p" and upscaler is None
+    emit = F - min(ov, F) if ov > 0 else F
+
+    # window w+1 is uploaded (and annotated) on the side stream while w runs
+    stager = _Stager(device)
+    executor = pending = None
+    if cfg.overlap_host_work:
+        executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="seg-prefetch")
+        cleanup.callback(executor.shutdown, wait=True)
+    annotates = bool(cfg.controlnets) and hasattr(pipeline, "prepare_cond_images")
+    pre_annotate = annotates and not cfg.loop_back_frames
+
+    def prep(w: int):
+        def annotate(batch):
+            with timers.phase("annotate_prefetch"):
+                return pipeline.prepare_cond_images(batch, w)
+
+        batch = np.ascontiguousarray(segs[:, w * novel: w * novel + F])
+        return stager.upload(batch, annotate if pre_annotate else None)
+
+    seg_buffers: list[list] = [[] for _ in range(S)]
+    overlap_out = last_out = anchor = None  # (S, ov, ...), (S, ov, ...), (S, H, W, 3)
+    pending_readback = None
+    initial_pass = cfg.use_ipadapter and cfg.do_initial_generation
+
+    def fetch_emit():
+        nonlocal pending_readback
+        if pending_readback is None:
+            return
+        readback, pending_readback = pending_readback, None
+        with timers.phase("emit_buffer"):
+            packed = readback.numpy()
+            for s in range(S):
+                seg_buffers[s].append(packed[s])
+
+    with maybe_trace(cfg.trace_dir):
+        for w in range(k):
+            if should_stop is not None and should_stop():
+                # all or nothing: the sink is written after the last window
+                if pending is not None:
+                    pending.result()
+                if progress is not None:
+                    progress({"windows": w, "segments": S, "frames_generated": 0})
+                return {"frames_written": 0, "seed": seed, "windows": w, "segments": S,
+                        "canceled": True}
+            if pending is not None:
+                upload, pending = pending.result(), None
+            else:
+                upload = prep(w)
+            staged, cond = stager.claim(*upload)
+            if w > 0 and ov > 0 and cfg.loop_back_frames:
+                # each segment's generated overlap frames in its overlap slots
+                staged = staged.clone()  # the stager's buffer stays as it is
+                staged[:, :ov] = overlap_out.to(staged.device)
+            if executor is not None and w + 1 < k:
+                pending = executor.submit(prep, w + 1)
+
+            overlaps = ov if w > 0 else 0
+            strength = cfg.overlap_strength if w > 0 else cfg.strength
+            cond_kw = {} if cond is None else {"cond_images": cond}
+            with timers.phase("animate_window"):
+                out = pipeline.animate(staged, last_out, overlaps=overlaps, strength=strength,
+                                       seed=seed, epoch=w, segments=S, **cond_kw)
+                if initial_pass:
+                    # again, each segment anchored on its own tail; the first
+                    # pass's first frames are window 0's color-match anchors
+                    initial_pass = False
+                    anchor = out[:, 0]
+                    anchors = out[:, -ov:] if ov > 0 else out[:, -1:]
+                    out = pipeline.animate(staged, anchors, overlaps=int(anchors.shape[1]),
+                                           strength=cfg.overlap_strength, seed=seed, epoch=w,
+                                           segments=S, **cond_kw)
+
+            # the previous window's emit, read back while this window computes
+            fetch_emit()
+
+            with timers.phase("stitch"):
+                packed, anchor, last_out, overlap_out = stitch_window_batch(
+                    out, anchor, overlap_out if w > 0 else None, overlap_length=ov,
+                    to_yuv=to_yuv, emit=emit)
+            pending_readback = _Readback(packed)
+            if progress is not None:
+                progress({"windows": w + 1, "segments": S,
+                          "frames_generated": S * (F + w * novel)})
+
+        fetch_emit()
+        if ov > 0 and overlap_out is not None:
+            # each segment's tail overlap, generated and not yet emitted
+            tail = overlap_out
+            if to_yuv:
+                tail = rgb_to_yuv420(tail.reshape(-1, *tail.shape[2:])).reshape(S, ov, -1)
+            pending_readback = _Readback(tail)
+            fetch_emit()
+
+    # segment 0's frames first, each segment's pad trimmed
+    frames_written = 0
+    with timers.phase("upscale_and_emit"):
+        for s in range(S):
+            real_len = max(0, min(seg_len, T - s * seg_len))
+            if real_len == 0:
+                break  # the trailing segments are pure pad
+            out_frames = np.concatenate(seg_buffers[s])
+            seg_buffers[s] = None
+            budget = min(len(out_frames), real_len)
+            out_frames = out_frames[:budget]
+            if to_yuv:
+                for fr in out_frames:
+                    frame_sink.write(fr)
+            elif upscaler is not None:
+                # F frames an upscale, as the sequential loop stages a window
+                for i in range(0, budget, F):
+                    _write_rgb(frame_sink, sink_pix_fmt, device, upscaler.upscale_batch_device(
+                        torch.from_numpy(out_frames[i:i + F]).to(device)))
+            else:
+                _write_rgb(frame_sink, sink_pix_fmt, device, out_frames)
+            frames_written += budget
+
+    if executor is not None:
+        executor.shutdown(wait=True)
+    return {"frames_written": frames_written, "seed": seed, "windows": k, "segments": S,
+            "canceled": False}
 
 
 def _dump_frames(cfg: RunConfig, seed: int, out_dir: Path, start_idx: int, out_frames,

@@ -10,7 +10,8 @@ multi-step samplers: small windows under classifier-free guidance (Euler
 with a ControlNet, the LCM-LoRA tail, DPM-Solver) on the card against the
 CPU; the IP-Adapter's image encoder: K1 at its (1, 257, 16, 80) shape, and a
 narrow tower of its token count and head width in bf16 (on K1) against the
-same tower in fp32 through the plain attention.
+same tower in fp32 through the plain attention; and the segment-parallel
+loop on the card against the CPU and against the sequential loop.
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -479,6 +480,18 @@ def test_small_controlnet_window_card_matches_cpu(cuda):
 
     ref = chip_smoke.small_controlnet_reference(torch)
     assert ref["max_lsb"] <= 1 and ref["controlnet_change_max"] > 0, ref
+
+
+def test_small_segment_run_card_matches_cpu(cuda, tmp_path):
+    """The small fp32 pipeline's segment-parallel loop (2 segments of two
+    windows) on the card against the CPU: each window within 1 LSB; and its
+    first window against the sequential loop on each segment alone on the
+    card, within 1 LSB."""
+    import chip_smoke
+
+    ref = chip_smoke.small_segment_reference(torch, tmp_path / "segments")
+    assert ref["max_lsb"] <= 1 and ref["sequential_max_lsb"] <= 1, ref
+    assert ref["windows"] == 2, ref
 
 
 @pytest.mark.parametrize("case", ["EULER_CFG", "LCM_LORA", "DPM_CFG"])

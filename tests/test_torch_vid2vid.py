@@ -578,8 +578,8 @@ def test_unknown_keys_land_in_extras():
 
 
 UNPORTED = {
-    "parallel_segments": 4, "mesh_shape": (4, 2),
-    "temporal_band": 4, "token_merge_ratio": 0.5, "encoder_reuse_every": 2,
+    "mesh_shape": (4, 2), "temporal_band": 4, "token_merge_ratio": 0.5,
+    "encoder_reuse_every": 2,
 }
 
 
