@@ -44,9 +44,11 @@ Phases, each printed as one JSON line with its seconds:
              they are and with a hard-edged checkerboard added (`edge_rich`):
              equal maps; the full HED network (seeded by `init_hed_`) on 2
              frames of 64x80, card against CPU in fp32: within 1 LSB after
-             the uint8 quantisation; lineart and MLSD likewise
-             (`small_annotator_reference`: lineart at 64x80 and 48x96
-             within 1 LSB; MLSD's tpMaps within 1e-3 of each channel's RMS,
+             the uint8 quantisation; lineart, MLSD, softedge and
+             lineart_anime likewise (`small_annotator_reference`: lineart
+             and PidiNet at 64x80 and 48x96, the full-width lineart_anime
+             at 256x256 and 200x120 (its two cubic resizes), each within 1
+             LSB and not saturated; MLSD's tpMaps within 1e-3 of each channel's RMS,
              and the map the card decodes and draws from its own tpMap equal
              to the CPU's decode and drawing of it; INTER_AREA at 768x512
              and 1024x1024 to 512x512 and 600 random segments drawn, equal);
@@ -69,10 +71,10 @@ Phases, each printed as one JSON line with its seconds:
              full width in the cfg and disk phases; their 64x64
              card-against-CPU windows are in tests/test_torch_gpu.py); then
              the segment-parallel loop (`small_segment_reference`: the
-             small fp32 pipeline, `parallel_segments` 2, 12 frames, two
-             windows a segment) on the card against the CPU, each window
-             within 1 LSB (the written frames, which the color match
-             chains, reported), and its first window against the
+             small fp32 pipeline, `parallel_segments` 2, 8 frames, one
+             window a segment; two in tests/test_torch_gpu.py) on the card
+             against the CPU, each window within 1 LSB (the written frames
+             reported), and its first window against the
              sequential loop on each segment's frames alone on the card,
              within 1 LSB. The line holds each step's seconds
              (`step_seconds`).
@@ -132,8 +134,10 @@ Phases, each printed as one JSON line with its seconds:
              each ControlNet's forwards of a window (also on the card
              alone). Before that, an `annotators_512x768` line: canny, HED,
              and the seeded lineart (`seed_lineart_`), MLSD
-             (`mlsd_checkpoint`, its head set on a window of this phase) and
-             OpenPose (`openpose_checkpoints`) that the disk phase writes,
+             (`mlsd_checkpoint`, its head set on a window of this phase),
+             OpenPose (`openpose_checkpoints`), PidiNet
+             (`pidinet_checkpoint`, its classifier set on that window) and
+             lineart_anime (`seed_lineart_anime_`) that the disk phase writes,
              each timed by CUDA events on one 16-frame window at the shipped
              512x768, with their maps' mean and std (a constant map fails,
              but the seeded OpenPose's, which finds no one, and so does a
@@ -143,7 +147,8 @@ Phases, each printed as one JSON line with its seconds:
              and faces drawn and the decode's host seconds.
   cfg        the multi-step path (SampleConfig.yaml's sampler): the same
              loop, K2 on, over one whole 16-frame window at strength 1.0
-             with `EulerDiscreteScheduler`, 30 steps, guidance 7.5 over the
+             with `EulerDiscreteScheduler`, 15 steps (the shipped 30 cut
+             in half), guidance 7.5 over the
              negative and positive prompts, and the controlnet phase's canny
              ControlNet at 1.0; the SD1.5 UNet without the LCM w-embedding
              (`time_cond_proj_dim` None, the window phase's weights). Checks
@@ -189,13 +194,22 @@ Phases, each printed as one JSON line with its seconds:
              networks as models/annotators/ ControlNetHED.pth,
              sk_model.pth, mlsd_large_512_fp32.pth (in controlnet_aux's
              layout, BatchNorms unfolded), body_pose_model.pth,
-             hand_pose_model.pth and facenet.pth, and the next two runs
-             start from the snapshot root, which finds them there. First the
+             hand_pose_model.pth, facenet.pth, table5_pidinet.pth (the
+             released nesting: `state_dict`, `module.` keys, unfolded PDC
+             kernels) and netG.pth, and the next runs start from the
+             snapshot root, which finds them there. First the
              controlnet phase's native-LCM profile at 512x512 on
              inference-v2.yaml with K2 off, one window (`--max-windows 1`,
              8 frames written): its frames must equal the controlnet
              phase's first 8 and its K1 launches by shape those that one
-             window with both ControlNets implies. Then the LCM-LoRA
+             window with both ControlNets implies. Then the same profile
+             naming `lllyasviel/control_v11p_sd15_softedge` and
+             `lllyasviel/control_v11p_sd15s2_lineart_anime` (their folders
+             link to the canny and HED nets': the name selects the
+             annotator, PidiNet and lineart_anime read from the files), one
+             window: its frames must equal the injected pipeline's with the
+             same nets and the controlnet phase's seeded annotators, and
+             its K1 launches the same count. Then the LCM-LoRA
              profile's files (SampleConfigLCMLoRA.yaml: openpose at 1.0,
              lineart at 0.35, MLSD at 1.0 and HED at 0.4; 512x768,
              `upscale` 2 and the face enhancer with `upscale_first` 1, on
@@ -291,8 +305,8 @@ Phases, each printed as one JSON line with its seconds:
              against its plain version at every shape the vid2vid phase and
              the 512x768 run launched it with, plus odd H, W and Cin, each
              with and without the affine + SiLU + residual, in bf16, and in
-             fp32 (the reference phase's dtype) at all but the 512x768
-             shapes (`k2_mismatch`), with K2's achieved TFLOP/s and share of
+             fp32 (the reference phase's dtype, which runs it at 64x64) at
+             the odd shapes (`k2_mismatch`), with K2's achieved TFLOP/s and share of
              the bound in bf16, and the GroupNorm fold's time and peak
              memory at the largest input it folds, beside the same
              statistics taken from full fp32 copies. Then each kernel's
@@ -373,6 +387,10 @@ CONTROLNET_LEVELS = ((1, 40, 2), (4, 80, 2), (16, 160, 2), (64, 160, 1))
 # the controlnet phase's nets (their names pick canny and HED) and scales
 CN_NAMES = ("lllyasviel/sd-controlnet-canny", "lllyasviel/sd-controlnet-hed")
 CN_SCALES = (1.0, 0.5)
+# the ControlNet v1.1 softedge and anime-lineart nets' names (the disk
+# phase's CLI run gives them the canny and HED nets' weights)
+M13C1_CN_NAMES = ("lllyasviel/control_v11p_sd15_softedge",
+                  "lllyasviel/control_v11p_sd15s2_lineart_anime")
 # the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's ControlNets and
 # scales
 LORA_CN_NAMES = ("lllyasviel/control_v11p_sd15_openpose", "lllyasviel/control_v11p_sd15_lineart",
@@ -1619,16 +1637,17 @@ class RecordedNoise:
 
 
 def small_segment_reference(torch, out_dir: Path = ROOT / "build" / "chip_smoke_segments",
-                            card: str = "cuda") -> dict:
+                            card: str = "cuda", windows: int = 2) -> dict:
     """The small fp32 pipeline's segment-parallel loop (`parallel_segments`
-    2, 12 frames: two windows of 4 frames, overlap 2, a segment) on `card`
-    against the same run on the CPU (same weights, host-drawn noise): each
-    window's uint8 frames (both segments) within 1 LSB (`max_lsb`), and the
-    frames written, whose stitch color-matches window 2 to window 1, as far
-    apart (`frames_max_lsb`, reported). Then the sequential loop on `card`
-    over each segment's first 4 frames alone: its window against the segment
-    run's first window of that segment (`sequential_max_lsb`), within 1 LSB
-    (the parity contract of tests/test_vid2vid_e2e.py:538)."""
+    2; `windows` windows of 4 frames, overlap 2, a segment: 12 frames at 2
+    windows, 8 at 1) on `card` against the same run on the CPU (same
+    weights, host-drawn noise): each window's uint8 frames (both segments)
+    within 1 LSB (`max_lsb`), and the frames written, whose stitch
+    color-matches window 2 to window 1, as far apart (`frames_max_lsb`,
+    reported). Then the sequential loop on `card` over each segment's first
+    4 frames alone: its window against the segment run's first window of
+    that segment (`sequential_max_lsb`), within 1 LSB (the parity contract
+    of tests/test_vid2vid_e2e.py:538)."""
     import copy
 
     import numpy as np
@@ -1640,7 +1659,8 @@ def small_segment_reference(torch, out_dir: Path = ROOT / "build" / "chip_smoke_
     cfg, models, text = small_models(torch, "float32", False)
     cfg = cfg.replace(parallel_segments=2, checkpoint_interval=0, seed=SEED,
                       overlap_strength=0.85, ffmpeg_path=str(out_dir / "no-ffmpeg"))
-    frames = synthetic_video(np, 12, 64, 64, SEED)
+    per = 4 + 2 * (windows - 1)  # a segment's frames
+    frames = synthetic_video(np, 2 * per, 64, 64, SEED)
     runs, sinks = {}, {}
     for device in ("cpu", card):
         pipe = ControlAnimatePipeline(cfg, models=copy.deepcopy(models),
@@ -1649,7 +1669,7 @@ def small_segment_reference(torch, out_dir: Path = ROOT / "build" / "chip_smoke_
         summary = v2v.vid2vid(config=cfg.replace(output_video_dir=str(out_dir / device)),
                               pipeline=runs[device], frame_source=ArrayFrameSource(frames),
                               frame_sink=sinks[device])
-        if summary["windows"] != 2 or summary["segments"] != 2 or summary[
+        if summary["windows"] != windows or summary["segments"] != 2 or summary[
                 "frames_written"] != len(frames):
             raise AssertionError(f"the small segment run on {device}: {summary}")
     card_pipe = runs[card].pipe
@@ -1662,7 +1682,7 @@ def small_segment_reference(torch, out_dir: Path = ROOT / "build" / "chip_smoke_
         seq = RecordedNoise(card_pipe)
         v2v.vid2vid(config=cfg.replace(parallel_segments=0,
                                        output_video_dir=str(out_dir / f"sequential_{s}")),
-                    pipeline=seq, frame_source=ArrayFrameSource(frames[6 * s:6 * s + 4]),
+                    pipeline=seq, frame_source=ArrayFrameSource(frames[per * s:per * s + 4]),
                     frame_sink=ArrayFrameSink())
         seq_diff = max(seq_diff, int((seq.windows[0].int()
                                       - runs[card].windows[0][s].int()).abs().max()))
@@ -1673,8 +1693,9 @@ def small_segment_reference(torch, out_dir: Path = ROOT / "build" / "chip_smoke_
 
 
 # the cfg phase's profile: SampleConfig.yaml's sampler (with one canny
-# ControlNet at 1.0 and K2 on), a whole window and an overlap-8 window
-CFG_PROFILE = {"use_lcm": False, "scheduler": "EulerDiscreteScheduler", "steps": 30,
+# ControlNet at 1.0 and K2 on) over one whole window, its 30 steps cut to
+# 15 (the script's time limit; each step is the same work)
+CFG_PROFILE = {"use_lcm": False, "scheduler": "EulerDiscreteScheduler", "steps": 15,
                "guidance_scale": 7.5, "strength": 1.0, "overlap_strength": 0.92}
 # the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's sampler
 LCM_LORA_PROFILE = {"use_lcm": False, "scheduler": "LCMScheduler", "steps": 7,
@@ -1762,9 +1783,13 @@ def small_hed_reference(torch) -> dict:
 
 
 def small_annotator_reference(torch) -> dict:
-    """Lineart and MLSD on the card against the CPU, fp32, on the same uint8
-    frames with seeded weights (`annotators/seeded.py`): lineart on 2 frames at
-    64x80 and at 48x96, within 1 LSB after the facade's uint8 quantisation;
+    """Lineart, MLSD, softedge and lineart_anime on the card against the
+    CPU, fp32, on the same uint8 frames with seeded weights
+    (`annotators/seeded.py`): lineart on 2 frames at 64x80 and at 48x96,
+    within 1 LSB after the facade's uint8 quantisation; PidiNet (its
+    classifier set on the 64x80 frames) on 2 frames at 64x80 and at 48x96,
+    and the full-width lineart_anime on a frame at 256x256 and at 200x120
+    (both cubic resizes), each within 1 LSB likewise;
     MLSD (`mlsd_checkpoint`, made and its head set on the card) on 2 frames
     of 64x80: each tpMap channel within 1e-3 of its RMS, and the map the
     card decodes and draws from its tpMap equal to the CPU's decode and
@@ -1778,21 +1803,47 @@ def small_annotator_reference(torch) -> dict:
     from controlanimate_tpu_torch.models.annotators import mlsd
     from controlanimate_tpu_torch.models.annotators.edge_nets import (LineartAnnotator,
                                                                      LineartGenerator)
-    from controlanimate_tpu_torch.models.annotators.seeded import (mlsd_checkpoint, mlsd_model,
-                                                                  seed_lineart_)
+    from controlanimate_tpu_torch.models.annotators.lineart_anime import (LineartAnimeAnnotator,
+                                                                          UnetGenerator)
+    from controlanimate_tpu_torch.models.annotators.pidinet import PidiNetAnnotator
+    from controlanimate_tpu_torch.models.annotators.seeded import (
+        mlsd_checkpoint, mlsd_model, pidinet_checkpoint, pidinet_model, seed_lineart_,
+        seed_lineart_anime_)
     from controlanimate_tpu_torch.ops.draw import lines
     from controlanimate_tpu_torch.ops.resize import resize_area
 
     t0 = time.perf_counter()
-    q = lambda m: (m * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+    # the facade's quantisation (a map outside [0, 1] goes to 0 or 255)
+    q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+
+    def card_vs_cpu(cpu_ann, card_ann, sizes, n):
+        lsb, err, stats = 0, 0.0, []
+        for h, w in sizes:
+            frames = torch.from_numpy(edge_rich(np, synthetic_video(np, n, h, w, SEED)))
+            cpu = cpu_ann(frames)
+            card = card_ann(frames.cuda()).cpu()
+            lsb = max(lsb, int((q(cpu) - q(card)).abs().max()))
+            err = max(err, float((cpu - card).abs().max()))
+            stats.append([float(cpu.mean()), float(cpu.std())])
+        return lsb, err, stats
+
     net = seed_lineart_(LineartGenerator(), torch.Generator().manual_seed(SEED))
-    card_net = LineartAnnotator(copy.deepcopy(net).cuda())
-    lsb, std = 0, []
-    for h, w in ((64, 80), (48, 96)):
-        frames = torch.from_numpy(edge_rich(np, synthetic_video(np, 2, h, w, SEED)))
-        cpu = LineartAnnotator(net)(frames)
-        lsb = max(lsb, int((q(cpu) - q(card_net(frames.cuda()).cpu())).abs().max()))
-        std.append(float(cpu.std()))
+    lsb, _, stats = card_vs_cpu(LineartAnnotator(net), LineartAnnotator(copy.deepcopy(net).cuda()),
+                                ((64, 80), (48, 96)), 2)
+    std = [sd for _, sd in stats]
+    pidi_ckpt = pidinet_checkpoint(torch.Generator().manual_seed(SEED), torch.from_numpy(
+        edge_rich(np, synthetic_video(np, 2, 64, 80, SEED))))
+    pidi = card_vs_cpu(PidiNetAnnotator(pidinet_model(pidi_ckpt, "cpu")),
+                       PidiNetAnnotator(pidinet_model(pidi_ckpt, "cuda")),
+                       ((64, 80), (48, 96)), 2)
+    # the full-width lineart_anime seeded on the card (54 M parameters), a
+    # copy on the CPU
+    agen = torch.Generator(device="cuda")
+    agen.manual_seed(SEED)
+    with torch.device("cuda"):
+        anime_net = seed_lineart_anime_(UnetGenerator(), agen)
+    anime = card_vs_cpu(LineartAnimeAnnotator(copy.deepcopy(anime_net).cpu()),
+                        LineartAnimeAnnotator(anime_net), ((256, 256), (200, 120)), 1)
     frames = torch.from_numpy(edge_rich(np, synthetic_video(np, 2, 64, 80, SEED)))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -1813,6 +1864,9 @@ def small_annotator_reference(torch) -> dict:
     line_diff = int((lines(ends[..., :2], ends[..., 2:], keep, 512, 512) != lines(
         ends[..., :2].cuda(), ends[..., 2:].cuda(), keep.cuda(), 512, 512).cpu()).sum())
     return {"lineart_max_lsb": lsb, "lineart_std": std,
+            "softedge_max_lsb": pidi[0], "softedge_max_abs_err": pidi[1],
+            "softedge_mean_std": pidi[2], "lineart_anime_max_lsb": anime[0],
+            "lineart_anime_max_abs_err": anime[1], "lineart_anime_mean_std": anime[2],
             "mlsd_tp_max_abs_err": float(err.max()),
             "mlsd_tp_err_over_rms": float((err / rms).max()),
             "mlsd_draw_diff": int((drawn_cpu != drawn_card).sum()),
@@ -2057,13 +2111,15 @@ def device_busy_ms(torch, fn, iters: int = 3) -> float:
     calls after a warm-up: its time on the card without the waits for the
     host that a CUDA-event time includes when the host launches slower than
     the card runs. A profile that recorded no device time at all (the
-    profiler now and then drops a short run's activity) is taken again, three
-    times in all before it fails."""
+    profiler now and then drops a short run's activity, at times several
+    runs in a row) is taken again after a pause, five times in all before
+    it fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    attempts = 5
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -2071,8 +2127,9 @@ def device_busy_ms(torch, fn, iters: int = 3) -> float:
         try:
             return sum(device_activities(prof)[0].values()) / 1e6 / iters
         except AssertionError:
-            if attempt == 2:
+            if attempt == attempts - 1:
                 raise
+            time.sleep(1.0)
 
 
 @contextmanager
@@ -2213,7 +2270,7 @@ def main() -> int:
         canny_reference(torch, np, f(synthetic_video(np, 2, h, 512, SEED)))
         for h in (512, 768) for f in (lambda v: v, lambda v: edge_rich(np, v))])
     ref_hed = step("hed", lambda: small_hed_reference(torch))
-    ref_annotators = step("lineart_mlsd", lambda: small_annotator_reference(torch))
+    ref_annotators = step("annotators", lambda: small_annotator_reference(torch))
     ref_openpose = step("openpose", lambda: small_openpose_reference(torch))
     ref_cn = step("controlnet", lambda: small_controlnet_reference(torch))
     # a multi-step sampler: DPM-Solver under CFG 7.5 with a canny ControlNet
@@ -2227,16 +2284,17 @@ def main() -> int:
         torch, motion_kernel=True, controlnet=True, windows=1, unguided=True, **DPM_CFG))
     cfg_k1_batches = sorted({key[0] for key in fa.flash_attention.launches_by_shape})
     k3_cfg_batches = sorted({key[0] for key in mk.motion_module_fused.launches_by_shape})
-    # the segment-parallel loop, 2 segments of two windows, card against CPU
-    # and against the sequential loop on each segment
-    ref_seg = step("segments", lambda: small_segment_reference(torch))
+    # the segment-parallel loop, 2 segments of one window (two in
+    # tests/test_torch_gpu.py and against JAX in the CPU tests), card
+    # against CPU and against the sequential loop on each segment
+    ref_seg = step("segments", lambda: small_segment_reference(torch, windows=1))
     phase("reference", t0, **ref, k2_max_lsb=ref_k2["max_lsb"], k2_mean_lsb=ref_k2["mean_lsb"],
           k2_launches=k2_ref_launches, k3_max_lsb=ref_k3["max_lsb"],
           k3_mean_lsb=ref_k3["mean_lsb"], k3_launches=k3_ref_launches,
           upscale4_max_lsb=ref_up4["max_lsb"], upscale4_mean_lsb=ref_up4["mean_lsb"],
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
           k4_launches=k4_ref_launches, face=ref_face, canny=ref_canny, hed=ref_hed,
-          lineart_mlsd=ref_annotators, openpose=ref_openpose, controlnet=ref_cn,
+          annotators=ref_annotators, openpose=ref_openpose, controlnet=ref_cn,
           dpm_cfg_controlnet_k3=ref_cfg_k3, segments=ref_seg, cfg_k1_batches=cfg_k1_batches,
           cfg_k3_batches=k3_cfg_batches, step_seconds=step_seconds)
     for r in (ref, ref_k2, ref_k3, ref_cfg_k3):
@@ -2265,8 +2323,12 @@ def main() -> int:
         raise AssertionError(f"HED on the card differs from the CPU by {ref_hed['max_lsb']} LSB")
     ra = ref_annotators
     if (ra["lineart_max_lsb"] > 1 or ra["mlsd_tp_err_over_rms"] > 1e-3 or ra["mlsd_draw_diff"]
-            or not ra["mlsd_drawn_share"] or ra["resize_area_diff"] or ra["line_diff"]):
-        raise AssertionError(f"lineart or MLSD on the card differs from the CPU: {ra}")
+            or not ra["mlsd_drawn_share"] or ra["resize_area_diff"] or ra["line_diff"]
+            or ra["softedge_max_lsb"] > 1 or ra["lineart_anime_max_lsb"] > 1
+            or min(sd for _, sd in ra["softedge_mean_std"] + ra["lineart_anime_mean_std"])
+            <= 0.02):
+        raise AssertionError(f"lineart, MLSD, softedge or lineart_anime on the card differs "
+                             f"from the CPU, or a map is saturated: {ra}")
     rp = ref_openpose
     if (max(rp["net_err_over_rms"].values()) > 1e-3 or not rp["body_equal"]
             or rp["people"] != 2 or min(rp["hands_faces_drawn"]) < 1 or rp["canvas_diff"]
@@ -2606,10 +2668,14 @@ def main() -> int:
     # on one 16-frame window at the shipped 512x768, by CUDA events
     from controlanimate_tpu_torch.models.annotators.edge_nets import (LineartAnnotator,
                                                                      LineartGenerator)
+    from controlanimate_tpu_torch.models.annotators.lineart_anime import (LineartAnimeAnnotator,
+                                                                          UnetGenerator)
     from controlanimate_tpu_torch.models.annotators.mlsd import MLSDAnnotator
     from controlanimate_tpu_torch.models.annotators.openpose import body_input_size
+    from controlanimate_tpu_torch.models.annotators.pidinet import PidiNetAnnotator
     from controlanimate_tpu_torch.models.annotators.seeded import (
-        mlsd_checkpoint, mlsd_model, openpose_checkpoints, pose_maps, seed_lineart_)
+        mlsd_checkpoint, mlsd_model, openpose_checkpoints, pidinet_checkpoint, pidinet_model,
+        pose_maps, seed_lineart_, seed_lineart_anime_)
 
     video_768 = synthetic_video(np, 2 * frames_n - overlap, 768, size, SEED)
     frames_768 = torch.from_numpy(video_768[:frames_n]).cuda()
@@ -2620,14 +2686,27 @@ def main() -> int:
     mlsd_ann = MLSDAnnotator(mlsd_model(mlsd_sd, "cuda"))
     pose_sds = openpose_checkpoints(cgen)
     openpose_ann = openpose_annotator(torch, pose_sds, "cuda")
+    # the disk phase's softedge and lineart_anime (PidiNet's classifier set
+    # on this window), from a generator of their own
+    agen = torch.Generator(device="cuda")
+    agen.manual_seed(SEED + 10)
+    pidi_ckpt = pidinet_checkpoint(agen, window_frames)
+    softedge = PidiNetAnnotator(pidinet_model(pidi_ckpt, "cuda"))
+    with torch.device("cuda"):
+        anime_net = UnetGenerator()
+    lineart_anime = LineartAnimeAnnotator(seed_lineart_anime_(anime_net, agen))
     annotators_768 = {"canny": canny, "hed": hed, "lineart": lineart, "mlsd": mlsd_ann,
-                      "openpose": openpose_ann}
-    # the first two calls warm each annotator up (and must agree)
+                      "openpose": openpose_ann, "softedge": softedge,
+                      "lineart_anime": lineart_anime}
+    # the first call warms each annotator up; the second, timed, must agree
     maps_768 = {name: a(frames_768) for name, a in annotators_768.items()}
-    repeatable = {name: torch.equal(a(frames_768), maps_768[name])
-                  for name, a in annotators_768.items()}
-    annotator_ms = {name: cuda_ms(torch, lambda a=a: a(frames_768), 1, warmup=0)
-                    for name, a in annotators_768.items()}
+    repeatable, annotator_ms = {}, {}
+    for name, a in annotators_768.items():
+        again = []
+        annotator_ms[name] = cuda_ms(torch, lambda a=a: again.append(a(frames_768)), 1,
+                                     warmup=0)
+        repeatable[name] = torch.equal(again[0], maps_768[name])
+        del again
     seeded_stats = dict(openpose_ann.stats)
     # a seeded body network finds no one: openpose's decode, crops and
     # drawing timed again on crafted maps of two people in every frame
@@ -2648,6 +2727,8 @@ def main() -> int:
     print(json.dumps({"annotators_512x768": {
         "frames": frames_n, "ms_per_window": annotator_ms, "repeatable": repeatable,
         "lineart_params": sum(p.numel() for p in lineart_net.parameters()),
+        "softedge_params": sum(p.numel() for p in softedge.model.parameters()),
+        "lineart_anime_params": sum(p.numel() for p in anime_net.parameters()),
         "mlsd_params": sum(p.numel() for p in mlsd_ann.model.parameters()),
         "openpose_params": {n: sum(p.numel() for p in m.parameters()) for n, m in (
             ("body", openpose_ann.body), ("hand", openpose_ann.hand),
@@ -2714,7 +2795,7 @@ def main() -> int:
         raise AssertionError("the CFG loop's frames are not (512, 512, 3) uint8")
     if float(np.stack(cfg_frames).std()) == 0.0:
         raise AssertionError("the CFG loop's frames are constant")
-    # the window's steps as the port's sampler builds them: 30
+    # the window's steps as the port's sampler builds them: 15
     cfg_window_steps = [make_scheduler(CFG_PROFILE["scheduler"], make_schedule(),
                                        CFG_PROFILE["steps"],
                                        strength=CFG_PROFILE["strength"]).num_steps]
@@ -2972,7 +3053,15 @@ def main() -> int:
     snapshot_bytes.update(write_controlnets(
         torch, SNAPSHOT, {**dict(zip(CN_NAMES, cn_nets)), **lora_nets},
         {"ControlNetHED.pth": hed_net.state_dict(), "sk_model.pth": lineart_net.state_dict(),
-         "mlsd_large_512_fp32.pth": mlsd_sd, **pose_sds}))
+         "mlsd_large_512_fp32.pth": mlsd_sd, **pose_sds,
+         "table5_pidinet.pth": {"state_dict": {k: v.cpu()
+                                               for k, v in pidi_ckpt["state_dict"].items()}},
+         "netG.pth": anime_net.state_dict()}))
+    # the softedge and lineart_anime ControlNets are the canny and HED nets'
+    # folders: the name selects the annotator
+    for name, net_name in zip(M13C1_CN_NAMES, CN_NAMES):
+        (SNAPSHOT / "models" / "ControlNet" / name.split("/")[-1]).symlink_to(
+            net_name.split("/")[-1], target_is_directory=True)
     cn_write_seconds = time.perf_counter() - t1
 
     # the controlnet phase's native-LCM profile from disk (inference-v2, K2
@@ -3015,6 +3104,47 @@ def main() -> int:
                                  f"by {int(rerun.max())}")
     fields_cn.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del disk_cn_frames, diff, cn_frames
+
+    # the same profile naming the softedge and lineart_anime ControlNets
+    # (the canny and HED nets' folders), its annotators read from
+    # table5_pidinet.pth and netG.pth, one window, against the injected
+    # pipeline with the same nets and the controlnet phase's annotators
+    se_settings = {"controlnets": M13C1_CN_NAMES, "cond_scale": CN_SCALES}
+    with chdir(SNAPSHOT):
+        summary, disk_se_frames, seconds, counts, peak = run_cli(
+            "disk_softedge_anime", ["--max-windows", "1"],
+            input_video_path=str(SNAPSHOT / "frames_512x512"), width=size, height=size,
+            inference_config_path=str(INFERENCE_V2), motion_module=str(SNAPSHOT / "mm_v2.ckpt"),
+            use_pallas_conv=0, **se_settings)
+    if summary["windows"] != 1 or len(disk_se_frames) != n_cli:
+        raise AssertionError(f"the softedge/lineart_anime CLI run wrote {len(disk_se_frames)} "
+                             f"frames in {summary['windows']} windows, not {n_cli} in 1")
+    if counts["k1_by_shape"] != cn_cli_k1_expected or counts["k2_by_shape"] or counts["k3"]:
+        raise AssertionError(f"softedge/lineart_anime CLI K1 launches {counts['k1_by_shape']}, "
+                             f"expected {cn_cli_k1_expected}, or K2 or K3 launched")
+    se_models = EngineModels(unet=models.unet, vae=models.vae, controlnets=cn_nets,
+                             annotators=[softedge, lineart_anime])
+    _, se_injected, _, _, _, _ = run_vid2vid(False, "softedge_anime", engine_models=se_models,
+                                             max_windows=1, **se_settings)
+    diff = np.abs(np.stack(disk_se_frames).astype(np.int16)
+                  - np.stack(se_injected).astype(np.int16))
+    fields_se = {"controlnets": list(M13C1_CN_NAMES), "frames_written": summary["frames_written"],
+                 "uint8_diff_vs_injected_max": int(diff.max()),
+                 "uint8_diff_vs_injected_mean": float(diff.mean()),
+                 "k1_launches": sum(counts["k1_by_shape"].values())}
+    if diff.max():
+        _, again, _, _, _, _ = run_vid2vid(False, "softedge_anime_again",
+                                           engine_models=se_models, max_windows=1,
+                                           **se_settings)
+        rerun = np.abs(np.stack(again).astype(np.int16)
+                       - np.stack(se_injected).astype(np.int16))
+        fields_se["injected_rerun_diff_max"] = int(rerun.max())
+        if diff.max() > rerun.max():
+            raise AssertionError(f"the softedge/lineart_anime CLI run's frames differ from the "
+                                 f"injected pipeline's by {int(diff.max())}, two injected runs "
+                                 f"by {int(rerun.max())}")
+    fields_se.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
+    del disk_se_frames, se_injected, diff
 
     # the LCM-LoRA profile's files (SampleConfigLCMLoRA.yaml: a LoRA from
     # `lora_model_paths`, its four ControlNets: openpose at 1.0, lineart at
@@ -3445,6 +3575,7 @@ def main() -> int:
     shutil.rmtree(SNAPSHOT)
     phase("disk", t0, snapshot_write_seconds=round(write_seconds, 4),
           snapshot_bytes=snapshot_bytes, cli_controlnet=fields_cn,
+          cli_softedge_anime=fields_se,
           lcm_lora_build=fields_lora, cli_ip_adapter=fields_ip, cli_512x768=fields_768,
           cli_segments=fields_seg)
     del plain_frames
@@ -3572,13 +3703,12 @@ def main() -> int:
     k2_rows = []
     k2_launched = {**k2_by_shape, **k2_768}
     check_seconds = 0.0
-    # fp32 K2 runs only in the reference phase: it is checked at the 512x512
-    # and odd shapes, the 512x768 ones in bf16 alone
-    only_768 = {key[:5] for key in k2_768} - {key[:5] for key in k2_by_shape}
+    # fp32 K2 runs only in the reference phase, at 64x64: it is checked at
+    # the odd shapes, the main path's (bf16) in bf16 alone
     for shape in sorted({key[:5] for key in k2_launched}) + K2_ODD_SHAPES:
         t1 = time.perf_counter()
         err_bf16 = check_k2(torch, ck, shape, torch.bfloat16, gen)
-        err_fp32 = None if shape in only_768 else check_k2(torch, ck, shape, torch.float32, gen)
+        err_fp32 = check_k2(torch, ck, shape, torch.float32, gen) if shape in K2_ODD_SHAPES else None
         check_seconds += time.perf_counter() - t1
         x, w, bias, affine, res = k2_inputs(torch, shape, torch.bfloat16, gen)
         w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)

@@ -5,15 +5,15 @@ ControlNet's model name picks its annotator by substring, in the JAX
 package's order (`ANNOTATOR_ORDER`). An annotator maps (F, H, W, 3) uint8
 frames to (F, H, W, 3) float32 condition maps in [0, 1] on the same device.
 Ported: `canny` (`ops/canny.py`, bit for bit as OpenCV), `hed` and
-`lineart` (`edge_nets.py`), `mlsd` (`mlsd.py`) and `openpose` with hands
-and face (`openpose.py`), the networks read from `WEIGHT_FILES` in
-CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`); a missing file
-raises FileNotFoundError (where the JAX package falls back to
-`cv2.HoughLinesP` for MLSD and skips OpenPose's hands or faces). Every other
-annotator of the zoo is M13 and
-raises NotImplementedError when the pipeline is built; `softedge` does not
-fall back to HED as the JAX package does when its PidiNet weights are
-absent. A name that matches no annotator raises KeyError, as in JAX (there
+`lineart` (`edge_nets.py`), `mlsd` (`mlsd.py`), `openpose` with hands and
+face (`openpose.py`), `softedge` (PidiNet, `pidinet.py`) and
+`lineart_anime` (`lineart_anime.py`), the networks read from `WEIGHT_FILES`
+in CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`); a missing
+file raises FileNotFoundError (where the JAX package falls back to
+`cv2.HoughLinesP` for MLSD, to HED for softedge, and skips OpenPose's
+hands or faces). The two annotators of the zoo left, `depth` and
+`normalbae`, are M13c and raise NotImplementedError when the pipeline is
+built. A name that matches no annotator raises KeyError, as in JAX (there
 at the first window, here at the build).
 """
 
@@ -27,8 +27,10 @@ import torch
 
 from ...ops.canny import canny
 from .edge_nets import HEDAnnotator, LineartAnnotator
+from .lineart_anime import LineartAnimeAnnotator
 from .mlsd import MLSDAnnotator
 from .openpose import WEIGHT_NAMES, OpenPoseAnnotator
+from .pidinet import PidiNetAnnotator
 
 # (substring of the lower-cased model name, annotator), first match wins
 ANNOTATOR_ORDER = (
@@ -45,13 +47,15 @@ ANNOTATOR_ORDER = (
     ("depth", "depth"),
     ("scribble", "hed"),
 )
-PORTED = ("canny", "hed", "lineart", "mlsd", "openpose")
+PORTED = ("canny", "hed", "lineart", "mlsd", "openpose", "softedge", "lineart_anime")
 # the networks' checkpoints (controlnet_aux's names) and the annotators'
 # constructors from their paths
 WEIGHT_FILES = {"hed": (("ControlNetHED.pth",), HEDAnnotator.from_file),
                 "lineart": (("sk_model.pth",), LineartAnnotator.from_file),
                 "mlsd": (("mlsd_large_512_fp32.pth",), MLSDAnnotator.from_file),
-                "openpose": (WEIGHT_NAMES, OpenPoseAnnotator.from_files)}
+                "openpose": (WEIGHT_NAMES, OpenPoseAnnotator.from_files),
+                "softedge": (("table5_pidinet.pth",), PidiNetAnnotator.from_file),
+                "lineart_anime": (("netG.pth",), LineartAnimeAnnotator.from_file)}
 ANNOTATOR_ENV = "CONTROLANIMATE_ANNOTATOR_DIR"
 
 Annotator = Callable[[torch.Tensor], torch.Tensor]
@@ -59,14 +63,15 @@ Annotator = Callable[[torch.Tensor], torch.Tensor]
 
 def annotator_name(controlnet_name: str) -> str:
     """The ported annotator a ControlNet's name selects; NotImplementedError
-    (M13) for one not yet ported, KeyError for a name that selects none."""
+    (M13c) for depth and normalbae, not yet ported; KeyError for a name that
+    selects none."""
     n = controlnet_name.lower()
     for sub, key in ANNOTATOR_ORDER:
         if sub in n:
             if key not in PORTED:
                 raise NotImplementedError(
                     f"ControlNet {controlnet_name!r} needs the {key!r} annotator, which is "
-                    f"not ported yet (M13); ported: {list(PORTED)}")
+                    f"not ported yet (M13c); ported: {list(PORTED)}")
             return key
     raise KeyError(f"no annotator for ControlNet {controlnet_name!r}; "
                    f"names: {sorted({k for _, k in ANNOTATOR_ORDER})}")

@@ -125,25 +125,40 @@ class LineartResBlock(nn.Module):
         return x + self.conv_block(x)
 
 
-# the transposed conv's taps (dy into the padded input, ky into its kernel)
-# that reach output row 2m + a, for each phase a (and the same for columns)
-_UP_TAPS = {0: ((0, 1),), 1: ((0, 2), (1, 0))}
+# the forward conv that stands for a stride-2 transposed conv of kernel k,
+# padding p and output padding q, by (k, p, q): its kernel size, the
+# padding of x (left, right, top, bottom), and the taps (dy into the padded
+# input, ky into the transposed kernel) that reach output row 2m + a, for
+# each phase a (and the same for columns)
+_UP_GEOMETRY = {
+    (3, 1, 1): (2, (0, 1, 0, 1), {0: ((0, 1),), 1: ((0, 2), (1, 0))}),
+    (4, 1, 0): (3, (1, 1, 1, 1), {0: ((1, 1), (0, 3)), 1: ((2, 0), (1, 2))}),
+}
 
 
 def up2x(x: torch.Tensor, up: nn.ConvTranspose2d) -> torch.Tensor:
-    """`up` (3x3, stride 2, padding 1, output_padding 1) as one 2x2 forward
-    convolution of x, padded by a zero row and column at its end, to the
-    four output phases (channel o * 4 + a * 2 + b for output pixel (2m + a,
-    2n + b)), interleaved by `pixel_shuffle`. cuDNN's forward convolutions
-    sum in the same order on every run; its transposed ones need not."""
-    w = up.weight  # (I, O, 3, 3)
-    k = w.new_zeros(w.shape[1], 2, 2, w.shape[0], 2, 2)  # (o, a, b, i, dy, dx)
-    for a, rows in _UP_TAPS.items():
-        for b, cols in _UP_TAPS.items():
+    """`up` (stride 2: 3x3 with padding 1 and output_padding 1, or 4x4 with
+    padding 1) as one forward convolution of x (2x2 over x padded by a zero
+    row and column at its end, or 3x3 over x padded by one all round) to
+    the four output phases (channel o * 4 + a * 2 + b for output pixel
+    (2m + a, 2n + b)), interleaved by `pixel_shuffle`. cuDNN's forward
+    convolutions sum in the same order on every run; its transposed ones
+    need not."""
+    geometry = (up.kernel_size[0], up.padding[0], up.output_padding[0])
+    if (up.stride != (2, 2) or up.kernel_size[0] != up.kernel_size[1]
+            or up.padding[0] != up.padding[1] or up.output_padding[0] != up.output_padding[1]
+            or geometry not in _UP_GEOMETRY):
+        raise ValueError(f"up2x takes no transposed conv of kernel {up.kernel_size}, stride "
+                         f"{up.stride}, padding {up.padding}, output padding {up.output_padding}")
+    size, pad, taps = _UP_GEOMETRY[geometry]
+    w = up.weight  # (I, O, k, k)
+    k = w.new_zeros(w.shape[1], 2, 2, w.shape[0], size, size)  # (o, a, b, i, dy, dx)
+    for a, rows in taps.items():
+        for b, cols in taps.items():
             for dy, ky in rows:
                 for dx, kx in cols:
                     k[:, a, b, :, dy, dx] = w[:, :, ky, kx].T
-    y = F.conv2d(F.pad(x, (0, 1, 0, 1)), k.flatten(0, 2), up.bias.repeat_interleave(4))
+    y = F.conv2d(F.pad(x, pad), k.flatten(0, 2), up.bias.repeat_interleave(4))
     return F.pixel_shuffle(y, 2)
 
 

@@ -1,6 +1,8 @@
-"""Seeded stand-ins for the lineart, MLSD and OpenPose checkpoints.
+"""Seeded stand-ins for the lineart, lineart_anime, PidiNet, MLSD and
+OpenPose checkpoints.
 
-The repo ships no annotator weights. These make a `LineartGenerator`, an
+The repo ships no annotator weights. These make a `LineartGenerator`, a
+lineart_anime `UnetGenerator`, a `table5_pidinet.pth` state dict, an
 `mlsd_large_512_fp32.pth` state dict (controlnet_aux's key layout,
 BatchNorm statistics included) and the three OpenPose files from a
 `torch.Generator`, on its device, with maps that are neither constant nor
@@ -18,9 +20,11 @@ import torch
 
 from . import mlsd
 from .edge_nets import LineartGenerator
+from .lineart_anime import UnetGenerator
 from .openpose import LIMB_SEQ, MAP_IDX, BodyPoseNet
 from .openpose_face import FaceNet
 from .openpose_hand_face import HandPoseNet
+from .pidinet import PiDiNet, PidiNetAnnotator, pdc_weights, pidinet_state_dict_from_torch
 
 
 def seed_lineart_(net: LineartGenerator, gen: torch.Generator) -> LineartGenerator:
@@ -36,6 +40,67 @@ def seed_lineart_(net: LineartGenerator, gen: torch.Generator) -> LineartGenerat
             else:
                 p.normal_(0.0, 0.05, generator=gen)
     return net.eval()
+
+
+def seed_lineart_anime_(net: UnetGenerator, gen: torch.Generator) -> UnetGenerator:
+    """lineart_anime weights whose maps stay off 0 and 1, in place on the
+    network's device: convs N(0, 1/fan_in), a transposed conv's fan-in its
+    input channels times 4 (the taps that reach an output pixel at stride
+    2); biases N(0, 0.05^2). The InstanceNorms keep each level at unit
+    scale, so the tanh sees unit-scale logits: on 256x256 synthetic frames
+    the maps' mean is near 0.4 and their std near 0.2."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.ConvTranspose2d):
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.weight.shape[0] * 4), generator=gen)
+            elif isinstance(m, torch.nn.Conv2d):
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.weight[0].numel()), generator=gen)
+            else:
+                continue
+            m.bias.normal_(0.0, 0.05, generator=gen)
+    return net.eval()
+
+
+def pidinet_checkpoint(gen: torch.Generator, frames: torch.Tensor) -> dict:
+    """A seeded `table5_pidinet.pth` in the released layout ({"state_dict":
+    ...}, every key under `module.`, the PDC kernels unfolded 3x3) on the
+    generator's device: convs N(0, 1/fan_in) and biases N(0, 0.05^2), so
+    that the residual stages grow slowly (std about 0.7, 1, 2 and 4 on
+    synthetic frames); then the classifier set on the (F, H, W, 3) uint8
+    `frames` so that its logits there have mean 0 and std 1.5 (a random
+    classifier's logits sit far off 0 for some seeds, and the maps
+    saturate)."""
+    with torch.device("meta"):
+        shapes = PiDiNet().state_dict()
+    # the unfolded PDC kernels are 3x3 (the folded `rd` is 5x5)
+    shapes.update({k: torch.empty(*shapes[k].shape[:2], 3, 3, device="meta")
+                   for k, _ in pdc_weights()})
+    sd = {}
+    for name, p in shapes.items():
+        sd[name] = torch.randn(p.shape, generator=gen, device=gen.device) * (
+            1.0 / math.sqrt(p[0].numel()) if p.ndim == 4 else 0.05)
+    sd["classifier.bias"].zero_()
+    ckpt = {"state_dict": {f"module.{k}": v for k, v in sd.items()}}
+    # the classifier's input on `frames`, then the classifier scaled and
+    # shifted onto it
+    model = pidinet_model(ckpt, gen.device)
+    seen = {}
+    model.classifier.register_forward_hook(lambda m, i, o: seen.setdefault("z", o))
+    PidiNetAnnotator(model)(frames.to(gen.device))
+    gain = 1.5 / seen["z"].std()
+    sd["classifier.weight"].mul_(gain)
+    sd["classifier.bias"].copy_(-seen["z"].mean() * gain)
+    return ckpt
+
+
+def pidinet_model(ckpt: dict, device) -> PiDiNet:
+    """The `PiDiNet` of a `pidinet_checkpoint` on `device`, its kernels
+    folded on the host as `PidiNetAnnotator.from_file` folds them."""
+    folded = pidinet_state_dict_from_torch({k: v.cpu() for k, v in ckpt["state_dict"].items()})
+    with torch.device("meta"):
+        model = PiDiNet()
+    model.load_state_dict({k: v.to(device) for k, v in folded.items()}, assign=True)
+    return model.eval()
 
 
 def mlsd_model(sd: dict, device) -> mlsd.MLSDLarge:

@@ -303,7 +303,9 @@ class ControlAnimatePipeline:
         device a ControlNet, annotated on the device from the (F, H, W, 3)
         uint8 input frames (numpy or tensor); from (S, F, H, W, 3) segment
         frames the S*F frames are annotated as one stack and each map is (S,
-        F, H, W, 3). [] without ControlNets."""
+        F, H, W, 3). [] without ControlNets. A map value outside [0, 1]
+        (lineart_anime's cubic resize overshoots) goes to 0 or 255, where
+        the JAX package's uint8 cast wraps it."""
         if not self.models.controlnets:
             return []
         if input_frames is None:
@@ -313,7 +315,7 @@ class ControlAnimatePipeline:
         cond_images = []
         for name, annotate in zip(self.config.controlnets, self.models.annotators):
             maps = annotate(frames)
-            maps_u8 = (maps.float() * 255.0 + 0.5).to(torch.uint8)
+            maps_u8 = (maps.float().clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
             if self.config.save_frames:
                 self._dump_condition_maps(name, maps_u8, epoch)
             cond_images.append(maps_u8.reshape(*batch.shape[:2], *maps_u8.shape[1:]))

@@ -11,6 +11,9 @@ below are the inverse of the JAX package's checkpoint loaders
 `retinaface_params_from_torch`, `weights/controlnet_weights.py`
 `controlnet_params_from_torch`, `models/annotators/edge_nets.py`
 `hed_params_from_torch` and `lineart_params_from_torch`,
+`models/annotators/pidinet.py` `pidinet_params_from_torch` (the unfolded
+PDC kernels, as `table5_pidinet.pth` holds them),
+`models/annotators/lineart_anime.py` `anime_params_from_torch`,
 `models/annotators/mlsd_net.py` `mlsd_params_from_torch`, whose folded
 convs the port's `MLSDLarge` holds under the same names, and the OpenPose
 `body_params_from_torch`, `hand_params_from_torch` and
@@ -35,6 +38,7 @@ from ..models.annotators.mlsd import IR_SPEC
 from ..models.annotators.openpose import BodyPoseNet
 from ..models.annotators.openpose_face import FaceNet
 from ..models.annotators.openpose_hand_face import HandPoseNet
+from ..models.annotators.pidinet import DILATIONS, STAGES
 from ..models.clip import CLIPTextConfig, CLIPVisionConfig
 from ..models.retinaface import RESNET50_STAGES, SSH_BRANCHES
 from ..models.unet3d import UNet3DConfig
@@ -217,6 +221,41 @@ def lineart_mapping() -> Iterator[Entry]:
     for i in range(LINEART_RES_BLOCKS):
         yield from _conv(f"model2.{i}.conv_block.1", f"res_{i}/conv1")
         yield from _conv(f"model2.{i}.conv_block.5", f"res_{i}/conv2")
+
+
+def pidinet_mapping() -> Iterator[Entry]:
+    """`table5_pidinet.pth`'s keys, its `module.` prefix stripped, and its
+    PDC kernels unfolded (the port folds them as it loads the file)."""
+    yield "init_block.weight", "init_block/kernel", "conv"
+    for s, (_, n) in enumerate(STAGES, start=1):
+        for b in range(1, n + 1):
+            t = f"block{s}_{b}"
+            yield f"{t}.conv1.weight", f"{t}/conv1/kernel", "conv"
+            yield f"{t}.conv2.weight", f"{t}/conv2/kernel", "conv"
+            if s > 1 and b == 1:
+                yield from _conv(f"{t}.shortcut", f"{t}/shortcut")
+    for i in range(len(STAGES)):
+        yield from _conv(f"dilations.{i}.conv1", f"dilations_{i}/conv1")
+        for j in range(1, len(DILATIONS) + 1):
+            yield f"dilations.{i}.conv2_{j}.weight", f"dilations_{i}/conv2_{j}/kernel", "conv"
+        yield from _conv(f"attentions.{i}.conv1", f"attentions_{i}/conv1")
+        yield f"attentions.{i}.conv2.weight", f"attentions_{i}/conv2/kernel", "conv"
+        yield from _conv(f"conv_reduces.{i}.conv", f"conv_reduces_{i}")
+    yield from _conv("classifier", "classifier")
+
+
+def lineart_anime_mapping(num_downs: int = 8) -> Iterator[Entry]:
+    """The U-Net's Sequential keys, level by level from the outermost (the
+    JAX tree nests each level under `submodule`); the transposed convs'
+    (kh, kw, O, I) kernels go back to (I, O, kh, kw) by the "conv"
+    transposition."""
+    t, f = "model.model", "outer"
+    for level in range(num_downs):
+        outermost, innermost = level == 0, level == num_downs - 1
+        down, up = (0, 3) if outermost else (1, 3) if innermost else (1, 5)
+        yield from _conv(f"{t}.{down}", f"{f}/downconv")
+        yield from _conv(f"{t}.{up}", f"{f}/upconv")
+        t, f = f"{t}.{1 if outermost else 3}.model", f"{f}/submodule"
 
 
 def mlsd_mapping() -> Iterator[Entry]:
@@ -492,6 +531,14 @@ def hed_state_dict(params: dict) -> dict[str, torch.Tensor]:
 
 def lineart_state_dict(params: dict) -> dict[str, torch.Tensor]:
     return _state_dict(params, lineart_mapping())
+
+
+def pidinet_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(params, pidinet_mapping())
+
+
+def lineart_anime_state_dict(params: dict, num_downs: int = 8) -> dict[str, torch.Tensor]:
+    return _state_dict(params, lineart_anime_mapping(num_downs))
 
 
 def mlsd_state_dict(params: dict) -> dict[str, torch.Tensor]:

@@ -10,9 +10,10 @@ drawing of JAX's own tpMaps (the network's, seeded and crafted ones) bit for
 bit against the JAX `decode_lines` + `cv2.line`, the whole annotator against
 `mlsd_net.run` (a stated share of pixels may differ), and its resizes and
 line drawing bit for bit against `cv2.resize` and `cv2.line`; and the
-annotator dispatch by substring, with the annotators of M13 raising and a
-missing weights file raising FileNotFoundError (OpenPose's own parity tests
-are `test_torch_openpose.py`)."""
+annotator dispatch by substring, with the annotators of M13c (depth,
+normalbae) raising and a missing weights file raising FileNotFoundError
+(OpenPose's own parity tests are `test_torch_openpose.py`, softedge's and
+lineart_anime's `test_torch_softedge_anime.py`)."""
 
 import cv2
 import jax
@@ -172,19 +173,19 @@ def test_hed_upsample_is_jax_resize(src, dst):
     ("lllyasviel/ControlNet-HED", "hed"), ("lllyasviel/control_v11p_sd15_lineart", "lineart"),
     ("lllyasviel/sd-controlnet-mlsd", "mlsd"), ("lllyasviel/control_v11p_sd15_mlsd", "mlsd"),
     ("lllyasviel/control_v11p_sd15_openpose", "openpose"),
+    ("lllyasviel/control_v11p_sd15_softedge", "softedge"), ("my_pidi_net", "softedge"),
+    ("lllyasviel/control_v11p_sd15s2_lineart_anime", "lineart_anime"),
 ])
 def test_dispatch_by_substring(name, key):
     assert annotators.annotator_name(name) == key
 
 
 @pytest.mark.parametrize("name", [
-    "lllyasviel/control_v11p_sd15_softedge",
     "lllyasviel/control_v11f1p_sd15_depth", "lllyasviel/control_v11p_sd15_normalbae",
-    "lllyasviel/control_v11p_sd15s2_lineart_anime", "my_pidi_net",
 ])
 def test_m13_annotators_raise(name):
-    """Every other annotator of the zoo raises NotImplementedError naming M13
-    when the configuration is checked; `softedge` does not fall back to HED."""
+    """The two annotators of the zoo left (depth, normalbae) raise
+    NotImplementedError naming M13 when the configuration is checked."""
     with pytest.raises(NotImplementedError, match="M13"):
         annotators.annotator_name(name)
     with pytest.raises(NotImplementedError, match="M13"):
@@ -201,13 +202,18 @@ OPENPOSE_FILES = ("body_pose_model.pth", "hand_pose_model.pth", "facenet.pth")
 
 @pytest.mark.parametrize("name,fname", [("lllyasviel/control_v11p_sd15_lineart", "sk_model.pth"),
                                         ("lllyasviel/sd-controlnet-mlsd",
-                                         "mlsd_large_512_fp32.pth")]
+                                         "mlsd_large_512_fp32.pth"),
+                                        ("lllyasviel/control_v11p_sd15_softedge",
+                                         "table5_pidinet.pth"),
+                                        ("lllyasviel/control_v11p_sd15s2_lineart_anime",
+                                         "netG.pth")]
                          + [("lllyasviel/control_v11p_sd15_openpose", f) for f in OPENPOSE_FILES])
 def test_missing_weights_raise(name, fname, tmp_path, monkeypatch):
-    """A missing lineart or MLSD file raises FileNotFoundError naming it (the
-    JAX package falls back to Hough lines for MLSD), and so does each of
-    OpenPose's three with the other two present (the JAX package skips the
-    hands or the face without a word)."""
+    """A missing lineart, MLSD, PidiNet or lineart_anime file raises
+    FileNotFoundError naming it (the JAX package falls back to Hough lines
+    for MLSD and to HED for softedge), and so does each of OpenPose's three
+    with the other two present (the JAX package skips the hands or the face
+    without a word)."""
     monkeypatch.setenv(annotators.ANNOTATOR_ENV, str(tmp_path))
     for other in OPENPOSE_FILES:
         if other != fname:  # an empty file: the missing one is found first

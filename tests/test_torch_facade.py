@@ -96,7 +96,7 @@ def test_default_noise_is_seeded(pipelines):
 
 
 def test_unported_facade_paths_raise():
-    """M13 annotators raise NotImplementedError (IP-Adapter is ported:
+    """M13c annotators (depth here) raise NotImplementedError (IP-Adapter is ported:
     tests/test_torch_ip_adapter.py). A run without `use_lcm` is ported; a `scheduler` that names no sampler raises
     KeyError when the pipeline is built, before the disk build reads a file
     (JAX raises it at the first window)."""
@@ -108,7 +108,7 @@ def test_unported_facade_paths_raise():
     _, _, tclip = clip_pair()
     models = tengine.EngineModels(unet=tunet, vae=tvae)
     text = tfacade.TextStack(CLIPTokenizer.tiny(), tclip)
-    for bad, what in (({"controlnets": ("lllyasviel/control_v11p_sd15_softedge",)}, "M13"),):
+    for bad, what in (({"controlnets": ("lllyasviel/control_v11f1p_sd15_depth",)}, "M13"),):
         with pytest.raises(NotImplementedError, match=what):
             tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, **bad}), models=models,
                                            text_stack=text, device="cpu")

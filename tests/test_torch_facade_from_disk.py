@@ -28,7 +28,10 @@ weights (nothing is downloaded):
     from disk: the port's condition maps and window against the JAX
     facade's on the same files (the lineart maps within 1 LSB, the MLSD maps
     equal, the window within 1 LSB), and the CLI against the injected
-    pipeline.
+    pipeline;
+  * softedge and lineart_anime ControlNets and their annotators'
+    `table5_pidinet.pth` (released layout) and `netG.pth` from disk, through
+    the CLI against the injected pipeline.
 """
 
 import dataclasses
@@ -66,6 +69,8 @@ from controlanimate_tpu_torch.pipelines import engine as tengine
 from controlanimate_tpu_torch.pipelines import facade as tfacade
 from controlanimate_tpu_torch.weights import from_jax
 from controlanimate_tpu_torch.models import annotators
+from controlanimate_tpu_torch.models.annotators import seeded
+from controlanimate_tpu_torch.models.annotators.lineart_anime import UnetGenerator
 from test_torch_annotators import _seeded_lineart, mlsd_checkpoint
 from test_torch_common import JaxDraws
 
@@ -576,6 +581,78 @@ def test_lineart_mlsd_cli_run_equals_the_injected_pipeline(zoo, m13a_zoo, tmp_pa
         arch=ArchConfig.from_yaml(REPO / V2), device="cpu")
     sink = tmedia.ArrayFrameSink()
     tv2v.vid2vid(config=cfg, pipeline=injected, frame_sink=sink)
+    assert len(got) == len(sink.frames) == 6
+    for a, b in zip(got, sink.frames):
+        np.testing.assert_array_equal(a, b)
+
+
+M13C1_NAMES = ("lllyasviel/control_v11p_sd15_softedge",
+               "lllyasviel/control_v11p_sd15s2_lineart_anime")
+
+
+@pytest.fixture(scope="module")
+def m13c1_zoo(zoo, tmp_path_factory):
+    """models/ControlNet/control_v11p_sd15_softedge and
+    control_v11p_sd15s2_lineart_anime (seeded tiny ControlNets) and
+    models/annotators/ with a seeded `table5_pidinet.pth` (its classifier
+    set on the zoo's frames) and a seeded full-width `netG.pth`."""
+    root = tmp_path_factory.mktemp("m13c1_zoo")
+    cn_json = {**CN_JSON, "conditioning_embedding_out_channels": [16, 32, 96, 256]}
+    cfg, cond = controlnet_config_from_json(cn_json)
+    nets = []
+    for seed, name in enumerate(M13C1_NAMES, start=12):
+        nets.append(_seed_(ControlNetModel(cfg, cond), seed))
+        _save_component(root / "models" / "ControlNet", name.split("/")[-1], cn_json,
+                        nets[-1].state_dict(), "diffusion_pytorch_model.safetensors")
+    frames = np.stack([np.asarray(Image.open(p))
+                       for p in sorted((zoo["root"] / "frames").glob("*.png"))])
+    ann = root / "models" / "annotators"
+    ann.mkdir(parents=True)
+    torch.save(seeded.pidinet_checkpoint(torch.Generator().manual_seed(14),
+                                         torch.from_numpy(frames[:4])),
+               ann / "table5_pidinet.pth")
+    torch.save(seeded.seed_lineart_anime_(UnetGenerator(), torch.Generator().manual_seed(15))
+               .state_dict(), ann / "netG.pth")
+    return {"root": root, "nets": nets}
+
+
+def test_softedge_lineart_anime_cli_run_equals_the_injected_pipeline(zoo, m13c1_zoo, tmp_path,
+                                                                     monkeypatch):
+    """A profile naming the softedge and lineart_anime ControlNets through
+    `main([...])` (on one torch thread: the full-width lineart_anime runs
+    on each window's frames): every frame equals `vid2vid` with the injected
+    pipeline of the same ControlNets and annotators read from the same
+    files, and the condition maps are neither constant nor saturated."""
+    monkeypatch.chdir(m13c1_zoo["root"])
+    monkeypatch.delenv(annotators.ANNOTATOR_ENV, raising=False)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        profile = _cfg(zoo, inference_config_path=str(REPO / V2),
+                       input_video_path=str(zoo["root"] / "frames"),
+                       output_video_dir=str(tmp_path / "cli"), textual_inversion_paths=[],
+                       controlnets=list(M13C1_NAMES), cond_scale=[1.0, 0.8])
+        path = tmp_path / "profile.yaml"
+        path.write_text(yaml.safe_dump({k: list(v) if isinstance(v, tuple) else v
+                                        for k, v in profile.items()}))
+        summary = cli.main(["--config", str(path), "--device", "cpu"])
+        assert summary["frames_written"] == 6 and summary["timers"]["annotate"]["count"] == 2
+        got = [np.asarray(Image.open(p))
+               for p in sorted((tmp_path / "cli" / "frames").glob("*.png"))]
+        cfg = RunConfig.from_yaml(path).replace(output_video_dir=str(tmp_path / "injected"))
+        injected = tfacade.ControlAnimatePipeline(
+            cfg, models=tengine.EngineModels(
+                unet=zoo["unet"], vae=zoo["vae"], controlnets=m13c1_zoo["nets"],
+                annotators=[annotators.resolve_annotator(n, "cpu") for n in M13C1_NAMES]),
+            text_stack=tfacade.TextStack(CLIPTokenizer.from_pretrained(zoo["snapshot"]),
+                                         zoo["clip"]),
+            arch=ArchConfig.from_yaml(REPO / V2), device="cpu")
+        maps = injected.prepare_cond_images(np.stack(got[:4]))
+        assert all(5 < m.float().std() and 0 < m.float().mean() < 255 for m in maps)
+        sink = tmedia.ArrayFrameSink()
+        tv2v.vid2vid(config=cfg, pipeline=injected, frame_sink=sink)
+    finally:
+        torch.set_num_threads(threads)
     assert len(got) == len(sink.frames) == 6
     for a, b in zip(got, sink.frames):
         np.testing.assert_array_equal(a, b)

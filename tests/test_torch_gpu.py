@@ -5,7 +5,9 @@ disk against the injected one, a small RealESRGAN upscaler (its x4 tail
 on K4) on the card against the CPU, the face step (RetinaFace, the
 aligned crop, GFPGAN, the paste, and the OpenCV stand-ins under them) on
 the card against the CPU, the ControlNet slice: canny and HED on the
-card against the CPU, and a small pipeline with two ControlNets; and the
+card against the CPU, and a small pipeline with two ControlNets; softedge
+(PidiNet) and lineart_anime on the card against the CPU, each call on the
+card equal to the one before; and the
 multi-step samplers: small windows under classifier-free guidance (Euler
 with a ControlNet, the LCM-LoRA tail, DPM-Solver) on the card against the
 CPU; the IP-Adapter's image encoder: K1 at its (1, 257, 16, 80) shape, and a
@@ -504,3 +506,40 @@ def test_small_multistep_windows_card_match_cpu(cuda, case):
     ref = chip_smoke.small_reference(torch, controlnet=case == "EULER_CFG",
                                      **getattr(chip_smoke, case))
     assert ref["max_lsb"] <= 1, ref
+
+
+@pytest.mark.parametrize("name,hw", [("softedge", (64, 80)), ("softedge", (45, 61)),
+                                     ("lineart_anime", (256, 256)),
+                                     ("lineart_anime", (200, 120))])
+def test_softedge_and_lineart_anime_card_match_cpu(cuda, name, hw):
+    """The seeded full-width PidiNet and lineart_anime in fp32 on the card
+    against the CPU on the same frames: within 1 LSB after the facade's
+    uint8 quantisation, not saturated, and a second call on the card equal
+    to the first (no transposed conv reaches cuDNN)."""
+    import copy
+
+    import numpy as np
+
+    import chip_smoke
+    from controlanimate_tpu_torch.models.annotators import seeded
+    from controlanimate_tpu_torch.models.annotators.lineart_anime import (
+        LineartAnimeAnnotator, UnetGenerator)
+    from controlanimate_tpu_torch.models.annotators.pidinet import PidiNetAnnotator
+
+    frames = torch.from_numpy(chip_smoke.edge_rich(np, chip_smoke.synthetic_video(
+        np, 2, *hw, chip_smoke.SEED)))
+    g = torch.Generator().manual_seed(chip_smoke.SEED)
+    if name == "softedge":
+        ckpt = seeded.pidinet_checkpoint(g, frames)
+        cpu = PidiNetAnnotator(seeded.pidinet_model(ckpt, "cpu"))
+        card = PidiNetAnnotator(seeded.pidinet_model(ckpt, "cuda"))
+    else:
+        net = seeded.seed_lineart_anime_(UnetGenerator(), g)
+        cpu = LineartAnimeAnnotator(net)
+        card = LineartAnimeAnnotator(copy.deepcopy(net).cuda())
+    want = cpu(frames)
+    first = card(frames.cuda())
+    assert torch.equal(card(frames.cuda()), first)
+    q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+    assert int((q(want) - q(first.cpu())).abs().max()) <= 1
+    assert float(want.std()) > 0.02
