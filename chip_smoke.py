@@ -44,11 +44,15 @@ Phases, each printed as one JSON line with its seconds:
              they are and with a hard-edged checkerboard added (`edge_rich`):
              equal maps; the full HED network (seeded by `init_hed_`) on 2
              frames of 64x80, card against CPU in fp32: within 1 LSB after
-             the uint8 quantisation; lineart, MLSD, softedge and
-             lineart_anime likewise (`small_annotator_reference`: lineart
-             and PidiNet at 64x80 and 48x96, the full-width lineart_anime
-             at 256x256 and 200x120 (its two cubic resizes), each within 1
-             LSB and not saturated; MLSD's tpMaps within 1e-3 of each channel's RMS,
+             the uint8 quantisation; lineart, MLSD, softedge,
+             lineart_anime and NormalBae likewise
+             (`small_annotator_reference`: lineart and PidiNet at 64x80 and
+             48x96, the full-width lineart_anime at 200x120 (its two cubic
+             resizes, the network at 256x256), each within 1 LSB and not
+             saturated; `small_normalbae_reference`, a step of its own: the
+             full B5 NormalBae at 64x80 and 45x61 (odd sides), within 1
+             LSB and not saturated; MLSD's
+             tpMaps within 1e-3 of each channel's RMS,
              and the map the card decodes and draws from its own tpMap equal
              to the CPU's decode and drawing of it; INTER_AREA at 768x512
              and 1024x1024 to 512x512 and 600 random segments drawn, equal);
@@ -136,10 +140,13 @@ Phases, each printed as one JSON line with its seconds:
              and the seeded lineart (`seed_lineart_`), MLSD
              (`mlsd_checkpoint`, its head set on a window of this phase),
              OpenPose (`openpose_checkpoints`), PidiNet
-             (`pidinet_checkpoint`, its classifier set on that window) and
-             lineart_anime (`seed_lineart_anime_`) that the disk phase writes,
-             each timed by CUDA events on one 16-frame window at the shipped
-             512x768, with their maps' mean and std (a constant map fails,
+             (`pidinet_checkpoint`, its classifier set on that window),
+             lineart_anime (`seed_lineart_anime_`) and NormalBae
+             (`normalbae_checkpoint`, its statistics from that window) that
+             the disk phase writes, each timed by CUDA events on one
+             16-frame window at the shipped 512x768 (its second call), with
+             its peak memory above what was allocated before it and the
+             maps' mean and std, each channel's too (a constant map fails,
              but the seeded OpenPose's, which finds no one, and so does a
              map that differs on a second call); then OpenPose's decode,
              hand and face crops and drawing timed again on crafted maps of
@@ -147,8 +154,8 @@ Phases, each printed as one JSON line with its seconds:
              and faces drawn and the decode's host seconds.
   cfg        the multi-step path (SampleConfig.yaml's sampler): the same
              loop, K2 on, over one whole 16-frame window at strength 1.0
-             with `EulerDiscreteScheduler`, 15 steps (the shipped 30 cut
-             in half), guidance 7.5 over the
+             with `EulerDiscreteScheduler`, 10 steps (the shipped 30 cut
+             to a third), guidance 7.5 over the
              negative and positive prompts, and the controlnet phase's canny
              ControlNet at 1.0; the SD1.5 UNet without the LCM w-embedding
              (`time_cond_proj_dim` None, the window phase's weights). Checks
@@ -196,20 +203,24 @@ Phases, each printed as one JSON line with its seconds:
              layout, BatchNorms unfolded), body_pose_model.pth,
              hand_pose_model.pth, facenet.pth, table5_pidinet.pth (the
              released nesting: `state_dict`, `module.` keys, unfolded PDC
-             kernels) and netG.pth, and the next runs start from the
+             kernels), netG.pth and normalbae/scannet.pt (the released
+             nesting: `model`, `module.` keys, BatchNorms unfolded), and
+             the next runs start from the
              snapshot root, which finds them there. First the
              controlnet phase's native-LCM profile at 512x512 on
              inference-v2.yaml with K2 off, one window (`--max-windows 1`,
              8 frames written): its frames must equal the controlnet
              phase's first 8 and its K1 launches by shape those that one
              window with both ControlNets implies. Then the same profile
-             naming `lllyasviel/control_v11p_sd15_softedge` and
-             `lllyasviel/control_v11p_sd15s2_lineart_anime` (their folders
-             link to the canny and HED nets': the name selects the
-             annotator, PidiNet and lineart_anime read from the files), one
-             window: its frames must equal the injected pipeline's with the
-             same nets and the controlnet phase's seeded annotators, and
-             its K1 launches the same count. Then the LCM-LoRA
+             naming `lllyasviel/control_v11p_sd15_softedge`,
+             `lllyasviel/control_v11p_sd15s2_lineart_anime` and
+             `lllyasviel/control_v11p_sd15_normalbae` (their folders link
+             to the canny, HED and MLSD nets': the name selects the
+             annotator, PidiNet, lineart_anime and NormalBae read from the
+             files), one window: its frames must equal the injected
+             pipeline's with the same nets and the controlnet phase's
+             seeded annotators, and its K1 launches by shape those that
+             one window with three ControlNets implies. Then the LCM-LoRA
              profile's files (SampleConfigLCMLoRA.yaml: openpose at 1.0,
              lineart at 0.35, MLSD at 1.0 and HED at 0.4; 512x768,
              `upscale` 2 and the face enhancer with `upscale_first` 1, on
@@ -300,8 +311,10 @@ Phases, each printed as one JSON line with its seconds:
              257, 16, 80) among them, its plain version timed; the plain
              version on slices of the batch where its scores would pass
              PLAIN_SCORE_BYTES), plus odd
-             lengths, in bf16 and fp32 (`k1_mismatch` states the gates),
-             with its achieved TFLOP/s and share of the bound in bf16; K2
+             lengths, in bf16, and in fp32 (the reference phase's dtype,
+             which runs it at small shapes) at the odd lengths
+             (`k1_mismatch` states the gates), with its achieved TFLOP/s
+             and share of the bound in bf16; K2
              against its plain version at every shape the vid2vid phase and
              the 512x768 run launched it with, plus odd H, W and Cin, each
              with and without the affine + SiLU + residual, in bf16, and in
@@ -338,11 +351,12 @@ Phases, each printed as one JSON line with its seconds:
   kernels_k4 K4 against its plain version at every shape vid2vid_upscale
              launched it with and at the disk phase's 512x768 run's (bf16
              as launched, there each frame of the batch against the plain
-             version on that frame alone; fp32 at batch 1; the plain
-             version not timed at the 512x768 shapes), plus odd
-             shapes in both modes (H and W off the tiles, H = 1,
-             Ci = Co = 32, B = 3, Ci = 128), in bf16 and fp32 (`k4_mismatch`
-             states the gates), each called with the weights folded in the
+             version on that frame alone; the plain version not timed at
+             the 512x768 shapes), plus odd shapes in both modes (H and W
+             off the tiles, H = 1, Ci = Co = 32, B = 3, Ci = 128), in bf16,
+             and at the odd shapes in fp32 at batch 1 (the reference
+             phase's dtype; `k4_mismatch` states the gates), each called
+             with the weights folded in the
              call and folded once (`packed`, as the upscaler calls it); then
              K4's time with the weights folded once (`ms`) and in the call
              (`unpacked_ms`), its TFLOP/s and GB/s, its plain version's
@@ -387,10 +401,13 @@ CONTROLNET_LEVELS = ((1, 40, 2), (4, 80, 2), (16, 160, 2), (64, 160, 1))
 # the controlnet phase's nets (their names pick canny and HED) and scales
 CN_NAMES = ("lllyasviel/sd-controlnet-canny", "lllyasviel/sd-controlnet-hed")
 CN_SCALES = (1.0, 0.5)
-# the ControlNet v1.1 softedge and anime-lineart nets' names (the disk
-# phase's CLI run gives them the canny and HED nets' weights)
-M13C1_CN_NAMES = ("lllyasviel/control_v11p_sd15_softedge",
-                  "lllyasviel/control_v11p_sd15s2_lineart_anime")
+# the ControlNet v1.1 softedge, anime-lineart and normalbae nets' names and
+# scales (the disk phase's CLI run gives them the canny, HED and MLSD nets'
+# weights)
+M13C_CN_NAMES = ("lllyasviel/control_v11p_sd15_softedge",
+                 "lllyasviel/control_v11p_sd15s2_lineart_anime",
+                 "lllyasviel/control_v11p_sd15_normalbae")
+M13C_CN_SCALES = (1.0, 0.5, 0.8)
 # the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's ControlNets and
 # scales
 LORA_CN_NAMES = ("lllyasviel/control_v11p_sd15_openpose", "lllyasviel/control_v11p_sd15_lineart",
@@ -1428,8 +1445,9 @@ def write_controlnets(torch, root: Path, nets: dict, annotator_files: dict) -> d
     """The ControlNets `nets` (name -> model) as diffusers folders under
     root/models/ControlNet/<last part of the name> (config.json with the
     architecture fields and a safetensors file, in the models' dtype), and
-    the annotators' checkpoints `annotator_files` (file name -> state dict)
-    under root/models/annotators/, where the port looks for them from the
+    the annotators' checkpoints `annotator_files` (file name, or a path
+    below, -> state dict) under root/models/annotators/, where the port
+    looks for them from the
     working directory `root`; the files written on threads. Returns the
     bytes of each file."""
     jobs = {}
@@ -1448,9 +1466,9 @@ def write_controlnets(torch, root: Path, nets: dict, annotator_files: dict) -> d
         path = folder / "diffusion_pytorch_model.safetensors"
         jobs[str(path.relative_to(root))] = lambda path=path, net=net: save_safetensors(
             torch, path, net.state_dict())
-    (root / "models" / "annotators").mkdir(parents=True)
     for fname, sd in annotator_files.items():
         path = root / "models" / "annotators" / fname
+        path.parent.mkdir(parents=True, exist_ok=True)
         jobs[str(path.relative_to(root))] = lambda path=path, sd=sd: save_torch(torch, path, sd)
     return write_parallel(jobs)
 
@@ -1694,8 +1712,8 @@ def small_segment_reference(torch, out_dir: Path = ROOT / "build" / "chip_smoke_
 
 # the cfg phase's profile: SampleConfig.yaml's sampler (with one canny
 # ControlNet at 1.0 and K2 on) over one whole window, its 30 steps cut to
-# 15 (the script's time limit; each step is the same work)
-CFG_PROFILE = {"use_lcm": False, "scheduler": "EulerDiscreteScheduler", "steps": 15,
+# 10 (the script's time limit; each step is the same work)
+CFG_PROFILE = {"use_lcm": False, "scheduler": "EulerDiscreteScheduler", "steps": 10,
                "guidance_scale": 7.5, "strength": 1.0, "overlap_strength": 0.92}
 # the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's sampler
 LCM_LORA_PROFILE = {"use_lcm": False, "scheduler": "LCMScheduler", "steps": 7,
@@ -1782,14 +1800,61 @@ def small_hed_reference(torch) -> dict:
             "max_lsb": int((q(cpu) - q(card)).abs().max()), "std": float(cpu.std())}
 
 
+def annotator_card_vs_cpu(torch, np, cpu_ann, card_ann, sizes, n: int) -> tuple:
+    """Two annotators on the same `n` uint8 frames (`edge_rich` synthetic
+    video) at each (h, w) of `sizes`, one on the CPU, one on the card: (the
+    largest difference in LSB after the facade's quantisation (a map
+    outside [0, 1] goes to 0 or 255), the largest abs difference, [mean,
+    std] of each CPU map); a map of another shape than the frames fails."""
+    q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+    lsb, err, stats = 0, 0.0, []
+    for h, w in sizes:
+        frames = torch.from_numpy(edge_rich(np, synthetic_video(np, n, h, w, SEED)))
+        cpu = cpu_ann(frames)
+        card = card_ann(frames.cuda()).cpu()
+        if card.shape != (n, h, w, 3):
+            raise AssertionError(f"an annotator's map at {h}x{w} is {tuple(card.shape)}")
+        lsb = max(lsb, int((q(cpu) - q(card)).abs().max()))
+        err = max(err, float((cpu - card).abs().max()))
+        stats.append([float(cpu.mean()), float(cpu.std())])
+    return lsb, err, stats
+
+
+def small_normalbae_reference(torch) -> dict:
+    """The full B5 NormalBae (`normalbae_checkpoint` made on the card, its
+    statistics from the 64x80 frames; folded once on the host, a copy on
+    the card) in fp32 on the card against the CPU on 2 frames at 64x80 and
+    at 45x61 (odd sides: the network's 46x62 cut to the frame): within 1
+    LSB after the facade's quantisation; the maps' [mean, std] and each
+    channel's smallest std."""
+    import copy
+
+    import numpy as np
+
+    from controlanimate_tpu_torch.models.annotators.normalbae import NormalBaeAnnotator
+    from controlanimate_tpu_torch.models.annotators.seeded import (normalbae_checkpoint,
+                                                                   normalbae_model)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    ckpt = normalbae_checkpoint(gen, torch.from_numpy(
+        edge_rich(np, synthetic_video(np, 2, 64, 80, SEED))))
+    cpu = NormalBaeAnnotator(normalbae_model(ckpt, "cpu"))
+    card = NormalBaeAnnotator(copy.deepcopy(cpu.model).cuda())
+    lsb, err, stats = annotator_card_vs_cpu(torch, np, cpu, card, ((64, 80), (45, 61)), 2)
+    return {"max_lsb": lsb, "max_abs_err": err, "mean_std": stats,
+            "params": sum(p.numel() for p in cpu.model.parameters())}
+
+
 def small_annotator_reference(torch) -> dict:
     """Lineart, MLSD, softedge and lineart_anime on the card against the
     CPU, fp32, on the same uint8 frames with seeded weights
     (`annotators/seeded.py`): lineart on 2 frames at 64x80 and at 48x96,
     within 1 LSB after the facade's uint8 quantisation; PidiNet (its
     classifier set on the 64x80 frames) on 2 frames at 64x80 and at 48x96,
-    and the full-width lineart_anime on a frame at 256x256 and at 200x120
-    (both cubic resizes), each within 1 LSB likewise;
+    the full-width lineart_anime on a frame at 200x120
+    (both cubic resizes; the network runs at 256x256), each within 1 LSB
+    likewise;
     MLSD (`mlsd_checkpoint`, made and its head set on the card) on 2 frames
     of 64x80: each tpMap channel within 1e-3 of its RMS, and the map the
     card decodes and draws from its tpMap equal to the CPU's decode and
@@ -1813,19 +1878,9 @@ def small_annotator_reference(torch) -> dict:
     from controlanimate_tpu_torch.ops.resize import resize_area
 
     t0 = time.perf_counter()
-    # the facade's quantisation (a map outside [0, 1] goes to 0 or 255)
-    q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
 
     def card_vs_cpu(cpu_ann, card_ann, sizes, n):
-        lsb, err, stats = 0, 0.0, []
-        for h, w in sizes:
-            frames = torch.from_numpy(edge_rich(np, synthetic_video(np, n, h, w, SEED)))
-            cpu = cpu_ann(frames)
-            card = card_ann(frames.cuda()).cpu()
-            lsb = max(lsb, int((q(cpu) - q(card)).abs().max()))
-            err = max(err, float((cpu - card).abs().max()))
-            stats.append([float(cpu.mean()), float(cpu.std())])
-        return lsb, err, stats
+        return annotator_card_vs_cpu(torch, np, cpu_ann, card_ann, sizes, n)
 
     net = seed_lineart_(LineartGenerator(), torch.Generator().manual_seed(SEED))
     lsb, _, stats = card_vs_cpu(LineartAnnotator(net), LineartAnnotator(copy.deepcopy(net).cuda()),
@@ -1837,13 +1892,14 @@ def small_annotator_reference(torch) -> dict:
                        PidiNetAnnotator(pidinet_model(pidi_ckpt, "cuda")),
                        ((64, 80), (48, 96)), 2)
     # the full-width lineart_anime seeded on the card (54 M parameters), a
-    # copy on the CPU
+    # copy on the CPU; at 200x120 the network runs at 256x256 between the
+    # two cubic resizes
     agen = torch.Generator(device="cuda")
     agen.manual_seed(SEED)
     with torch.device("cuda"):
         anime_net = seed_lineart_anime_(UnetGenerator(), agen)
     anime = card_vs_cpu(LineartAnimeAnnotator(copy.deepcopy(anime_net).cpu()),
-                        LineartAnimeAnnotator(anime_net), ((256, 256), (200, 120)), 1)
+                        LineartAnimeAnnotator(anime_net), ((200, 120),), 1)
     frames = torch.from_numpy(edge_rich(np, synthetic_video(np, 2, 64, 80, SEED)))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -2271,6 +2327,7 @@ def main() -> int:
         for h in (512, 768) for f in (lambda v: v, lambda v: edge_rich(np, v))])
     ref_hed = step("hed", lambda: small_hed_reference(torch))
     ref_annotators = step("annotators", lambda: small_annotator_reference(torch))
+    ref_normalbae = step("normalbae", lambda: small_normalbae_reference(torch))
     ref_openpose = step("openpose", lambda: small_openpose_reference(torch))
     ref_cn = step("controlnet", lambda: small_controlnet_reference(torch))
     # a multi-step sampler: DPM-Solver under CFG 7.5 with a canny ControlNet
@@ -2294,7 +2351,8 @@ def main() -> int:
           upscale4_max_lsb=ref_up4["max_lsb"], upscale4_mean_lsb=ref_up4["mean_lsb"],
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
           k4_launches=k4_ref_launches, face=ref_face, canny=ref_canny, hed=ref_hed,
-          annotators=ref_annotators, openpose=ref_openpose, controlnet=ref_cn,
+          annotators=ref_annotators, normalbae=ref_normalbae, openpose=ref_openpose,
+          controlnet=ref_cn,
           dpm_cfg_controlnet_k3=ref_cfg_k3, segments=ref_seg, cfg_k1_batches=cfg_k1_batches,
           cfg_k3_batches=k3_cfg_batches, step_seconds=step_seconds)
     for r in (ref, ref_k2, ref_k3, ref_cfg_k3):
@@ -2329,6 +2387,10 @@ def main() -> int:
             <= 0.02):
         raise AssertionError(f"lineart, MLSD, softedge or lineart_anime on the card differs "
                              f"from the CPU, or a map is saturated: {ra}")
+    if (ref_normalbae["max_lsb"] > 1
+            or min(sd for _, sd in ref_normalbae["mean_std"]) <= 0.02):
+        raise AssertionError(f"NormalBae on the card differs from the CPU, or its map is "
+                             f"saturated: {ref_normalbae}")
     rp = ref_openpose
     if (max(rp["net_err_over_rms"].values()) > 1e-3 or not rp["body_equal"]
             or rp["people"] != 2 or min(rp["hands_faces_drawn"]) < 1 or rp["canvas_diff"]
@@ -2671,11 +2733,13 @@ def main() -> int:
     from controlanimate_tpu_torch.models.annotators.lineart_anime import (LineartAnimeAnnotator,
                                                                           UnetGenerator)
     from controlanimate_tpu_torch.models.annotators.mlsd import MLSDAnnotator
+    from controlanimate_tpu_torch.models.annotators.normalbae import NormalBaeAnnotator
     from controlanimate_tpu_torch.models.annotators.openpose import body_input_size
     from controlanimate_tpu_torch.models.annotators.pidinet import PidiNetAnnotator
     from controlanimate_tpu_torch.models.annotators.seeded import (
-        mlsd_checkpoint, mlsd_model, openpose_checkpoints, pidinet_checkpoint, pidinet_model,
-        pose_maps, seed_lineart_, seed_lineart_anime_)
+        mlsd_checkpoint, mlsd_model, normalbae_checkpoint, normalbae_model,
+        openpose_checkpoints, pidinet_checkpoint, pidinet_model, pose_maps, seed_lineart_,
+        seed_lineart_anime_)
 
     video_768 = synthetic_video(np, 2 * frames_n - overlap, 768, size, SEED)
     frames_768 = torch.from_numpy(video_768[:frames_n]).cuda()
@@ -2695,16 +2759,25 @@ def main() -> int:
     with torch.device("cuda"):
         anime_net = UnetGenerator()
     lineart_anime = LineartAnimeAnnotator(seed_lineart_anime_(anime_net, agen))
+    # and normalbae, its statistics from this window at 512x512 (the disk
+    # phase's size), the file kept in the released nesting for the disk phase
+    nb_ckpt = normalbae_checkpoint(agen, window_frames)
+    nb_ckpt = {"model": {k: v.cpu() for k, v in nb_ckpt["model"].items()}}
+    normalbae = NormalBaeAnnotator(normalbae_model(nb_ckpt, "cuda"))
     annotators_768 = {"canny": canny, "hed": hed, "lineart": lineart, "mlsd": mlsd_ann,
                       "openpose": openpose_ann, "softedge": softedge,
-                      "lineart_anime": lineart_anime}
-    # the first call warms each annotator up; the second, timed, must agree
+                      "lineart_anime": lineart_anime, "normalbae": normalbae}
+    # the first call warms each annotator up; the second, timed, must agree;
+    # its peak memory above what was allocated before it
     maps_768 = {name: a(frames_768) for name, a in annotators_768.items()}
-    repeatable, annotator_ms = {}, {}
+    repeatable, annotator_ms, annotator_peak = {}, {}, {}
     for name, a in annotators_768.items():
         again = []
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         annotator_ms[name] = cuda_ms(torch, lambda a=a: again.append(a(frames_768)), 1,
                                      warmup=0)
+        annotator_peak[name] = torch.cuda.max_memory_allocated() - resident
         repeatable[name] = torch.equal(again[0], maps_768[name])
         del again
     seeded_stats = dict(openpose_ann.stats)
@@ -2726,9 +2799,13 @@ def main() -> int:
     body_ms = cuda_ms(torch, lambda: openpose_ann.body_maps(frames_768), 1, warmup=0)
     print(json.dumps({"annotators_512x768": {
         "frames": frames_n, "ms_per_window": annotator_ms, "repeatable": repeatable,
+        "peak_memory_over_resident": annotator_peak,
         "lineart_params": sum(p.numel() for p in lineart_net.parameters()),
         "softedge_params": sum(p.numel() for p in softedge.model.parameters()),
         "lineart_anime_params": sum(p.numel() for p in anime_net.parameters()),
+        "normalbae_params": sum(p.numel() for p in normalbae.model.parameters()),
+        "map_channel_std": {k: [float(v) for v in m.reshape(-1, 3).std(0)]
+                            for k, m in maps_768.items()},
         "mlsd_params": sum(p.numel() for p in mlsd_ann.model.parameters()),
         "openpose_params": {n: sum(p.numel() for p in m.parameters()) for n, m in (
             ("body", openpose_ann.body), ("hand", openpose_ann.hand),
@@ -2795,7 +2872,7 @@ def main() -> int:
         raise AssertionError("the CFG loop's frames are not (512, 512, 3) uint8")
     if float(np.stack(cfg_frames).std()) == 0.0:
         raise AssertionError("the CFG loop's frames are constant")
-    # the window's steps as the port's sampler builds them: 15
+    # the window's steps as the port's sampler builds them: 10
     cfg_window_steps = [make_scheduler(CFG_PROFILE["scheduler"], make_schedule(),
                                        CFG_PROFILE["steps"],
                                        strength=CFG_PROFILE["strength"]).num_steps]
@@ -3056,10 +3133,11 @@ def main() -> int:
          "mlsd_large_512_fp32.pth": mlsd_sd, **pose_sds,
          "table5_pidinet.pth": {"state_dict": {k: v.cpu()
                                                for k, v in pidi_ckpt["state_dict"].items()}},
-         "netG.pth": anime_net.state_dict()}))
-    # the softedge and lineart_anime ControlNets are the canny and HED nets'
-    # folders: the name selects the annotator
-    for name, net_name in zip(M13C1_CN_NAMES, CN_NAMES):
+         "netG.pth": anime_net.state_dict(), "normalbae/scannet.pt": nb_ckpt}))
+    # the softedge, lineart_anime and normalbae ControlNets are the canny,
+    # HED and MLSD nets' folders: the name selects the annotator
+    m13c_nets = (*cn_nets, lora_nets[LORA_CN_NAMES[2]])
+    for name, net_name in zip(M13C_CN_NAMES, (*CN_NAMES, LORA_CN_NAMES[2])):
         (SNAPSHOT / "models" / "ControlNet" / name.split("/")[-1]).symlink_to(
             net_name.split("/")[-1], target_is_directory=True)
     cn_write_seconds = time.perf_counter() - t1
@@ -3105,44 +3183,50 @@ def main() -> int:
     fields_cn.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del disk_cn_frames, diff, cn_frames
 
-    # the same profile naming the softedge and lineart_anime ControlNets
-    # (the canny and HED nets' folders), its annotators read from
-    # table5_pidinet.pth and netG.pth, one window, against the injected
-    # pipeline with the same nets and the controlnet phase's annotators
-    se_settings = {"controlnets": M13C1_CN_NAMES, "cond_scale": CN_SCALES}
+    # the same profile naming the softedge, lineart_anime and normalbae
+    # ControlNets (the canny, HED and MLSD nets' folders), its annotators
+    # read from table5_pidinet.pth, netG.pth and normalbae/scannet.pt, one
+    # window, against the injected pipeline with the same nets and the
+    # controlnet phase's annotators
+    se_settings = {"controlnets": M13C_CN_NAMES, "cond_scale": M13C_CN_SCALES}
     with chdir(SNAPSHOT):
         summary, disk_se_frames, seconds, counts, peak = run_cli(
-            "disk_softedge_anime", ["--max-windows", "1"],
+            "disk_softedge_anime_normalbae", ["--max-windows", "1"],
             input_video_path=str(SNAPSHOT / "frames_512x512"), width=size, height=size,
             inference_config_path=str(INFERENCE_V2), motion_module=str(SNAPSHOT / "mm_v2.ckpt"),
             use_pallas_conv=0, **se_settings)
     if summary["windows"] != 1 or len(disk_se_frames) != n_cli:
-        raise AssertionError(f"the softedge/lineart_anime CLI run wrote {len(disk_se_frames)} "
-                             f"frames in {summary['windows']} windows, not {n_cli} in 1")
-    if counts["k1_by_shape"] != cn_cli_k1_expected or counts["k2_by_shape"] or counts["k3"]:
-        raise AssertionError(f"softedge/lineart_anime CLI K1 launches {counts['k1_by_shape']}, "
-                             f"expected {cn_cli_k1_expected}, or K2 or K3 launched")
-    se_models = EngineModels(unet=models.unet, vae=models.vae, controlnets=cn_nets,
-                             annotators=[softedge, lineart_anime])
-    _, se_injected, _, _, _, _ = run_vid2vid(False, "softedge_anime", engine_models=se_models,
-                                             max_windows=1, **se_settings)
+        raise AssertionError(f"the softedge/lineart_anime/normalbae CLI run wrote "
+                             f"{len(disk_se_frames)} frames in {summary['windows']} windows, "
+                             f"not {n_cli} in 1")
+    se_k1_expected = expected_k1_launches(1, 0, steps, frames_n, overlap,
+                                          controlnets=len(M13C_CN_NAMES))
+    if counts["k1_by_shape"] != se_k1_expected or counts["k2_by_shape"] or counts["k3"]:
+        raise AssertionError(f"softedge/lineart_anime/normalbae CLI K1 launches "
+                             f"{counts['k1_by_shape']}, expected {se_k1_expected}, or K2 or K3 "
+                             f"launched")
+    se_models = EngineModels(unet=models.unet, vae=models.vae, controlnets=list(m13c_nets),
+                             annotators=[softedge, lineart_anime, normalbae])
+    _, se_injected, _, _, _, _ = run_vid2vid(False, "softedge_anime_normalbae",
+                                             engine_models=se_models, max_windows=1,
+                                             **se_settings)
     diff = np.abs(np.stack(disk_se_frames).astype(np.int16)
                   - np.stack(se_injected).astype(np.int16))
-    fields_se = {"controlnets": list(M13C1_CN_NAMES), "frames_written": summary["frames_written"],
+    fields_se = {"controlnets": list(M13C_CN_NAMES), "frames_written": summary["frames_written"],
                  "uint8_diff_vs_injected_max": int(diff.max()),
                  "uint8_diff_vs_injected_mean": float(diff.mean()),
                  "k1_launches": sum(counts["k1_by_shape"].values())}
     if diff.max():
-        _, again, _, _, _, _ = run_vid2vid(False, "softedge_anime_again",
+        _, again, _, _, _, _ = run_vid2vid(False, "softedge_anime_normalbae_again",
                                            engine_models=se_models, max_windows=1,
                                            **se_settings)
         rerun = np.abs(np.stack(again).astype(np.int16)
                        - np.stack(se_injected).astype(np.int16))
         fields_se["injected_rerun_diff_max"] = int(rerun.max())
         if diff.max() > rerun.max():
-            raise AssertionError(f"the softedge/lineart_anime CLI run's frames differ from the "
-                                 f"injected pipeline's by {int(diff.max())}, two injected runs "
-                                 f"by {int(rerun.max())}")
+            raise AssertionError(f"the softedge/lineart_anime/normalbae CLI run's frames differ "
+                                 f"from the injected pipeline's by {int(diff.max())}, two "
+                                 f"injected runs by {int(rerun.max())}")
     fields_se.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del disk_se_frames, se_injected, diff
 
@@ -3575,7 +3659,7 @@ def main() -> int:
     shutil.rmtree(SNAPSHOT)
     phase("disk", t0, snapshot_write_seconds=round(write_seconds, 4),
           snapshot_bytes=snapshot_bytes, cli_controlnet=fields_cn,
-          cli_softedge_anime=fields_se,
+          cli_softedge_anime_normalbae=fields_se,
           lcm_lora_build=fields_lora, cli_ip_adapter=fields_ip, cli_512x768=fields_768,
           cli_segments=fields_seg)
     del plain_frames
@@ -3629,15 +3713,14 @@ def main() -> int:
     # (the 512x768 and CFG shapes are checked against it above)
     launched = set(by_shape) | set(k1_768) | set(cfg_k1) | set(ip_k1) | set(seg_k1)
     untimed_k1 = launched - set(by_shape) - {VISION_K1_SHAPE}
-    # fp32 K1 runs in the reference phase alone: the segment run's own
-    # shapes (B*F = 64) are checked in bf16
-    bf16_only = set(seg_k1) - (set(by_shape) | set(k1_768) | set(cfg_k1) | set(ip_k1))
+    # fp32 K1 runs in the reference phase alone, at small shapes: the
+    # launched shapes are checked in bf16, the odd ones in both
     check_seconds = 0.0  # of the phase's seconds, those of the checks
     for shape in sorted(launched) + ODD_SHAPES:
         t1 = time.perf_counter()
         err_bf16 = check_kernel(torch, fa, shape, torch.bfloat16, gen)
-        err_fp32 = (None if shape in bf16_only
-                    else check_kernel(torch, fa, shape, torch.float32, gen))
+        err_fp32 = (check_kernel(torch, fa, shape, torch.float32, gen)
+                    if shape in ODD_SHAPES else None)
         check_seconds += time.perf_counter() - t1
         B, Nq, Nk, H, D = shape
         q = torch.randn((B, Nq, H, D), generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -3835,9 +3918,10 @@ def main() -> int:
         err_bf16 = check_k4(torch, uk, shape, upsample, torch.bfloat16, gen,
                             by_frame=key in launched_768)
         torch.cuda.empty_cache()
-        # fp32 at batch 1 of a launched shape: the batch of 8 at 2048^2 with
-        # the plain version's fp32 copies would hold about 40 GB
-        err_fp32 = check_k4(torch, uk, (1,) + shape[1:], upsample, torch.float32, gen)
+        # fp32 (the reference phase's dtype, which runs it at 64x64) at the
+        # odd shapes, at batch 1
+        err_fp32 = (check_k4(torch, uk, (1,) + shape[1:], upsample, torch.float32, gen)
+                    if key in odd else None)
         torch.cuda.empty_cache()
         x, w, bias = k4_inputs(torch, shape, torch.bfloat16, gen)
         xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view

@@ -272,8 +272,8 @@ _TUPLE_KEYS = frozenset({
 def require_ported(cfg: RunConfig) -> None:
     """Raise NotImplementedError, naming the key, for any setting whose
     behaviour the port lacks (the facade and the vid2vid loop both call
-    this), and for a ControlNet whose annotator is not ported yet (depth
-    and normalbae, M13c; KeyError for a name that selects no annotator)."""
+    this), and for a ControlNet whose annotator is not ported yet (depth,
+    M13c; KeyError for a name that selects no annotator)."""
     from .models.annotators import annotator_name
 
     for name in cfg.controlnets:

@@ -8,13 +8,16 @@ Ported: `canny` (`ops/canny.py`, bit for bit as OpenCV), `hed` and
 `lineart` (`edge_nets.py`), `mlsd` (`mlsd.py`), `openpose` with hands and
 face (`openpose.py`), `softedge` (PidiNet, `pidinet.py`) and
 `lineart_anime` (`lineart_anime.py`), the networks read from `WEIGHT_FILES`
-in CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`); a missing
-file raises FileNotFoundError (where the JAX package falls back to
-`cv2.HoughLinesP` for MLSD, to HED for softedge, and skips OpenPose's
-hands or faces). The two annotators of the zoo left, `depth` and
-`normalbae`, are M13c and raise NotImplementedError when the pipeline is
-built. A name that matches no annotator raises KeyError, as in JAX (there
-at the first window, here at the build).
+in CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`), and
+`normalbae` (`normalbae.py`), read from the file that
+CONTROLANIMATE_NORMALBAE_MODEL names (default
+`models/annotators/normalbae/scannet.pt`), as in JAX. A missing file
+raises FileNotFoundError (where the JAX package falls back to
+`cv2.HoughLinesP` for MLSD, to HED for softedge, to depth or luminance
+normals for normalbae, and skips OpenPose's hands or faces). The zoo's
+annotator left, `depth`, is M13c-3 and raises NotImplementedError when the
+pipeline is built. A name that matches no annotator raises KeyError, as in
+JAX (there at the first window, here at the build).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from ...ops.canny import canny
 from .edge_nets import HEDAnnotator, LineartAnnotator
 from .lineart_anime import LineartAnimeAnnotator
 from .mlsd import MLSDAnnotator
+from .normalbae import NormalBaeAnnotator
+from .normalbae import model_path as normalbae_path
 from .openpose import WEIGHT_NAMES, OpenPoseAnnotator
 from .pidinet import PidiNetAnnotator
 
@@ -47,7 +52,8 @@ ANNOTATOR_ORDER = (
     ("depth", "depth"),
     ("scribble", "hed"),
 )
-PORTED = ("canny", "hed", "lineart", "mlsd", "openpose", "softedge", "lineart_anime")
+PORTED = ("canny", "hed", "lineart", "mlsd", "openpose", "softedge", "lineart_anime",
+          "normalbae")
 # the networks' checkpoints (controlnet_aux's names) and the annotators'
 # constructors from their paths
 WEIGHT_FILES = {"hed": (("ControlNetHED.pth",), HEDAnnotator.from_file),
@@ -63,8 +69,8 @@ Annotator = Callable[[torch.Tensor], torch.Tensor]
 
 def annotator_name(controlnet_name: str) -> str:
     """The ported annotator a ControlNet's name selects; NotImplementedError
-    (M13c) for depth and normalbae, not yet ported; KeyError for a name that
-    selects none."""
+    (M13c) for depth, not yet ported; KeyError for a name that selects
+    none."""
     n = controlnet_name.lower()
     for sub, key in ANNOTATOR_ORDER:
         if sub in n:
@@ -83,6 +89,8 @@ def resolve_annotator(controlnet_name: str, device="cuda") -> Annotator:
     name = annotator_name(controlnet_name)
     if name == "canny":
         return canny
+    if name == "normalbae":
+        return NormalBaeAnnotator.from_file(normalbae_path(), device=device)
     fnames, make = WEIGHT_FILES[name]
     folder = Path(os.environ.get(ANNOTATOR_ENV, "models/annotators"))
     return make(*(folder / f for f in fnames), device=device)

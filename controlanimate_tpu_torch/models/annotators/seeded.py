@@ -1,14 +1,14 @@
-"""Seeded stand-ins for the lineart, lineart_anime, PidiNet, MLSD and
-OpenPose checkpoints.
+"""Seeded stand-ins for the lineart, lineart_anime, PidiNet, MLSD, OpenPose
+and NormalBae checkpoints.
 
 The repo ships no annotator weights. These make a `LineartGenerator`, a
 lineart_anime `UnetGenerator`, a `table5_pidinet.pth` state dict, an
 `mlsd_large_512_fp32.pth` state dict (controlnet_aux's key layout,
-BatchNorm statistics included) and the three OpenPose files from a
-`torch.Generator`, on its device, with maps that are neither constant nor
-saturated; and `pose_maps`, crafted stride-8 OpenPose maps of two people,
-which no seeded network gives. `chip_smoke.py` and the parity tests drive
-the annotators with them.
+BatchNorm statistics included), the three OpenPose files and a
+`scannet.pt` from a `torch.Generator`, on its device, with maps that are
+neither constant nor saturated; and `pose_maps`, crafted stride-8 OpenPose
+maps of two people, which no seeded network gives. `chip_smoke.py` and the
+parity tests drive the annotators with them.
 """
 
 from __future__ import annotations
@@ -19,12 +19,14 @@ import numpy as np
 import torch
 
 from . import mlsd
+from . import normalbae as nb
 from .edge_nets import LineartGenerator
 from .lineart_anime import UnetGenerator
 from .openpose import LIMB_SEQ, MAP_IDX, BodyPoseNet
 from .openpose_face import FaceNet
 from .openpose_hand_face import HandPoseNet
 from .pidinet import PiDiNet, PidiNetAnnotator, pdc_weights, pidinet_state_dict_from_torch
+from ...ops.warp import fp32_convs
 
 
 def seed_lineart_(net: LineartGenerator, gen: torch.Generator) -> LineartGenerator:
@@ -101,6 +103,102 @@ def pidinet_model(ckpt: dict, device) -> PiDiNet:
         model = PiDiNet()
     model.load_state_dict({k: v.to(device) for k, v in folded.items()}, assign=True)
     return model.eval()
+
+
+# the refinement heads' targets on the calibration frames: each output
+# channel's std, and the means of x, y, z and kappa
+HEAD_STD, HEAD_MEAN = 1.0, (0.0, 0.0, 1.5, 0.0)
+VAR_FLOOR = 0.25
+RESIDUAL_GAIN = 0.2
+
+
+@torch.no_grad()
+def normalbae_checkpoint(gen: torch.Generator, frames: torch.Tensor,
+                         cfg: nb.NNETConfig = nb.B5) -> dict:
+    """A seeded `scannet.pt` in the released nesting ({"model": ...}, every
+    key under `module.`, BatchNorms unfolded, no `num_batches_tracked`) on
+    the generator's device: convs N(0, 1/fan_in), conv biases N(0, 0.05^2),
+    BatchNorm gains 1 + N(0, 0.1^2) (times RESIDUAL_GAIN on a block's last
+    BatchNorm where it adds its input, so that a stage's output stays near
+    unit scale through the 39 blocks, and a frame's activations do not
+    grow from block to block) and shifts N(0, 0.1^2). The BatchNorm
+    statistics are those of one pass over the (F, H, W, 3) uint8 `frames`
+    (each variance at least VAR_FLOOR of its layer's mean), as training
+    leaves them, so that every layer sees unit-scale inputs there; and in
+    that pass `out_conv_res8` and each refinement head's last conv are
+    scaled and shifted so that their outputs have per-channel std HEAD_STD
+    and means HEAD_MEAN: the maps are neither constant nor set by the
+    biases, and xyz stays off a zero norm, where `norm_normalize` would
+    amplify rounding. Pass frames of the size and kind the network will
+    see: a random depthwise kernel answers texture, and at the last stages'
+    1/32 scale the 5x5 kernels reach past small maps, so frames of another
+    kind or size move every block's output off unit scale the same way, and
+    over the 39 blocks that compounds (at RESIDUAL_GAIN 0.5 a calibration
+    on smooth 64x96 frames left 256x384 ones at 1e5 by stage 5)."""
+    dev = gen.device
+    with torch.device("meta"):
+        model = nb.NNET(cfg)
+    norms = {n for n, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)}
+    last = set()  # the last BatchNorm of each block that adds its input
+    for n, m in model.named_modules():
+        if isinstance(m, nb.DepthwiseSeparable) and m.skip:
+            last.add(f"{n}.bn2")
+        elif isinstance(m, nb.InvertedResidual) and m.skip:
+            last.add(f"{n}.bn3")
+    sd = {}
+    for key, p in model.state_dict().items():
+        owner, _, leaf = key.rpartition(".")
+        if owner not in norms:
+            std = 1.0 / math.sqrt(p[0].numel()) if p.ndim > 1 else 0.05
+            sd[key] = torch.randn(p.shape, generator=gen, device=dev) * std
+        elif leaf == "weight":
+            sd[key] = (1.0 + 0.1 * torch.randn(p.shape, generator=gen, device=dev)) * (
+                RESIDUAL_GAIN if owner in last else 1.0)
+        elif leaf == "bias":
+            sd[key] = 0.1 * torch.randn(p.shape, generator=gen, device=dev)
+        else:  # the statistics, set by the pass below
+            sd[key] = torch.zeros(p.shape, dtype=p.dtype, device=dev)
+    model.load_state_dict(sd, assign=True)
+    model.eval()
+
+    def set_statistics(bn, inputs):
+        # the batch's statistics, each variance at least VAR_FLOOR of the
+        # layer's mean (a channel nearly constant on the batch would get a
+        # large gain)
+        x = inputs[0]
+        var = x.var((0, 2, 3))
+        bn.running_mean.copy_(x.mean((0, 2, 3)))
+        bn.running_var.copy_(torch.maximum(var, VAR_FLOOR * var.mean()))
+
+    hooks = [m.register_forward_pre_hook(set_statistics) for m in model.modules()
+             if isinstance(m, torch.nn.BatchNorm2d)]
+    target_mean = torch.tensor(HEAD_MEAN, device=dev)
+
+    def calibrate(conv, inputs, out):
+        dims = (0, 2, 3) if out.ndim == 4 else (0, 2)
+        gain = HEAD_STD / out.std(dims)
+        shift = target_mean - out.mean(dims) * gain
+        conv.weight.mul_(gain.reshape(-1, *(1,) * (conv.weight.ndim - 1)))
+        conv.bias.mul_(gain).add_(shift)
+        lead = (-1, *(1,) * (out.ndim - 2))
+        return out * gain.reshape(lead) + shift.reshape(lead)
+
+    dec = model.decoder
+    hooks += [m.register_forward_hook(calibrate) for m in (
+        dec.out_conv_res8, dec.out_conv_res4[6], dec.out_conv_res2[6], dec.out_conv_res1[6])]
+    with fp32_convs():
+        model(nb.normalize_frames(frames.to(dev)))
+    for h in hooks:
+        h.remove()
+    return {"model": {f"module.{k}": v.detach().clone() for k, v in model.state_dict().items()
+                      if not k.endswith("num_batches_tracked")}}
+
+
+def normalbae_model(ckpt: dict, device, cfg: nb.NNETConfig = nb.B5) -> nb.NNET:
+    """The folded `NNET` of a `normalbae_checkpoint` on `device`, folded on
+    the host as `NormalBaeAnnotator.from_file` folds it."""
+    sd = nb.scannet_state_dict({f"model.{k}": v.cpu() for k, v in ckpt["model"].items()})
+    return nb.nnet_from_state_dict(sd, cfg).to(device)
 
 
 def mlsd_model(sd: dict, device) -> mlsd.MLSDLarge:

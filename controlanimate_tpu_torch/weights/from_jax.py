@@ -15,14 +15,17 @@ below are the inverse of the JAX package's checkpoint loaders
 PDC kernels, as `table5_pidinet.pth` holds them),
 `models/annotators/lineart_anime.py` `anime_params_from_torch`,
 `models/annotators/mlsd_net.py` `mlsd_params_from_torch`, whose folded
-convs the port's `MLSDLarge` holds under the same names, and the OpenPose
+convs the port's `MLSDLarge` holds under the same names,
+`models/annotators/normalbae_net.py` `nnet_params_from_torch` (the
+BatchNorms unfolded, as `scannet.pt` holds them), and the OpenPose
 `body_params_from_torch`, `hand_params_from_torch` and
 `face_params_from_torch`, `clip_weights.py` `vision_params_from_torch` and
 the IP-Adapter projections of `pipelines/ip_adapter.py` `build_projection`),
 copied here so the port never imports that package. Kinds: "conv" HWIO ->
 OIHW, "dense" (in, out) -> (out, in), "raw" as is, "nchw" (1, H, W, C) ->
 (1, C, H, W), "lead1" with a leading axis of 1 (a modulated conv's weight),
-"chan" (C,) -> (1, C, 1, 1), "vec1" () -> (1,).
+"chan" (C,) -> (1, C, 1, 1), "vec1" () -> (1,), "conv1d" a 1x1 conv's
+(1, 1, I, O) -> a Conv1d's (O, I, 1).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 
 from ..models.annotators.edge_nets import LINEART_RES_BLOCKS
 from ..models.annotators.mlsd import IR_SPEC
+from ..models.annotators.normalbae import B5, NNETConfig
 from ..models.annotators.openpose import BodyPoseNet
 from ..models.annotators.openpose_face import FaceNet
 from ..models.annotators.openpose_hand_face import HandPoseNet
@@ -268,6 +272,43 @@ def mlsd_mapping() -> Iterator[Entry]:
             yield from _conv(f"block{b}.{c}", f"block{b}/{c}")
 
 
+def _bn(t: str, f: str) -> Iterator[Entry]:
+    for tname, fname in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                         ("running_var", "var")):
+        yield f"{t}.{tname}", f"{f}/{fname}", "raw"
+
+
+def normalbae_mapping(cfg: NNETConfig = B5) -> Iterator[Entry]:
+    """`scannet.pt`'s keys without their wrappers, the BatchNorms unfolded
+    (the port folds them as it loads the file)."""
+    t, f = "encoder.original_model", "encoder"
+    yield f"{t}.conv_stem.weight", f"{f}/conv_stem/kernel", "conv"
+    yield from _bn(f"{t}.bn1", f"{f}/bn1")
+    for s, (n, expand) in enumerate(zip(cfg.repeats, cfg.expands)):
+        for i in range(n):
+            tb, fb = f"{t}.blocks.{s}.{i}", f"{f}/blocks_{s}_{i}"
+            convs = (("conv_dw", "bn1"), ("conv_pw", "bn2")) if expand == 1 else (
+                ("conv_pw", "bn1"), ("conv_dw", "bn2"), ("conv_pwl", "bn3"))
+            for conv, bn in convs:
+                yield f"{tb}.{conv}.weight", f"{fb}/{conv}/kernel", "conv"
+                yield from _bn(f"{tb}.{bn}", f"{fb}/{bn}")
+            yield from _conv(f"{tb}.se.conv_reduce", f"{fb}/se/conv_reduce")
+            yield from _conv(f"{tb}.se.conv_expand", f"{fb}/se/conv_expand")
+    yield f"{t}.conv_head.weight", f"{f}/conv_head/kernel", "conv"
+    yield from _conv("decoder.conv2", "decoder/conv2")
+    for u in ("up1", "up2", "up3", "up4"):
+        tu, fu = f"decoder.{u}._net", f"decoder/{u}"
+        yield from _conv(f"{tu}.0", f"{fu}/net_0")
+        yield from _bn(f"{tu}.1", f"{fu}/net_1")
+        yield from _conv(f"{tu}.3", f"{fu}/net_3")
+        yield from _bn(f"{tu}.4", f"{fu}/net_4")
+    yield from _conv("decoder.out_conv_res8", "decoder/out_conv_res8")
+    for h in ("out_conv_res4", "out_conv_res2", "out_conv_res1"):
+        for j in (0, 2, 4, 6):
+            yield f"decoder.{h}.{j}.weight", f"decoder/{h}/c{j}/kernel", "conv1d"
+            yield f"decoder.{h}.{j}.bias", f"decoder/{h}/c{j}/bias", "raw"
+
+
 def openpose_mapping(make) -> Iterator[Entry]:
     """An OpenPose network's convs: the port's `a.b` (or `b`) is the JAX
     package's flat `a_b` (or `b`)."""
@@ -480,6 +521,8 @@ def _state_dict(params: dict, mapping: Iterator[Entry]) -> dict[str, torch.Tenso
             arr = arr.reshape(1, -1, 1, 1)
         elif kind == "vec1":
             arr = arr.reshape(1)
+        elif kind == "conv1d":
+            arr = np.transpose(arr[0], (2, 1, 0))
         out[tkey] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
 
@@ -543,6 +586,10 @@ def lineart_anime_state_dict(params: dict, num_downs: int = 8) -> dict[str, torc
 
 def mlsd_state_dict(params: dict) -> dict[str, torch.Tensor]:
     return _state_dict(params, mlsd_mapping())
+
+
+def normalbae_state_dict(params: dict, cfg: NNETConfig = B5) -> dict[str, torch.Tensor]:
+    return _state_dict(params, normalbae_mapping(cfg))
 
 
 def openpose_body_state_dict(params: dict) -> dict[str, torch.Tensor]:

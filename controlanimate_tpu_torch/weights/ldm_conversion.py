@@ -4,9 +4,10 @@ A copy of `controlanimate_tpu/weights/ldm_conversion.py` on torch tensors:
 key-rename passes over the flat state dict (SD1.x geometry: 4 levels, 2
 resnets per encoder level, transformer depth 1). `convert_ldm_vae` serves a
 single-file `vae_path`; `split_ldm_checkpoint` a DreamBooth file (without
-`use_lcm`). The open-clip text tower of SD2.x checkpoints and single-file
-ControlNets (`convert_open_clip`, `convert_ldm_controlnet`) are not ported
-yet: an open-clip checkpoint raises NotImplementedError.
+`use_lcm`), its text tower either SD1.x's CLIP or SD2.x's open-clip
+(`convert_open_clip`). `convert_ldm_controlnet` converts a single-file
+ControlNet (`control_model.*`); the facade does not call it, as the JAX
+facade does not: ControlNets are read from diffusers folders.
 """
 
 from __future__ import annotations
@@ -37,35 +38,43 @@ def _rename_resnet(rest: str) -> str:
     return rest
 
 
+def _encoder_key(k: str) -> str | None:
+    """The diffusers key of an LDM UNet key of the time embedding, the input
+    blocks or the middle block (the half a ControlNet shares); None for
+    any other key."""
+    if k.startswith("time_embed.0."):
+        return "time_embedding.linear_1." + k.split(".")[-1]
+    if k.startswith("time_embed.2."):
+        return "time_embedding.linear_2." + k.split(".")[-1]
+    if k.startswith("input_blocks.0.0."):
+        return "conv_in." + k.split(".")[-1]
+    if k.startswith("input_blocks."):
+        m = re.match(r"input_blocks\.(\d+)\.(\d+)\.(.*)", k)
+        n, sub, rest = int(m.group(1)), int(m.group(2)), m.group(3)
+        level, pos = (n - 1) // 3, (n - 1) % 3
+        if pos == 2:  # downsampler slot
+            assert rest.startswith("op.")
+            return f"down_blocks.{level}.downsamplers.0.conv.{rest[3:]}"
+        if sub == 0:
+            return f"down_blocks.{level}.resnets.{pos}.{_rename_resnet(rest)}"
+        return f"down_blocks.{level}.attentions.{pos}.{rest}"
+    if k.startswith("middle_block.0."):
+        return f"mid_block.resnets.0.{_rename_resnet(k[len('middle_block.0.'):])}"
+    if k.startswith("middle_block.1."):
+        return f"mid_block.attentions.0.{k[len('middle_block.1.'):]}"
+    if k.startswith("middle_block.2."):
+        return f"mid_block.resnets.1.{_rename_resnet(k[len('middle_block.2.'):])}"
+    return None
+
+
 def convert_ldm_unet(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """model.diffusion_model.* -> diffusers UNet2DConditionModel keys
     (SD1.x: layers_per_block=2, one attention per resnet where present)."""
     src = _strip(sd, "model.diffusion_model.") or sd
     out: dict[str, torch.Tensor] = {}
     for k, v in src.items():
-        if k.startswith("time_embed.0."):
-            out["time_embedding.linear_1." + k.split(".")[-1]] = v
-        elif k.startswith("time_embed.2."):
-            out["time_embedding.linear_2." + k.split(".")[-1]] = v
-        elif k.startswith("input_blocks.0.0."):
-            out["conv_in." + k.split(".")[-1]] = v
-        elif k.startswith("input_blocks."):
-            m = re.match(r"input_blocks\.(\d+)\.(\d+)\.(.*)", k)
-            n, sub, rest = int(m.group(1)), int(m.group(2)), m.group(3)
-            level, pos = (n - 1) // 3, (n - 1) % 3
-            if pos == 2:  # downsampler slot
-                assert rest.startswith("op.")
-                out[f"down_blocks.{level}.downsamplers.0.conv.{rest[3:]}"] = v
-            elif sub == 0:
-                out[f"down_blocks.{level}.resnets.{pos}.{_rename_resnet(rest)}"] = v
-            else:
-                out[f"down_blocks.{level}.attentions.{pos}.{rest}"] = v
-        elif k.startswith("middle_block.0."):
-            out[f"mid_block.resnets.0.{_rename_resnet(k[len('middle_block.0.'):])}"] = v
-        elif k.startswith("middle_block.1."):
-            out[f"mid_block.attentions.0.{k[len('middle_block.1.'):]}"] = v
-        elif k.startswith("middle_block.2."):
-            out[f"mid_block.resnets.1.{_rename_resnet(k[len('middle_block.2.'):])}"] = v
+        if (nk := _encoder_key(k)) is not None:
+            out[nk] = v
         elif k.startswith("output_blocks."):
             m = re.match(r"output_blocks\.(\d+)\.(\d+)\.(.*)", k)
             n, sub, rest = int(m.group(1)), int(m.group(2)), m.group(3)
@@ -150,12 +159,102 @@ def convert_ldm_vae(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 
 def convert_ldm_clip(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """cond_stage_model.transformer.* -> HF CLIPTextModel keys (SD1.x)."""
+    """cond_stage_model.transformer.* -> HF CLIPTextModel keys (SD1.x);
+    SD2.x open-clip towers (cond_stage_model.model.*) go to
+    `convert_open_clip`."""
     src = _strip(sd, "cond_stage_model.transformer.")
     if not src and any(k.startswith("cond_stage_model.model.") for k in sd):
-        raise NotImplementedError(
-            "open-clip text towers (SD2.x, cond_stage_model.model.*) are not ported yet")
+        return convert_open_clip(sd)
     return {k: v for k, v in src.items() if k.startswith("text_model.")}
+
+
+# open-clip resblock -> HF CLIPTextModel renames
+_OPENCLIP_RENAMES = [
+    ("resblocks.", "text_model.encoder.layers."),
+    ("ln_1", "layer_norm1"),
+    ("ln_2", "layer_norm2"),
+    (".c_fc.", ".fc1."),
+    (".c_proj.", ".fc2."),
+    (".attn", ".self_attn"),
+]
+
+_OPENCLIP_TOPLEVEL = {
+    "positional_embedding": "text_model.embeddings.position_embedding.weight",
+    "token_embedding.weight": "text_model.embeddings.token_embedding.weight",
+    "ln_final.weight": "text_model.final_layer_norm.weight",
+    "ln_final.bias": "text_model.final_layer_norm.bias",
+}
+
+
+def _rename_open_clip(k: str) -> str:
+    for old, new in _OPENCLIP_RENAMES:
+        k = k.replace(old, new)
+    return k
+
+
+def convert_open_clip(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """cond_stage_model.model.* (SD2.x's open-clip text tower) -> HF
+    CLIPTextModel keys: the last layer (resblocks.23) dropped, as diffusers'
+    SD2 text encoder reads the penultimate hidden state; each fused
+    in_proj split into q/k/v at d_model (text_projection's rows, else
+    1024); text_projection and logit_scale dropped."""
+    src = _strip(sd, "cond_stage_model.model.")
+    if not src:
+        raise ValueError("no cond_stage_model.model.* keys (not an open-clip checkpoint)")
+    tp = src.get("text_projection")
+    d = int(tp.shape[0]) if tp is not None else 1024
+    out: dict[str, torch.Tensor] = {}
+    for k, v in src.items():
+        if k in _OPENCLIP_TOPLEVEL:
+            out[_OPENCLIP_TOPLEVEL[k]] = v
+            continue
+        if not k.startswith("transformer."):
+            continue  # text_projection, logit_scale
+        rest = k[len("transformer."):]
+        if rest.startswith("resblocks.23."):
+            continue
+        if rest.endswith((".attn.in_proj_weight", ".attn.in_proj_bias")):
+            base, proj = rest.rsplit(".", 1)  # "resblocks.N.attn"
+            suffix = "weight" if proj.endswith("weight") else "bias"
+            base = _rename_open_clip(base)
+            out[f"{base}.q_proj.{suffix}"] = v[:d]
+            out[f"{base}.k_proj.{suffix}"] = v[d:2 * d]
+            out[f"{base}.v_proj.{suffix}"] = v[2 * d:]
+            continue
+        out[_rename_open_clip(rest)] = v
+    return out
+
+
+def convert_ldm_controlnet(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """control_model.* (or unprefixed) single-file ControlNet -> diffusers
+    ControlNetModel keys: the UNet's encoder half as `convert_ldm_unet`
+    renames it, input_hint_block.{0, 2, ..., 14} -> controlnet_cond_embedding
+    .conv_in / .blocks.{0..5} / .conv_out (the odd indices are
+    activations), zero_convs.{i}.0 -> controlnet_down_blocks.{i},
+    middle_block_out.0 -> controlnet_mid_block. An unprefixed file keeps
+    every key of no other tower (model., cond_stage_model.,
+    first_stage_model., model_ema.)."""
+    src = _strip(sd, "control_model.")
+    if not src:
+        src = {k: v for k, v in sd.items()
+               if not k.startswith(("model.", "cond_stage_model.", "first_stage_model.",
+                                    "model_ema."))}
+    out: dict[str, torch.Tensor] = {}
+    for k, v in src.items():
+        if k.startswith("input_hint_block."):
+            m = re.match(r"input_hint_block\.(\d+)\.(.*)", k)
+            idx, rest = int(m.group(1)), m.group(2)
+            part = ("conv_in" if idx == 0 else "conv_out" if idx == 14
+                    else f"blocks.{idx // 2 - 1}")
+            out[f"controlnet_cond_embedding.{part}.{rest}"] = v
+        elif k.startswith("zero_convs."):
+            m = re.match(r"zero_convs\.(\d+)\.0\.(.*)", k)
+            out[f"controlnet_down_blocks.{m.group(1)}.{m.group(2)}"] = v
+        elif k.startswith("middle_block_out.0."):
+            out["controlnet_mid_block." + k.split(".")[-1]] = v
+        elif (nk := _encoder_key(k)) is not None:
+            out[nk] = v
+    return out
 
 
 def split_ldm_checkpoint(sd: dict[str, torch.Tensor]) -> dict[str, dict[str, torch.Tensor]]:

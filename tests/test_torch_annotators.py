@@ -10,10 +10,11 @@ drawing of JAX's own tpMaps (the network's, seeded and crafted ones) bit for
 bit against the JAX `decode_lines` + `cv2.line`, the whole annotator against
 `mlsd_net.run` (a stated share of pixels may differ), and its resizes and
 line drawing bit for bit against `cv2.resize` and `cv2.line`; and the
-annotator dispatch by substring, with the annotators of M13c (depth,
-normalbae) raising and a missing weights file raising FileNotFoundError
-(OpenPose's own parity tests are `test_torch_openpose.py`, softedge's and
-lineart_anime's `test_torch_softedge_anime.py`)."""
+annotator dispatch by substring, with the annotator of M13c-3 (depth)
+raising and a missing weights file raising FileNotFoundError (OpenPose's
+own parity tests are `test_torch_openpose.py`, softedge's and
+lineart_anime's `test_torch_softedge_anime.py`, NormalBae's
+`test_torch_normalbae.py`)."""
 
 import cv2
 import jax
@@ -175,17 +176,16 @@ def test_hed_upsample_is_jax_resize(src, dst):
     ("lllyasviel/control_v11p_sd15_openpose", "openpose"),
     ("lllyasviel/control_v11p_sd15_softedge", "softedge"), ("my_pidi_net", "softedge"),
     ("lllyasviel/control_v11p_sd15s2_lineart_anime", "lineart_anime"),
+    ("lllyasviel/control_v11p_sd15_normalbae", "normalbae"),
 ])
 def test_dispatch_by_substring(name, key):
     assert annotators.annotator_name(name) == key
 
 
-@pytest.mark.parametrize("name", [
-    "lllyasviel/control_v11f1p_sd15_depth", "lllyasviel/control_v11p_sd15_normalbae",
-])
+@pytest.mark.parametrize("name", ["lllyasviel/control_v11f1p_sd15_depth"])
 def test_m13_annotators_raise(name):
-    """The two annotators of the zoo left (depth, normalbae) raise
-    NotImplementedError naming M13 when the configuration is checked."""
+    """The annotator of the zoo left (depth) raises NotImplementedError
+    naming M13 when the configuration is checked."""
     with pytest.raises(NotImplementedError, match="M13"):
         annotators.annotator_name(name)
     with pytest.raises(NotImplementedError, match="M13"):
@@ -206,15 +206,19 @@ OPENPOSE_FILES = ("body_pose_model.pth", "hand_pose_model.pth", "facenet.pth")
                                         ("lllyasviel/control_v11p_sd15_softedge",
                                          "table5_pidinet.pth"),
                                         ("lllyasviel/control_v11p_sd15s2_lineart_anime",
-                                         "netG.pth")]
+                                         "netG.pth"),
+                                        ("lllyasviel/control_v11p_sd15_normalbae",
+                                         "normalbae/scannet.pt")]
                          + [("lllyasviel/control_v11p_sd15_openpose", f) for f in OPENPOSE_FILES])
 def test_missing_weights_raise(name, fname, tmp_path, monkeypatch):
-    """A missing lineart, MLSD, PidiNet or lineart_anime file raises
-    FileNotFoundError naming it (the JAX package falls back to Hough lines
-    for MLSD and to HED for softedge), and so does each of OpenPose's three
-    with the other two present (the JAX package skips the hands or the face
-    without a word)."""
+    """A missing lineart, MLSD, PidiNet, lineart_anime or NormalBae file
+    raises FileNotFoundError naming it (the JAX package falls back to Hough
+    lines for MLSD, to HED for softedge and to depth or luminance normals
+    for normalbae), and so does each of OpenPose's three with the other two
+    present (the JAX package skips the hands or the face without a word).
+    NormalBae's file is CONTROLANIMATE_NORMALBAE_MODEL's."""
     monkeypatch.setenv(annotators.ANNOTATOR_ENV, str(tmp_path))
+    monkeypatch.setenv("CONTROLANIMATE_NORMALBAE_MODEL", str(tmp_path / "normalbae/scannet.pt"))
     for other in OPENPOSE_FILES:
         if other != fname:  # an empty file: the missing one is found first
             (tmp_path / other).touch()

@@ -6,8 +6,8 @@ on K4) on the card against the CPU, the face step (RetinaFace, the
 aligned crop, GFPGAN, the paste, and the OpenCV stand-ins under them) on
 the card against the CPU, the ControlNet slice: canny and HED on the
 card against the CPU, and a small pipeline with two ControlNets; softedge
-(PidiNet) and lineart_anime on the card against the CPU, each call on the
-card equal to the one before; and the
+(PidiNet), lineart_anime and NormalBae on the card against the CPU, each
+call on the card equal to the one before; and the
 multi-step samplers: small windows under classifier-free guidance (Euler
 with a ControlNet, the LCM-LoRA tail, DPM-Solver) on the card against the
 CPU; the IP-Adapter's image encoder: K1 at its (1, 257, 16, 80) shape, and a
@@ -543,3 +543,33 @@ def test_softedge_and_lineart_anime_card_match_cpu(cuda, name, hw):
     q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
     assert int((q(want) - q(first.cpu())).abs().max()) <= 1
     assert float(want.std()) > 0.02
+
+
+@pytest.mark.parametrize("hw", [(64, 80), (45, 61)])
+def test_normalbae_card_matches_cpu(cuda, hw):
+    """The seeded full-B5 NormalBae (its statistics from the 64x80 frames) in
+    fp32 on the card against the CPU on the same frames: the frame's size
+    (at 45x61 the network's 46x62 cut to it), within 1 LSB after the
+    facade's uint8 quantisation, no channel saturated, and a second call on
+    the card equal to the first."""
+    import numpy as np
+
+    import chip_smoke
+    from controlanimate_tpu_torch.models.annotators import seeded
+    from controlanimate_tpu_torch.models.annotators.normalbae import NormalBaeAnnotator
+
+    def frames_at(h, w):
+        return torch.from_numpy(chip_smoke.edge_rich(np, chip_smoke.synthetic_video(
+            np, 2, h, w, chip_smoke.SEED)))
+
+    ckpt = seeded.normalbae_checkpoint(torch.Generator().manual_seed(chip_smoke.SEED),
+                                       frames_at(64, 80))
+    frames = frames_at(*hw)
+    want = NormalBaeAnnotator(seeded.normalbae_model(ckpt, "cpu"))(frames)
+    card = NormalBaeAnnotator(seeded.normalbae_model(ckpt, "cuda"))
+    first = card(frames.cuda())
+    assert first.shape == want.shape == (2, *hw, 3)
+    assert torch.equal(card(frames.cuda()), first)
+    q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+    assert int((q(want) - q(first.cpu())).abs().max()) <= 1
+    assert float(want.reshape(-1, 3).std(0).min()) > 0.02

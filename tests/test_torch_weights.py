@@ -4,6 +4,8 @@ DreamBooth split, LoRA fusing in the Kohya, peft and motion-processor
 formats, textual-inversion registration, and the key rules of the UNet, VAE
 and text-encoder loaders. Keys and values equal; token ids equal."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,8 @@ from controlanimate_tpu.weights import lora as jlora
 from controlanimate_tpu.weights import textual_inversion as jti
 from controlanimate_tpu.weights import vae_weights as jvae
 from controlanimate_tpu_torch.models.tokenizer import CLIPTokenizer
+from controlanimate_tpu_torch.models.unet3d import UNet3DConfig
+from controlanimate_tpu_torch.weights import from_jax
 from controlanimate_tpu_torch.weights import ldm_conversion as ldm
 from controlanimate_tpu_torch.weights import lora
 from controlanimate_tpu_torch.weights import textual_inversion as ti
@@ -92,9 +96,104 @@ def test_split_ldm_checkpoint_matches_jax():
         _assert_same(mine[part], theirs[part])
 
 
-def test_open_clip_towers_are_not_ported():
-    with pytest.raises(NotImplementedError, match="open-clip"):
-        ldm.convert_ldm_clip({"cond_stage_model.model.ln_final.weight": torch.ones(4)})
+def _open_clip_sd(rng, d: int = 8) -> dict:
+    """An SD2.x open-clip text tower (`tests/test_ops_and_weights.py`
+    `test_open_clip_key_conversion`'s keys): the embeddings, the final norm,
+    the projection head and resblocks 0, 1 and 23 (the last, dropped)."""
+    p = "cond_stage_model.model."
+    sd = {f"{p}positional_embedding": (77, d), f"{p}token_embedding.weight": (49408, d),
+          f"{p}ln_final.weight": (d,), f"{p}ln_final.bias": (d,),
+          f"{p}text_projection": (d, d)}
+    for i in (0, 1, 23):
+        b = f"{p}transformer.resblocks.{i}"
+        sd.update({f"{b}.ln_1.weight": (d,), f"{b}.ln_2.bias": (d,),
+                   f"{b}.attn.in_proj_weight": (3 * d, d), f"{b}.attn.in_proj_bias": (3 * d,),
+                   f"{b}.attn.out_proj.weight": (d, d), f"{b}.mlp.c_fc.weight": (4 * d, d),
+                   f"{b}.mlp.c_proj.weight": (d, 4 * d)})
+    out = {k: rng.randn(*s).astype(np.float32) for k, s in sd.items()}
+    out[f"{p}logit_scale"] = np.asarray(1.0, np.float32)
+    return out
+
+
+@pytest.mark.parametrize("entry", ["convert_open_clip", "convert_ldm_clip",
+                                   "split_ldm_checkpoint"])
+def test_open_clip_towers_convert_as_jax(entry):
+    """SD2.x's open-clip text tower, directly, through `convert_ldm_clip`'s
+    dispatch and in a DreamBooth split: keys and values equal to the JAX
+    conversion's (the in_proj split into q/k/v at text_projection's rows,
+    the renames, layer 23, text_projection and logit_scale dropped)."""
+    sd = _open_clip_sd(np.random.RandomState(1))
+    if entry == "split_ldm_checkpoint":
+        sd.update(_random({f"model.diffusion_model.{k}": s for k, s in LDM_UNET.items()}, 2))
+        mine, theirs = ldm.split_ldm_checkpoint(_torch(sd)), jldm.split_ldm_checkpoint(sd)
+        for part in ("unet", "vae", "clip"):
+            _assert_same(mine[part], theirs[part])
+        mine, theirs = mine["clip"], theirs["clip"]
+    else:
+        mine, theirs = getattr(ldm, entry)(_torch(sd)), getattr(jldm, entry)(sd)
+        _assert_same(mine, theirs)
+    assert len(mine) == 4 + 2 * 11  # four top-level tensors, 11 a kept layer
+    with pytest.raises(ValueError, match="open-clip"):
+        ldm.convert_open_clip(_torch(_random(LDM_CLIP, 3)))
+
+
+def _ldm_controlnet_key(k: str) -> str:
+    """diffusers ControlNetModel key -> LDM `control_model.` key (the
+    inverse rename of `tests/test_ops_and_weights.py`
+    `test_ldm_controlnet_key_conversion`)."""
+    res = (("norm1.", "in_layers.0."), ("conv1.", "in_layers.2."),
+           ("time_emb_proj.", "emb_layers.1."), ("norm2.", "out_layers.0."),
+           ("conv2.", "out_layers.3."), ("conv_shortcut.", "skip_connection."))
+
+    def resnet(rest):
+        for new, old in res:
+            if rest.startswith(new):
+                return old + rest[len(new):]
+        return rest
+
+    rules = (
+        (r"time_embedding\.linear_([12])\.(.*)",
+         lambda m: f"time_embed.{2 * int(m[1]) - 2}.{m[2]}"),
+        (r"conv_in\.(.*)", lambda m: f"input_blocks.0.0.{m[1]}"),
+        (r"controlnet_cond_embedding\.conv_in\.(.*)", lambda m: f"input_hint_block.0.{m[1]}"),
+        (r"controlnet_cond_embedding\.conv_out\.(.*)", lambda m: f"input_hint_block.14.{m[1]}"),
+        (r"controlnet_cond_embedding\.blocks\.(\d+)\.(.*)",
+         lambda m: f"input_hint_block.{2 * int(m[1]) + 2}.{m[2]}"),
+        (r"controlnet_down_blocks\.(\d+)\.(.*)", lambda m: f"zero_convs.{m[1]}.0.{m[2]}"),
+        (r"controlnet_mid_block\.(.*)", lambda m: f"middle_block_out.0.{m[1]}"),
+        (r"down_blocks\.(\d+)\.resnets\.(\d+)\.(.*)",
+         lambda m: f"input_blocks.{1 + 3 * int(m[1]) + int(m[2])}.0.{resnet(m[3])}"),
+        (r"down_blocks\.(\d+)\.attentions\.(\d+)\.(.*)",
+         lambda m: f"input_blocks.{1 + 3 * int(m[1]) + int(m[2])}.1.{m[3]}"),
+        (r"down_blocks\.(\d+)\.downsamplers\.0\.conv\.(.*)",
+         lambda m: f"input_blocks.{3 + 3 * int(m[1])}.0.op.{m[2]}"),
+        (r"mid_block\.resnets\.(\d+)\.(.*)",
+         lambda m: f"middle_block.{2 * int(m[1])}.{resnet(m[2])}"),
+        (r"mid_block\.attentions\.0\.(.*)", lambda m: f"middle_block.1.{m[1]}"),
+    )
+    for pattern, make in rules:
+        if m := re.fullmatch(pattern, k):
+            return "control_model." + make(m)
+    raise AssertionError(f"no LDM key for {k}")
+
+
+@pytest.mark.parametrize("prefixed", [True, False], ids=["control_model", "bare"])
+def test_convert_ldm_controlnet_matches_jax(prefixed):
+    """A single-file SD1.5 ControlNet holding every key the port's ControlNet
+    mapping names, renamed to the LDM layout, with random values: the
+    port's conversion equals the JAX one key for key and value for value,
+    and gives back exactly the mapping's keys; with the `control_model.`
+    prefix and without it (where other towers' keys are left out)."""
+    keys = [t for t, _, _ in from_jax.controlnet_mapping(UNet3DConfig())]
+    rng = np.random.RandomState(0)
+    sd = {_ldm_controlnet_key(k): rng.randn(2).astype(np.float32) for k in keys}
+    if not prefixed:
+        sd = {k.removeprefix("control_model."): v for k, v in sd.items()}
+        sd.update(_random({"model.diffusion_model.out.2.bias": (4,),
+                           "first_stage_model.quant_conv.bias": (8,)}, 1))
+    mine, theirs = ldm.convert_ldm_controlnet(_torch(sd)), jldm.convert_ldm_controlnet(sd)
+    _assert_same(mine, theirs)
+    assert set(mine) == set(keys)
 
 
 def test_normalize_vae_keys_matches_jax():
