@@ -15,8 +15,9 @@ Phases, each printed as one JSON line with its seconds:
              K1's, K2's, K3's and K4's report each on a line of its own.
              K1's line adds the dynamic shared memory of each bf16
              plan and the tensor-core (HMMA) instructions that `cuobjdump
-             -sass` finds in each K1 kernel: every bf16 K1 kernel must have
-             some. K2's line adds the HMMA and cp.async (LDGSTS)
+             -sass` finds in each K1 kernel: every bf16 K1 kernel (one a
+             head dim, 64 among them) must have some and spill no
+             registers. K2's line adds the HMMA and cp.async (LDGSTS)
              instructions of each K2 kernel: every bf16 K2 kernel must have
              both, and spill no registers. K3's line (`k3_ptxas`) adds the
              HMMA, LDGSTS and LDSM (ldmatrix) instructions of each K3
@@ -46,12 +47,16 @@ Phases, each printed as one JSON line with its seconds:
              frames of 64x80, card against CPU in fp32: within 1 LSB after
              the uint8 quantisation; lineart, MLSD, softedge,
              lineart_anime and NormalBae likewise
-             (`small_annotator_reference`: lineart and PidiNet at 64x80 and
-             48x96, the full-width lineart_anime at 200x120 (its two cubic
-             resizes, the network at 256x256), each within 1 LSB and not
-             saturated; `small_normalbae_reference`, a step of its own: the
-             full B5 NormalBae at 64x80 and 45x61 (odd sides), within 1
-             LSB and not saturated; MLSD's
+             (`small_annotator_reference`: lineart and PidiNet at 64x80
+             (48x96 in tests/test_torch_gpu.py), the full-width
+             lineart_anime at 200x120 (its two cubic resizes, the network
+             at 256x256), each within 1 LSB and not saturated;
+             `small_normalbae_reference`, a step of its own: the full B5
+             NormalBae at 64x80 and 45x61 (odd sides), within 1 LSB and not
+             saturated; `small_depth_reference`, a step of its own: the
+             full-width DPT (4 ViT layers) and DPT-hybrid (2), position
+             tables for 128x128, on one frame in fp32 (K1's fp32 plan at
+             head dim 64), within 1e-4 of the largest value; MLSD's
              tpMaps within 1e-3 of each channel's RMS,
              and the map the card decodes and draws from its own tpMap equal
              to the CPU's decode and drawing of it; INTER_AREA at 768x512
@@ -135,20 +140,26 @@ Phases, each printed as one JSON line with its seconds:
              at 512x512). Prints new frames/s beside vid2vid_plain_conv's,
              peak memory, the loop's timers (`annotate` among them), and by
              CUDA events each annotator's time on a 16-frame window and
-             each ControlNet's forwards of a window (also on the card
-             alone). Before that, an `annotators_512x768` line: canny, HED,
+             each ControlNet's forwards of a window (the first net's also
+             on the card alone). Before that, an `annotators_512x768` line: canny, HED,
              and the seeded lineart (`seed_lineart_`), MLSD
              (`mlsd_checkpoint`, its head set on a window of this phase),
              OpenPose (`openpose_checkpoints`), PidiNet
              (`pidinet_checkpoint`, its classifier set on that window),
-             lineart_anime (`seed_lineart_anime_`) and NormalBae
-             (`normalbae_checkpoint`, its statistics from that window) that
-             the disk phase writes, each timed by CUDA events on one
-             16-frame window at the shipped 512x768 (its second call), with
-             its peak memory above what was allocated before it and the
-             maps' mean and std, each channel's too (a constant map fails,
-             but the seeded OpenPose's, which finds no one, and so does a
-             map that differs on a second call); then OpenPose's decode,
+             lineart_anime (`seed_lineart_anime_`), NormalBae
+             (`normalbae_checkpoint`, its statistics from that window) and
+             the full-depth DPT and DPT-hybrid depth networks
+             (`dpt_checkpoint`, `dpt_hybrid_checkpoint`, their heads set
+             on that window) that the disk phase writes (all but the
+             plain DPT), each timed by CUDA events on one 16-frame window
+             at the shipped 512x768 (its second call), with its peak memory
+             above what was allocated before it and the maps' mean and
+             std, each channel's too (a constant map fails, but the seeded
+             OpenPose's, which finds no one, and so does a depth map whose
+             std is 0.05 or less, a map that differs on a second call, and
+             K1's launches in the depth networks' second calls other than
+             their 24 and 12 ViT layers at (16, 577, 577, 16 or 12, 64));
+             then OpenPose's decode,
              hand and face crops and drawing timed again on crafted maps of
              two people in each frame (`pose_maps`), with the people, hands
              and faces drawn and the decode's host seconds.
@@ -187,9 +198,9 @@ Phases, each printed as one JSON line with its seconds:
              writes a synthetic HF-layout snapshot of the window phase's
              bf16 models under build/chip_smoke_snapshot/ (unet/, vae/,
              text_encoder/ as config.json + safetensors written by
-             `save_safetensors`, tokenizer/ with the tiny vocabulary, and
-             AnimateDiff v2 and v1 motion checkpoints with their PE tables
-             by torch.save), the upscaler and face models (below), and the
+             `weights/ingest.py` `save_safetensors`, tokenizer/ with the
+             tiny vocabulary, and AnimateDiff v2 and v1 motion checkpoints
+             with their PE tables by torch.save), the upscaler and face models (below), and the
              frames of each run as PNG directories; runs
              `python -m controlanimate_tpu_torch --config` in-process on
              it, frames from the PNG directory and PNGs out (no ffmpeg).
@@ -205,7 +216,9 @@ Phases, each printed as one JSON line with its seconds:
              released nesting: `state_dict`, `module.` keys, unfolded PDC
              kernels), netG.pth and normalbae/scannet.pt (the released
              nesting: `model`, `module.` keys, BatchNorms unfolded), and
-             the next runs start from the
+             the DPT-hybrid as models/annotators/depth/ (config.json and
+             model.safetensors, transformers keys), and the next runs
+             start from the
              snapshot root, which finds them there. First the
              controlnet phase's native-LCM profile at 512x512 on
              inference-v2.yaml with K2 off, one window (`--max-windows 1`,
@@ -213,14 +226,17 @@ Phases, each printed as one JSON line with its seconds:
              phase's first 8 and its K1 launches by shape those that one
              window with both ControlNets implies. Then the same profile
              naming `lllyasviel/control_v11p_sd15_softedge`,
-             `lllyasviel/control_v11p_sd15s2_lineart_anime` and
-             `lllyasviel/control_v11p_sd15_normalbae` (their folders link
-             to the canny, HED and MLSD nets': the name selects the
-             annotator, PidiNet, lineart_anime and NormalBae read from the
-             files), one window: its frames must equal the injected
-             pipeline's with the same nets and the controlnet phase's
-             seeded annotators, and its K1 launches by shape those that
-             one window with three ControlNets implies. Then the LCM-LoRA
+             `lllyasviel/control_v11p_sd15s2_lineart_anime`,
+             `lllyasviel/control_v11p_sd15_normalbae` and
+             `lllyasviel/control_v11f1p_sd15_depth` (their folders link
+             to the canny, HED, MLSD and lineart nets': the name selects
+             the annotator, PidiNet, lineart_anime, NormalBae and
+             DPT-hybrid read from the files), one window: its frames must
+             equal the injected pipeline's with the same nets and the
+             controlnet phase's seeded annotators, and its K1 launches by
+             shape those that one window with four ControlNets implies
+             plus the hybrid's 12 ViT layers at (16, 577, 577, 12, 64).
+             Then the LCM-LoRA
              profile's files (SampleConfigLCMLoRA.yaml: openpose at 1.0,
              lineart at 0.35, MLSD at 1.0 and HED at 0.4; 512x768,
              `upscale` 2 and the face enhancer with `upscale_first` 1, on
@@ -329,7 +345,13 @@ Phases, each printed as one JSON line with its seconds:
              for K2: yardsticks the port never calls) and the bound, and
              their sums over a window at both geometries, and K1's over the
              vid2vid, controlnet and cfg phases' and the IP-Adapter and
-             segment runs' launches, and the image encoder's alone.
+             segment runs' launches, and the image encoder's alone. Then
+             K1 at the depth networks' shapes (16, 577, 577, 16 and 12, 64)
+             in fp32 (their dtype) and bf16 against its plain version, each
+             dtype's time, SDPA's and the bound (fp32 operations at the
+             CUDA cores' 67 TFLOP/s), the fp32 plain version's time (a
+             `k1_depth` line a shape), and their sums over the depth
+             networks' timed launches (`depth_path`).
   kernels_k3 K3 against its plain version at every shape the
              window_motion_kernel phase and the disk phase's segment run
              (v1, B = 4; its plain version checked, not timed) launched it
@@ -389,6 +411,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 # the spatial self-attention of one SD1.5 UNet forward (K1), by level: (token
@@ -401,13 +424,17 @@ CONTROLNET_LEVELS = ((1, 40, 2), (4, 80, 2), (16, 160, 2), (64, 160, 1))
 # the controlnet phase's nets (their names pick canny and HED) and scales
 CN_NAMES = ("lllyasviel/sd-controlnet-canny", "lllyasviel/sd-controlnet-hed")
 CN_SCALES = (1.0, 0.5)
-# the ControlNet v1.1 softedge, anime-lineart and normalbae nets' names and
-# scales (the disk phase's CLI run gives them the canny, HED and MLSD nets'
-# weights)
+# the ControlNet v1.1 softedge, anime-lineart, normalbae and depth nets'
+# names and scales (the disk phase's CLI run gives them the canny, HED, MLSD
+# and lineart nets' weights)
 M13C_CN_NAMES = ("lllyasviel/control_v11p_sd15_softedge",
                  "lllyasviel/control_v11p_sd15s2_lineart_anime",
-                 "lllyasviel/control_v11p_sd15_normalbae")
-M13C_CN_SCALES = (1.0, 0.5, 0.8)
+                 "lllyasviel/control_v11p_sd15_normalbae",
+                 "lllyasviel/control_v11f1p_sd15_depth")
+M13C_CN_SCALES = (1.0, 0.5, 0.8, 0.7)
+# K1's launches of the depth annotator's DPT-hybrid on one 16-frame window:
+# its 12 ViT layers at 577 tokens (a 24 x 24 grid and the class token), fp32
+HYBRID_K1 = {(16, 577, 577, 12, 64): 12}
 # the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's ControlNets and
 # scales
 LORA_CN_NAMES = ("lllyasviel/control_v11p_sd15_openpose", "lllyasviel/control_v11p_sd15_lineart",
@@ -423,7 +450,7 @@ def unet_k1_shapes(frames_n: int, latent: tuple[int, int]) -> dict:
 
 
 ODD_SHAPES = [(2, 77, 77, 8, 40), (3, 333, 333, 2, 80), (1, 129, 129, 8, 160),
-              (2, 77, 77, 1, 512)]
+              (2, 77, 77, 1, 512), (1, 77, 300, 2, 64), (3, 129, 129, 1, 64)]
 # odd K2 shapes (B, H, W, Cin, Cout): H and W not multiples of the 16 x 16
 # tile, H = 7, H = 1 with W = 16, and Cin = 80, whose last 32-channel chunk
 # is a short one of 16
@@ -540,12 +567,14 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 def attention_bound_ms(shape, itemsize: int) -> tuple[float, float]:
     """(operations, bytes) times of softmax(QK^T)V on the card, in ms: FLOPs
-    at the bf16 tensor rate, and each input read and the output written once
-    at the memory rate. The bound is the larger."""
+    at the bf16 tensor rate (fp32, itemsize 4: the CUDA cores' rate), and
+    each input read and the output written once at the memory rate. The
+    bound is the larger."""
     B, Nq, Nk, H, D = shape
     flops = 4.0 * B * H * Nq * Nk * D
     nbytes = 2.0 * B * (Nq + Nk) * H * D * itemsize
-    return 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+    return 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES
 
 
 def k1_mismatch(torch, out, ref) -> str | None:
@@ -1346,30 +1375,6 @@ def build_models(torch, unet_cfg, vae_channels, clip_cfg, device, seed, vae_grou
     return EngineModels(unet=unet, vae=vae), TextStack(CLIPTokenizer.tiny(), clip)
 
 
-def save_safetensors(torch, path: Path, sd: dict) -> int:
-    """Write `sd` in the safetensors format (an 8-byte little-endian header
-    length, the JSON header, then each tensor's bytes); returns the bytes
-    written. The port reads the format without the `safetensors` package,
-    and so does this writer."""
-    names = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16",
-             torch.bfloat16: "BF16", torch.int64: "I64", torch.int32: "I32", torch.int16: "I16",
-             torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
-    header, offset = {}, 0
-    for key, t in sd.items():
-        n = t.numel() * t.element_size()
-        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
-                       "data_offsets": [offset, offset + n]}
-        offset += n
-    blob = json.dumps(header).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(len(blob).to_bytes(8, "little"))
-        f.write(blob)
-        for t in sd.values():
-            f.write(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy())
-    return 8 + len(blob) + offset
-
-
 def write_parallel(jobs: dict) -> dict:
     """Run each job (a name -> callable returning the bytes it wrote) on a
     thread of its own (copies to the host and file writes release the
@@ -1392,6 +1397,7 @@ def write_snapshot(torch, root: Path, models, text, unet_json: dict, vae_json: d
     import shutil
 
     from controlanimate_tpu_torch.models.motion_module import temporal_positional_encoding
+    from controlanimate_tpu_torch.weights.ingest import save_safetensors
 
     shutil.rmtree(root, ignore_errors=True)
     usd = models.unet.state_dict()
@@ -1410,7 +1416,7 @@ def write_snapshot(torch, root: Path, models, text, unet_json: dict, vae_json: d
         (root / name).mkdir(parents=True)
         (root / name / "config.json").write_text(json.dumps(cfg))
         jobs[f"{name}/{fname}"] = lambda path=root / name / fname, sd=sd: save_safetensors(
-            torch, path, sd)
+            path, sd)
     tok = text.tokenizer
     (root / "tokenizer").mkdir()
     (root / "tokenizer" / "vocab.json").write_text(json.dumps(tok.vocab))
@@ -1450,6 +1456,8 @@ def write_controlnets(torch, root: Path, nets: dict, annotator_files: dict) -> d
     looks for them from the
     working directory `root`; the files written on threads. Returns the
     bytes of each file."""
+    from controlanimate_tpu_torch.weights.ingest import save_safetensors
+
     jobs = {}
     for name, net in nets.items():
         c = net.config
@@ -1465,7 +1473,7 @@ def write_controlnets(torch, root: Path, nets: dict, annotator_files: dict) -> d
             + [b.out_channels for b in net.controlnet_cond_embedding.blocks[1::2]]}))
         path = folder / "diffusion_pytorch_model.safetensors"
         jobs[str(path.relative_to(root))] = lambda path=path, net=net: save_safetensors(
-            torch, path, net.state_dict())
+            path, net.state_dict())
     for fname, sd in annotator_files.items():
         path = root / "models" / "annotators" / fname
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -1846,13 +1854,58 @@ def small_normalbae_reference(torch) -> dict:
             "params": sum(p.numel() for p in cpu.model.parameters())}
 
 
+# the reference phase's depth networks: Intel widths, their ViTs cut (the
+# plain net's four taps need four layers), position tables for 128x128
+DEPTH_REF_SIZE = 128
+DEPTH_REF_LAYERS = {"plain": (4, (0, 1, 2, 3)), "hybrid": (2, (2, 5, 0, 1))}
+
+
+def small_depth_reference(torch) -> dict:
+    """The full-width plain DPT (4 of its 24 ViT layers) and DPT-hybrid (2
+    of 12), seeded on the card (`seeded.dpt_checkpoint`,
+    `dpt_hybrid_checkpoint`: position tables for a 128x128 input, heads
+    calibrated on the frame), each on one 128x128 frame in fp32 on the card
+    against the CPU: the largest difference over the largest value (must
+    be within 1e-4), and each map's std."""
+    import dataclasses
+
+    import numpy as np
+
+    from controlanimate_tpu_torch.models.annotators import depth, seeded
+    from controlanimate_tpu_torch.models.annotators.dpt import DPT_LARGE
+    from controlanimate_tpu_torch.models.annotators.dpt_hybrid import DPT_HYBRID_MIDAS
+    from controlanimate_tpu_torch.ops.warp import fp32_convs
+
+    size = DEPTH_REF_SIZE
+    frames = torch.from_numpy(edge_rich(np, synthetic_video(np, 1, size, size, SEED)))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    out = {}
+    for kind, make, full in (("plain", seeded.dpt_checkpoint, DPT_LARGE),
+                             ("hybrid", seeded.dpt_hybrid_checkpoint, DPT_HYBRID_MIDAS)):
+        layers, taps = DEPTH_REF_LAYERS[kind]
+        cfg = dataclasses.replace(full, num_layers=layers, taps=taps)
+        config, sd = make(gen, frames, cfg, size)
+        maps = {}
+        for device in ("cpu", "cuda"):
+            net = depth.depth_network(config, sd, device, size)
+            with torch.no_grad(), fp32_convs():
+                maps[device] = net(depth.network_input(frames.to(device), size)).cpu()
+        largest = float(maps["cpu"].abs().max())
+        out[kind] = {"err_over_largest": float((maps["cuda"] - maps["cpu"]).abs().max()) / largest,
+                     "largest": largest, "std": float(maps["cpu"].std()),
+                     "params": sum(v.numel() for v in sd.values())}
+    return out
+
+
 def small_annotator_reference(torch) -> dict:
     """Lineart, MLSD, softedge and lineart_anime on the card against the
     CPU, fp32, on the same uint8 frames with seeded weights
-    (`annotators/seeded.py`): lineart on 2 frames at 64x80 and at 48x96,
-    within 1 LSB after the facade's uint8 quantisation; PidiNet (its
-    classifier set on the 64x80 frames) on 2 frames at 64x80 and at 48x96,
-    the full-width lineart_anime on a frame at 200x120
+    (`annotators/seeded.py`): lineart on 2 frames at 64x80, within 1 LSB
+    after the facade's uint8 quantisation; PidiNet (its classifier set on
+    those frames) on 2 frames at 64x80 (both at 48x96 too in
+    tests/test_torch_gpu.py), the full-width lineart_anime on a frame at
+    200x120
     (both cubic resizes; the network runs at 256x256), each within 1 LSB
     likewise;
     MLSD (`mlsd_checkpoint`, made and its head set on the card) on 2 frames
@@ -1884,13 +1937,12 @@ def small_annotator_reference(torch) -> dict:
 
     net = seed_lineart_(LineartGenerator(), torch.Generator().manual_seed(SEED))
     lsb, _, stats = card_vs_cpu(LineartAnnotator(net), LineartAnnotator(copy.deepcopy(net).cuda()),
-                                ((64, 80), (48, 96)), 2)
+                                ((64, 80),), 2)
     std = [sd for _, sd in stats]
     pidi_ckpt = pidinet_checkpoint(torch.Generator().manual_seed(SEED), torch.from_numpy(
         edge_rich(np, synthetic_video(np, 2, 64, 80, SEED))))
     pidi = card_vs_cpu(PidiNetAnnotator(pidinet_model(pidi_ckpt, "cpu")),
-                       PidiNetAnnotator(pidinet_model(pidi_ckpt, "cuda")),
-                       ((64, 80), (48, 96)), 2)
+                       PidiNetAnnotator(pidinet_model(pidi_ckpt, "cuda")), ((64, 80),), 2)
     # the full-width lineart_anime seeded on the card (54 M parameters), a
     # copy on the CPU; at 200x120 the network runs at 256x256 between the
     # two cubic resizes
@@ -2274,6 +2326,7 @@ def main() -> int:
     from controlanimate_tpu_torch.ops import upconv_kernel as uk
     from controlanimate_tpu_torch.pipelines.engine import EngineModels
     from controlanimate_tpu_torch.pipelines.facade import MOTION_ENV, ControlAnimatePipeline
+    from controlanimate_tpu_torch.weights.ingest import save_safetensors
 
     # the phases without K3 build their pipelines with the motion switch off
     os.environ[MOTION_ENV] = "0"
@@ -2328,6 +2381,7 @@ def main() -> int:
     ref_hed = step("hed", lambda: small_hed_reference(torch))
     ref_annotators = step("annotators", lambda: small_annotator_reference(torch))
     ref_normalbae = step("normalbae", lambda: small_normalbae_reference(torch))
+    ref_depth = step("depth", lambda: small_depth_reference(torch))
     ref_openpose = step("openpose", lambda: small_openpose_reference(torch))
     ref_cn = step("controlnet", lambda: small_controlnet_reference(torch))
     # a multi-step sampler: DPM-Solver under CFG 7.5 with a canny ControlNet
@@ -2351,7 +2405,8 @@ def main() -> int:
           upscale4_max_lsb=ref_up4["max_lsb"], upscale4_mean_lsb=ref_up4["mean_lsb"],
           upscale2_max_lsb=ref_up2["max_lsb"], upscale2_mean_lsb=ref_up2["mean_lsb"],
           k4_launches=k4_ref_launches, face=ref_face, canny=ref_canny, hed=ref_hed,
-          annotators=ref_annotators, normalbae=ref_normalbae, openpose=ref_openpose,
+          annotators=ref_annotators, normalbae=ref_normalbae, depth=ref_depth,
+          openpose=ref_openpose,
           controlnet=ref_cn,
           dpm_cfg_controlnet_k3=ref_cfg_k3, segments=ref_seg, cfg_k1_batches=cfg_k1_batches,
           cfg_k3_batches=k3_cfg_batches, step_seconds=step_seconds)
@@ -2391,6 +2446,9 @@ def main() -> int:
             or min(sd for _, sd in ref_normalbae["mean_std"]) <= 0.02):
         raise AssertionError(f"NormalBae on the card differs from the CPU, or its map is "
                              f"saturated: {ref_normalbae}")
+    if any(r["err_over_largest"] > 1e-4 or r["std"] <= 0 for r in ref_depth.values()):
+        raise AssertionError(f"a depth network on the card differs from the CPU by more than "
+                             f"1e-4 of its largest value, or its map is constant: {ref_depth}")
     rp = ref_openpose
     if (max(rp["net_err_over_rms"].values()) > 1e-3 or not rp["body_equal"]
             or rp["people"] != 2 or min(rp["hands_faces_drawn"]) < 1 or rp["canvas_diff"]
@@ -2723,11 +2781,15 @@ def main() -> int:
 
     cn_ms = [cuda_ms(torch, lambda: net_window(net, c, sc), 2)
              for net, c, sc in zip(cn_nets, cond, CN_SCALES)]
-    cn_device_ms = [device_busy_ms(torch, lambda: net_window(net, c, sc), 2)
-                    for net, c, sc in zip(cn_nets, cond, CN_SCALES)]
+    # on the card alone for the first net only (the two share an architecture)
+    cn_device_ms = [device_busy_ms(torch, lambda: net_window(cn_nets[0], cond[0], CN_SCALES[0]),
+                                   2)]
     # the disk phase's LCM-LoRA annotators (openpose, lineart, MLSD; seeded
     # on the card, MLSD's head set on this window) beside canny and HED, each
     # on one 16-frame window at the shipped 512x768, by CUDA events
+    from controlanimate_tpu_torch.models.annotators.depth import DepthAnnotator, depth_network
+    from controlanimate_tpu_torch.models.annotators.dpt import DPT_LARGE
+    from controlanimate_tpu_torch.models.annotators.dpt_hybrid import DPT_HYBRID_MIDAS
     from controlanimate_tpu_torch.models.annotators.edge_nets import (LineartAnnotator,
                                                                      LineartGenerator)
     from controlanimate_tpu_torch.models.annotators.lineart_anime import (LineartAnimeAnnotator,
@@ -2737,9 +2799,9 @@ def main() -> int:
     from controlanimate_tpu_torch.models.annotators.openpose import body_input_size
     from controlanimate_tpu_torch.models.annotators.pidinet import PidiNetAnnotator
     from controlanimate_tpu_torch.models.annotators.seeded import (
-        mlsd_checkpoint, mlsd_model, normalbae_checkpoint, normalbae_model,
-        openpose_checkpoints, pidinet_checkpoint, pidinet_model, pose_maps, seed_lineart_,
-        seed_lineart_anime_)
+        dpt_checkpoint, dpt_hybrid_checkpoint, mlsd_checkpoint, mlsd_model, normalbae_checkpoint,
+        normalbae_model, openpose_checkpoints, pidinet_checkpoint, pidinet_model, pose_maps,
+        seed_lineart_, seed_lineart_anime_, write_depth_folder)
 
     video_768 = synthetic_video(np, 2 * frames_n - overlap, 768, size, SEED)
     frames_768 = torch.from_numpy(video_768[:frames_n]).cuda()
@@ -2764,13 +2826,24 @@ def main() -> int:
     nb_ckpt = normalbae_checkpoint(agen, window_frames)
     nb_ckpt = {"model": {k: v.cpu() for k, v in nb_ckpt["model"].items()}}
     normalbae = NormalBaeAnnotator(normalbae_model(nb_ckpt, "cuda"))
+    # and the two full-depth depth networks (Intel/dpt-large and
+    # dpt-hybrid-midas geometry), their heads calibrated on this window; the
+    # disk phase writes the hybrid as models/annotators/depth/
+    dpt_config, dpt_sd = dpt_checkpoint(agen, window_frames)
+    depth_dpt = DepthAnnotator(depth_network(dpt_config, dpt_sd, "cuda"))
+    del dpt_sd
+    hybrid_config, hybrid_sd = dpt_hybrid_checkpoint(agen, window_frames)
+    hybrid_sd = {k: v.cpu() for k, v in hybrid_sd.items()}
+    depth_hybrid = DepthAnnotator(depth_network(hybrid_config, hybrid_sd, "cuda"))
     annotators_768 = {"canny": canny, "hed": hed, "lineart": lineart, "mlsd": mlsd_ann,
                       "openpose": openpose_ann, "softedge": softedge,
-                      "lineart_anime": lineart_anime, "normalbae": normalbae}
+                      "lineart_anime": lineart_anime, "normalbae": normalbae,
+                      "depth_dpt": depth_dpt, "depth_hybrid": depth_hybrid}
     # the first call warms each annotator up; the second, timed, must agree;
     # its peak memory above what was allocated before it
     maps_768 = {name: a(frames_768) for name, a in annotators_768.items()}
     repeatable, annotator_ms, annotator_peak = {}, {}, {}
+    fa.reset_launch_counts()
     for name, a in annotators_768.items():
         again = []
         resident = torch.cuda.memory_allocated()
@@ -2780,6 +2853,10 @@ def main() -> int:
         annotator_peak[name] = torch.cuda.max_memory_allocated() - resident
         repeatable[name] = torch.equal(again[0], maps_768[name])
         del again
+    # K1's launches in those second calls: the depth networks' ViTs (fp32)
+    depth_k1 = dict(fa.flash_attention.launches_by_shape)
+    depth_k1_expected = {(frames_n, 577, 577, 16, 64): DPT_LARGE.num_layers,
+                         (frames_n, 577, 577, 12, 64): DPT_HYBRID_MIDAS.num_layers}
     seeded_stats = dict(openpose_ann.stats)
     # a seeded body network finds no one: openpose's decode, crops and
     # drawing timed again on crafted maps of two people in every frame
@@ -2804,6 +2881,9 @@ def main() -> int:
         "softedge_params": sum(p.numel() for p in softedge.model.parameters()),
         "lineart_anime_params": sum(p.numel() for p in anime_net.parameters()),
         "normalbae_params": sum(p.numel() for p in normalbae.model.parameters()),
+        "depth_params": {"dpt": sum(p.numel() for p in depth_dpt.model.parameters()),
+                         "hybrid": sum(p.numel() for p in depth_hybrid.model.parameters())},
+        "depth_k1_launches": {str(k): n for k, n in sorted(depth_k1.items())},
         "map_channel_std": {k: [float(v) for v in m.reshape(-1, 3).std(0)]
                             for k, m in maps_768.items()},
         "mlsd_params": sum(p.numel() for p in mlsd_ann.model.parameters()),
@@ -2816,16 +2896,23 @@ def main() -> int:
                                 **pose_stats},
         "map_mean": {k: float(m.mean()) for k, m in maps_768.items()},
         "map_std": {k: float(m.std()) for k, m in maps_768.items()}}}), flush=True)
-    # the seeded openpose map is black; the others must not be constant
+    # the seeded openpose map is black; the others must not be constant, and
+    # the depth maps' std must pass 0.05
     if (not all(float(m.std()) > 0 for k, m in maps_768.items() if k != "openpose")
+            or not all(float(maps_768[k].std()) > 0.05 for k in ("depth_dpt", "depth_hybrid"))
             or not all(repeatable.values()) or not pose_repeatable):
-        raise AssertionError(f"an annotator's 512x768 maps are constant, or differ from one "
-                             f"call to the next: {repeatable}, {pose_repeatable}")
+        raise AssertionError(f"an annotator's 512x768 maps are constant, a depth map's std is "
+                             f"0.05 or less, or a map differs from one call to the next: "
+                             f"{repeatable}, {pose_repeatable}")
+    if depth_k1 != depth_k1_expected:
+        raise AssertionError(f"the depth networks launched K1 {depth_k1}, expected "
+                             f"{depth_k1_expected}")
     if (pose_stats["people"] != 2 * frames_n or pose_stats["hands"] < frames_n
             or pose_stats["faces"] < frames_n):
         raise AssertionError(f"openpose drew {pose_stats} on the crafted maps of two people "
                              f"in {frames_n} frames")
     del window_frames, cond, lat, frames_768, maps_768, heat8, paf8, pose_map
+    del annotators_768, depth_dpt  # the plain DPT's 1.37 GB (the disk phase keeps the hybrid)
     phase("controlnet", t0, build_seconds=round(t_cn_build, 4), nets=list(CN_NAMES),
           cond_scale=list(CN_SCALES),
           controlnet_params=sum(p.numel() for p in cn_nets[0].parameters()),
@@ -2950,6 +3037,11 @@ def main() -> int:
     bf16_k1 = [name for name in k1_hmma if "attn_bf16" in name]
     if not bf16_k1 or not all(k1_hmma[name] for name in bf16_k1):
         raise AssertionError(f"bf16 K1 kernels without tensor-core instructions: {k1_hmma}")
+    k1_spills = [r for r in ptxas if "attn_bf16" in r["function"]
+                 and (r.get("spill_stores") or r.get("spill_loads"))]
+    if k1_spills or len(bf16_k1) != len(fa.SUPPORTED_HEAD_DIMS):
+        raise AssertionError(f"bf16 K1 kernels spill registers, or not one a head dim: "
+                             f"{k1_spills}, {bf16_k1}")
     k2_ptxas = [r for r in ptxas if "conv3x3" in r["function"]]
     k2_sass = {op: {name: n for name, n in sass[op].items() if "conv3x3" in name}
                for op in ("HMMA", "LDGSTS")}
@@ -3127,17 +3219,25 @@ def main() -> int:
         net.to(torch.bfloat16)  # the run dtype, as the controlnet phase left its nets
         for net in seeded_controlnets(torch, models.unet.config, 3, "cuda", lgen)]
         + [cn_nets[1]]))
-    snapshot_bytes.update(write_controlnets(
-        torch, SNAPSHOT, {**dict(zip(CN_NAMES, cn_nets)), **lora_nets},
-        {"ControlNetHED.pth": hed_net.state_dict(), "sk_model.pth": lineart_net.state_dict(),
-         "mlsd_large_512_fp32.pth": mlsd_sd, **pose_sds,
-         "table5_pidinet.pth": {"state_dict": {k: v.cpu()
-                                               for k, v in pidi_ckpt["state_dict"].items()}},
-         "netG.pth": anime_net.state_dict(), "normalbae/scannet.pt": nb_ckpt}))
-    # the softedge, lineart_anime and normalbae ControlNets are the canny,
-    # HED and MLSD nets' folders: the name selects the annotator
-    m13c_nets = (*cn_nets, lora_nets[LORA_CN_NAMES[2]])
-    for name, net_name in zip(M13C_CN_NAMES, (*CN_NAMES, LORA_CN_NAMES[2])):
+    # the controlnet phase's DPT-hybrid as a transformers folder, on a thread
+    # beside the other files
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        depth_job = pool.submit(write_depth_folder, SNAPSHOT / "models" / "annotators" / "depth",
+                                hybrid_config, hybrid_sd)
+        snapshot_bytes.update(write_controlnets(
+            torch, SNAPSHOT, {**dict(zip(CN_NAMES, cn_nets)), **lora_nets},
+            {"ControlNetHED.pth": hed_net.state_dict(), "sk_model.pth": lineart_net.state_dict(),
+             "mlsd_large_512_fp32.pth": mlsd_sd, **pose_sds,
+             "table5_pidinet.pth": {"state_dict": {k: v.cpu()
+                                                   for k, v in pidi_ckpt["state_dict"].items()}},
+             "netG.pth": anime_net.state_dict(), "normalbae/scannet.pt": nb_ckpt}))
+        snapshot_bytes["models/annotators/depth/model.safetensors"] = depth_job.result()
+    # the softedge, lineart_anime, normalbae and depth ControlNets are the
+    # canny, HED, MLSD and lineart nets' folders: the name selects the
+    # annotator
+    m13c_sources = (*CN_NAMES, LORA_CN_NAMES[2], LORA_CN_NAMES[1])
+    m13c_nets = (*cn_nets, lora_nets[LORA_CN_NAMES[2]], lora_nets[LORA_CN_NAMES[1]])
+    for name, net_name in zip(M13C_CN_NAMES, m13c_sources):
         (SNAPSHOT / "models" / "ControlNet" / name.split("/")[-1]).symlink_to(
             net_name.split("/")[-1], target_is_directory=True)
     cn_write_seconds = time.perf_counter() - t1
@@ -3183,51 +3283,54 @@ def main() -> int:
     fields_cn.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
     del disk_cn_frames, diff, cn_frames
 
-    # the same profile naming the softedge, lineart_anime and normalbae
-    # ControlNets (the canny, HED and MLSD nets' folders), its annotators
-    # read from table5_pidinet.pth, netG.pth and normalbae/scannet.pt, one
-    # window, against the injected pipeline with the same nets and the
-    # controlnet phase's annotators
+    # the same profile naming the softedge, lineart_anime, normalbae and
+    # depth ControlNets (the canny, HED, MLSD and lineart nets' folders), its
+    # annotators read from table5_pidinet.pth, netG.pth,
+    # normalbae/scannet.pt and the depth/ folder (DPT-hybrid), one window,
+    # against the injected pipeline with the same nets and the controlnet
+    # phase's annotators
     se_settings = {"controlnets": M13C_CN_NAMES, "cond_scale": M13C_CN_SCALES}
     with chdir(SNAPSHOT):
         summary, disk_se_frames, seconds, counts, peak = run_cli(
-            "disk_softedge_anime_normalbae", ["--max-windows", "1"],
+            "disk_m13c", ["--max-windows", "1"],
             input_video_path=str(SNAPSHOT / "frames_512x512"), width=size, height=size,
             inference_config_path=str(INFERENCE_V2), motion_module=str(SNAPSHOT / "mm_v2.ckpt"),
             use_pallas_conv=0, **se_settings)
     if summary["windows"] != 1 or len(disk_se_frames) != n_cli:
-        raise AssertionError(f"the softedge/lineart_anime/normalbae CLI run wrote "
+        raise AssertionError(f"the softedge/lineart_anime/normalbae/depth CLI run wrote "
                              f"{len(disk_se_frames)} frames in {summary['windows']} windows, "
                              f"not {n_cli} in 1")
     se_k1_expected = expected_k1_launches(1, 0, steps, frames_n, overlap,
                                           controlnets=len(M13C_CN_NAMES))
+    se_k1_expected.update(HYBRID_K1)  # the depth annotator's ViT, fp32
     if counts["k1_by_shape"] != se_k1_expected or counts["k2_by_shape"] or counts["k3"]:
-        raise AssertionError(f"softedge/lineart_anime/normalbae CLI K1 launches "
+        raise AssertionError(f"softedge/lineart_anime/normalbae/depth CLI K1 launches "
                              f"{counts['k1_by_shape']}, expected {se_k1_expected}, or K2 or K3 "
                              f"launched")
     se_models = EngineModels(unet=models.unet, vae=models.vae, controlnets=list(m13c_nets),
-                             annotators=[softedge, lineart_anime, normalbae])
-    _, se_injected, _, _, _, _ = run_vid2vid(False, "softedge_anime_normalbae",
-                                             engine_models=se_models, max_windows=1,
-                                             **se_settings)
+                             annotators=[softedge, lineart_anime, normalbae, depth_hybrid])
+    _, se_injected, _, _, _, _ = run_vid2vid(False, "m13c", engine_models=se_models,
+                                             max_windows=1, **se_settings)
     diff = np.abs(np.stack(disk_se_frames).astype(np.int16)
                   - np.stack(se_injected).astype(np.int16))
     fields_se = {"controlnets": list(M13C_CN_NAMES), "frames_written": summary["frames_written"],
                  "uint8_diff_vs_injected_max": int(diff.max()),
                  "uint8_diff_vs_injected_mean": float(diff.mean()),
-                 "k1_launches": sum(counts["k1_by_shape"].values())}
+                 "k1_launches": sum(counts["k1_by_shape"].values()),
+                 "depth_k1_launches": {str(k): counts["k1_by_shape"].get(k, 0)
+                                       for k in HYBRID_K1}}
     if diff.max():
-        _, again, _, _, _, _ = run_vid2vid(False, "softedge_anime_normalbae_again",
-                                           engine_models=se_models, max_windows=1,
-                                           **se_settings)
+        _, again, _, _, _, _ = run_vid2vid(False, "m13c_again", engine_models=se_models,
+                                           max_windows=1, **se_settings)
         rerun = np.abs(np.stack(again).astype(np.int16)
                        - np.stack(se_injected).astype(np.int16))
         fields_se["injected_rerun_diff_max"] = int(rerun.max())
         if diff.max() > rerun.max():
-            raise AssertionError(f"the softedge/lineart_anime/normalbae CLI run's frames differ "
-                                 f"from the injected pipeline's by {int(diff.max())}, two "
+            raise AssertionError(f"the softedge/lineart_anime/normalbae/depth CLI run's frames "
+                                 f"differ from the injected pipeline's by {int(diff.max())}, two "
                                  f"injected runs by {int(rerun.max())}")
     fields_se.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
+    depth_cli_k1 = {k: counts["k1_by_shape"][k] for k in HYBRID_K1}
     del disk_se_frames, se_injected, diff
 
     # the LCM-LoRA profile's files (SampleConfigLCMLoRA.yaml: a LoRA from
@@ -3257,7 +3360,7 @@ def main() -> int:
     te_state = {k: v.cpu() for k, v in text.model.state_dict().items()}
     lora_sd = kohya_lora(torch, unet_2d, te_state, torch.Generator().manual_seed(SEED + 4))
     lora_path = SNAPSHOT / "lcm_lora.safetensors"
-    snapshot_bytes[lora_path.name] = save_safetensors(torch, lora_path, lora_sd)
+    snapshot_bytes[lora_path.name] = save_safetensors(lora_path, lora_sd)
     lora_write_seconds = time.perf_counter() - t1
     lora_cn_settings = {"controlnets": LORA_CN_NAMES, "cond_scale": LORA_CN_SCALES}
     lora_face = {"use_face_enhancer": True, "upscale_first": True}
@@ -3342,7 +3445,7 @@ def main() -> int:
         "hidden_act": "gelu"}))
     ip_ckpt = SNAPSHOT / IP_ADAPTER_PROFILE["ipadapter_ckpt_path"]
     snapshot_bytes.update(write_parallel({
-        "image_encoder": lambda: save_safetensors(torch, encoder_dir / "model.safetensors",
+        "image_encoder": lambda: save_safetensors(encoder_dir / "model.safetensors",
                                                   vision.state_dict()),
         ip_ckpt.name: lambda: save_torch(torch, ip_ckpt, {
             "image_proj": {k: v.cpu() for k, v in proj.state_dict().items()},
@@ -3659,7 +3762,7 @@ def main() -> int:
     shutil.rmtree(SNAPSHOT)
     phase("disk", t0, snapshot_write_seconds=round(write_seconds, 4),
           snapshot_bytes=snapshot_bytes, cli_controlnet=fields_cn,
-          cli_softedge_anime_normalbae=fields_se,
+          cli_m13c_annotators=fields_se,
           lcm_lora_build=fields_lora, cli_ip_adapter=fields_ip, cli_512x768=fields_768,
           cli_segments=fields_seg)
     del plain_frames
@@ -3749,6 +3852,39 @@ def main() -> int:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     by_row = {tuple(r["shape"]): r for r in rows}
+    # K1 at the depth annotators' shapes, checked in fp32 (their path: the
+    # controlnet phase's timed calls of both networks, the disk phase's CLI
+    # run of the hybrid) and in bf16; each dtype's time, SDPA's in that
+    # dtype and the bound, and the fp32 plain version's time
+    depth_rows = []
+    for shape in sorted(depth_k1):
+        t1 = time.perf_counter()
+        row = {"shape": list(shape), "launches_annotators_512x768": depth_k1[shape],
+               "launches_cli": depth_cli_k1.get(shape, 0)}
+        for dtype in (torch.float32, torch.bfloat16):
+            row[f"max_abs_err_{str(dtype)[6:]}"] = check_kernel(torch, fa, shape, dtype, gen)
+        check_seconds += time.perf_counter() - t1
+        B, Nq, Nk, H, D = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype)[6:]
+            q, k, v = (torch.randn((B, n, H, D), generator=gen, device="cuda", dtype=dtype)
+                       for n in (Nq, Nk, Nk))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            row[f"ms_{tag}"] = cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 20)
+            row[f"library_ms_{tag}"] = cuda_ms(torch, lambda: sdpa(qt, kt, vt), 20)
+            ops, nbytes = attention_bound_ms(shape, q.element_size())
+            row[f"bound_ms_{tag}"] = max(ops, nbytes)
+            row[f"bound_by_{tag}"] = "operations" if ops >= nbytes else "bytes"
+            if dtype == torch.float32:
+                row["plain_ms_float32"] = cuda_ms(
+                    torch, lambda: fa.flash_attention_plain(q, k, v), PLAIN_ITERS, warmup=0)
+            del q, k, v, qt, kt, vt
+        depth_rows.append(row)
+        print(json.dumps({"k1_depth": row}), flush=True)
+        torch.cuda.empty_cache()
+    depth_path = {"launches": sum(depth_k1.values()), **{
+        key: sum(r[key] * r["launches_annotators_512x768"] for r in depth_rows)
+        for key in ("ms_float32", "plain_ms_float32", "library_ms_float32", "bound_ms_float32")}}
 
     def window_sums(full, overlapped, lat=(size // 8, size // 8),
                     keys=("ms", "plain_ms", "library_ms", "bound_ms")):
@@ -3776,6 +3912,7 @@ def main() -> int:
                          **{k: by_row[VISION_K1_SHAPE][k] for k in (
                              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                              "max_abs_err_bf16", "tflops", "share_of_bound")}},
+          depth_path=depth_path,
           per_overlap_window=window_sums(0, 1),
           per_full_window_512x768=window_sums(1, 0, latent, UNTIMED_PLAIN),
           per_overlap_window_512x768=window_sums(0, 1, latent, UNTIMED_PLAIN))

@@ -17,7 +17,10 @@
 // (16, 1024, 8, 80) 0.0434, (16, 256, 8, 160) 0.00543, (16, 4096, 1, 512)
 // 0.556 and (8, 4096, 1, 512) 0.278, all by operations; (16, 64, 8, 160) is
 // bound by its bytes (0.0031). So the products must run on the tensor cores
-// and the loads must hide behind them.
+// and the loads must hide behind them. The depth annotators' ViTs (DPT and
+// DPT-hybrid, fp32) run it at D = 64 over 577 tokens (a 24 x 24 grid and
+// the class token), which is no multiple of any tile: the last K/V tile
+// and the last query block are ragged on every launch.
 //
 // bf16 (dtype 1), the main path. What the design does about that bound:
 //   - Both products are mma.sync m16n8k16 bf16 with fp32 sums (D = 40 adds
@@ -34,13 +37,13 @@
 //     roundings differ from the one-pass ones, and at the main path's 4096
 //     keys the output then leaves the bf16 gate that holds this kernel to
 //     the plain version (chip_smoke.py `k1_mismatch`).
-//   - D <= 160 (`attn_bf16_rows_kernel`): each warp owns 32 (D = 40, 80) or
+//   - D <= 160 (`attn_bf16_rows_kernel`): each warp owns 32 (D = 40, 64, 80) or
 //     16 (D = 160) query rows, two m16 tiles or one. Its Q fragments stay in registers for both
 //     passes; its S tile stays in registers, and the row max and sums run
 //     there with quad shuffles (the 4 lanes that hold one row). The m16n8
 //     accumulator layout of S is the A fragment layout of m16n8k16, so P is
 //     rounded to bf16 in registers and fed straight into the PV product: P
-//     never touches shared memory. Two m16 tiles a warp (D = 40, 80) read
+//     never touches shared memory. Two m16 tiles a warp (D = 40, 64, 80) read
 //     each K and V fragment from shared memory once for 32 rows, which
 //     halves the ldmatrix traffic that bounds the small head dims.
 //   - D = 512 (`attn_bf16_wide_kernel`): a warp cannot hold a 16 x 512 fp32
@@ -58,7 +61,7 @@
 //     scores set to -inf before the row max; query rows past Nq are zero and
 //     never stored.
 //   - Shared rows have a pitch of an odd number of 16-byte units (40 bf16 as
-//     they are, 80, 160 and 512 padded by 8), so the 8 rows of every ldmatrix
+//     they are, 64, 80, 160 and 512 padded by 8), so the 8 rows of every ldmatrix
 //     8x8 matrix fall in 8 different bank groups: ldmatrix is conflict-free.
 //   - log2(e) is folded into the scale and the exponentials are exp2f of one
 //     fmaf (S * scale * log2(e) - max). That differs from the plain version's
@@ -307,6 +310,7 @@ cudaError_t dispatch_fp32(const void* q, const void* k, const void* v, void* o, 
                           cudaStream_t stream) {
   switch (D) {
     case 40: return launch_fp32<40, 64, 64, 8>(q, k, v, o, B, H, Nq, Nk, st, scale, stream);
+    case 64: return launch_fp32<64, 64, 64, 16>(q, k, v, o, B, H, Nq, Nk, st, scale, stream);
     case 80: return launch_fp32<80, 64, 64, 16>(q, k, v, o, B, H, Nq, Nk, st, scale, stream);
     case 160: return launch_fp32<160, 64, 32, 32>(q, k, v, o, B, H, Nq, Nk, st, scale, stream);
     case 512: return launch_fp32<512, 16, 16, 32>(q, k, v, o, B, H, Nq, Nk, st, scale, stream);
@@ -396,7 +400,7 @@ __device__ __forceinline__ void mma_bf16_k8(float* c, const uint32_t* a, uint32_
 // Row pitch in bf16 of a shared tile of `cols` columns: an odd number of
 // 16-byte units, so that the 8 rows of every ldmatrix 8x8 matrix fall in 8
 // different bank groups (conflict-free). 40 columns (5 units) need no pad,
-// 80, 160 and 512 get 8 more.
+// 64, 80, 160 and 512 get 8 more.
 __host__ __device__ constexpr int padded_pitch(int cols) {
   return (cols / 8) % 2 == 1 ? cols : cols + 8;
 }
@@ -900,9 +904,13 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // 80: 4 warps of 32 rows (BQ = 128): each K/V fragment read from shared
 // memory serves two m16 tiles, and each K/V tile read from L2 serves 128
 // query rows (168 and 243 registers a thread, 20 and 45 KB of shared
-// memory). D = 160: 8 warps of 16 rows (BQ = 128; 80 output and 40 Q
-// registers a lane, 214 a thread, 86 KB). D = 512: WidePlan.
+// memory). D = 64 (the depth annotators' ViTs, which run in fp32; this
+// plan keeps one set of head dims for both dtypes): D = 80's shape, 64
+// output and 32 Q registers a lane, 36 KB (not tuned). D = 160: 8 warps of
+// 16 rows (BQ = 128; 80 output and 40 Q registers a lane, 214 a thread, 86
+// KB). D = 512: WidePlan.
 using Rows40 = RowsPlan<40, 4, 2, 64>;
+using Rows64 = RowsPlan<64, 4, 2, 64>;
 using Rows80 = RowsPlan<80, 4, 2, 64>;
 using Rows160 = RowsPlan<160, 8, 1, 64>;
 
@@ -919,6 +927,7 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, 
   const float sl = scale * kLog2e;
   switch (D) {
     case 40: return launch_rows<Rows40>(q, k, v, o, B, H, Nq, Nk, st, sl, stream);
+    case 64: return launch_rows<Rows64>(q, k, v, o, B, H, Nq, Nk, st, sl, stream);
     case 80: return launch_rows<Rows80>(q, k, v, o, B, H, Nq, Nk, st, sl, stream);
     case 160: return launch_rows<Rows160>(q, k, v, o, B, H, Nq, Nk, st, sl, stream);
     case 512: return launch_wide(q, k, v, o, B, H, Nq, Nk, st, sl, stream);
@@ -950,6 +959,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
 int flash_attention_bf16_smem_bytes(int D) {
   switch (D) {
     case 40: return (int)Rows40::bytes;
+    case 64: return (int)Rows64::bytes;
     case 80: return (int)Rows80::bytes;
     case 160: return (int)Rows160::bytes;
     case 512: return (int)WidePlan::bytes;

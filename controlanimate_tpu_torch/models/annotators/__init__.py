@@ -8,16 +8,18 @@ Ported: `canny` (`ops/canny.py`, bit for bit as OpenCV), `hed` and
 `lineart` (`edge_nets.py`), `mlsd` (`mlsd.py`), `openpose` with hands and
 face (`openpose.py`), `softedge` (PidiNet, `pidinet.py`) and
 `lineart_anime` (`lineart_anime.py`), the networks read from `WEIGHT_FILES`
-in CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`), and
-`normalbae` (`normalbae.py`), read from the file that
-CONTROLANIMATE_NORMALBAE_MODEL names (default
-`models/annotators/normalbae/scannet.pt`), as in JAX. A missing file
-raises FileNotFoundError (where the JAX package falls back to
-`cv2.HoughLinesP` for MLSD, to HED for softedge, to depth or luminance
-normals for normalbae, and skips OpenPose's hands or faces). The zoo's
-annotator left, `depth`, is M13c-3 and raises NotImplementedError when the
-pipeline is built. A name that matches no annotator raises KeyError, as in
-JAX (there at the first window, here at the build).
+in CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`), `normalbae`
+(`normalbae.py`), read from the file that CONTROLANIMATE_NORMALBAE_MODEL
+names (default `models/annotators/normalbae/scannet.pt`), and `depth` (DPT
+or DPT-hybrid, `depth.py`), read from the transformers folder that
+CONTROLANIMATE_DEPTH_MODEL names (default `models/annotators/depth`), as in
+JAX. A missing file or folder raises FileNotFoundError (where the JAX
+package falls back to `cv2.HoughLinesP` for MLSD, to HED for softedge, to
+depth or luminance normals for normalbae, to a host `transformers` model
+for depth, and skips OpenPose's hands or faces). A GLPN depth folder
+(M13c-4) raises NotImplementedError when the pipeline is built, where the
+folder is read. A name that matches no annotator raises KeyError, as in JAX
+(there at the first window, here at the build).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import Callable
 import torch
 
 from ...ops.canny import canny
+from .depth import DepthAnnotator
+from .depth import model_path as depth_path
 from .edge_nets import HEDAnnotator, LineartAnnotator
 from .lineart_anime import LineartAnimeAnnotator
 from .mlsd import MLSDAnnotator
@@ -52,8 +56,6 @@ ANNOTATOR_ORDER = (
     ("depth", "depth"),
     ("scribble", "hed"),
 )
-PORTED = ("canny", "hed", "lineart", "mlsd", "openpose", "softedge", "lineart_anime",
-          "normalbae")
 # the networks' checkpoints (controlnet_aux's names) and the annotators'
 # constructors from their paths
 WEIGHT_FILES = {"hed": (("ControlNetHED.pth",), HEDAnnotator.from_file),
@@ -68,16 +70,11 @@ Annotator = Callable[[torch.Tensor], torch.Tensor]
 
 
 def annotator_name(controlnet_name: str) -> str:
-    """The ported annotator a ControlNet's name selects; NotImplementedError
-    (M13c) for depth, not yet ported; KeyError for a name that selects
-    none."""
+    """The annotator a ControlNet's name selects (every one of the JAX
+    package's is ported); KeyError for a name that selects none."""
     n = controlnet_name.lower()
     for sub, key in ANNOTATOR_ORDER:
         if sub in n:
-            if key not in PORTED:
-                raise NotImplementedError(
-                    f"ControlNet {controlnet_name!r} needs the {key!r} annotator, which is "
-                    f"not ported yet (M13c); ported: {list(PORTED)}")
             return key
     raise KeyError(f"no annotator for ControlNet {controlnet_name!r}; "
                    f"names: {sorted({k for _, k in ANNOTATOR_ORDER})}")
@@ -91,6 +88,8 @@ def resolve_annotator(controlnet_name: str, device="cuda") -> Annotator:
         return canny
     if name == "normalbae":
         return NormalBaeAnnotator.from_file(normalbae_path(), device=device)
+    if name == "depth":
+        return DepthAnnotator.from_dir(depth_path(), device=device)
     fnames, make = WEIGHT_FILES[name]
     folder = Path(os.environ.get(ANNOTATOR_ENV, "models/annotators"))
     return make(*(folder / f for f in fnames), device=device)

@@ -162,6 +162,24 @@ def up2x(x: torch.Tensor, up: nn.ConvTranspose2d) -> torch.Tensor:
     return F.pixel_shuffle(y, 2)
 
 
+def up_by_stride(x: torch.Tensor, up: nn.ConvTranspose2d) -> torch.Tensor:
+    """`up` (kernel equal to its stride k, no padding: DPT's reassemble
+    resizes) as one 1x1 forward convolution of x to the k * k output
+    phases (channel o * k * k + a * k + b for output pixel (k m + a, k n +
+    b)), interleaved by `pixel_shuffle`: each output pixel takes exactly one
+    tap, so the sum is the transposed conv's. Deterministic as `up2x` is."""
+    k = up.stride[0]
+    if (up.kernel_size != (k, k) or up.stride != (k, k) or up.padding != (0, 0)
+            or up.output_padding != (0, 0)):
+        raise ValueError(f"up_by_stride takes no transposed conv of kernel {up.kernel_size}, "
+                         f"stride {up.stride}, padding {up.padding}, output padding "
+                         f"{up.output_padding}")
+    w = up.weight  # (I, O, k, k) -> (O * k * k, I, 1, 1)
+    y = F.conv2d(x, w.permute(1, 2, 3, 0).reshape(-1, w.shape[0], 1, 1),
+                 up.bias.repeat_interleave(k * k))
+    return F.pixel_shuffle(y, k)
+
+
 # the residual blocks of `sk_model.pth`'s generator
 LINEART_RES_BLOCKS = 3
 

@@ -63,6 +63,7 @@ from torch import nn
 
 from ...ops.warp import fp32_convs
 from ...weights import ingest
+from .same_padding import Conv2dSame
 
 MODEL_ENV = "CONTROLANIMATE_NORMALBAE_MODEL"
 DEFAULT_MODEL = "models/annotators/normalbae/scannet.pt"
@@ -89,18 +90,6 @@ class NNETConfig:
 
 
 B5 = NNETConfig()
-
-
-class Conv2dSame(nn.Conv2d):
-    """A conv padded as TF's "SAME" (gen-efficientnet's Conv2dSame): from
-    the input's size, the odd pixel of padding at the bottom or right."""
-
-    def forward(self, x):
-        pads = []
-        for size, k, s in zip(x.shape[:1:-1], self.kernel_size[::-1], self.stride[::-1]):
-            total = max((-(-size // s) - 1) * s + k - size, 0)
-            pads += [total // 2, total - total // 2]
-        return F.conv2d(F.pad(x, pads), self.weight, self.bias, self.stride, 0, 1, self.groups)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:

@@ -1,11 +1,13 @@
-"""Seeded stand-ins for the lineart, lineart_anime, PidiNet, MLSD, OpenPose
-and NormalBae checkpoints.
+"""Seeded stand-ins for the lineart, lineart_anime, PidiNet, MLSD, OpenPose,
+NormalBae and depth (DPT, DPT-hybrid) checkpoints.
 
 The repo ships no annotator weights. These make a `LineartGenerator`, a
 lineart_anime `UnetGenerator`, a `table5_pidinet.pth` state dict, an
 `mlsd_large_512_fp32.pth` state dict (controlnet_aux's key layout,
-BatchNorm statistics included), the three OpenPose files and a
-`scannet.pt` from a `torch.Generator`, on its device, with maps that are
+BatchNorm statistics included), the three OpenPose files, a `scannet.pt`
+and the transformers state dicts and `config.json`s of Intel/dpt-large and
+Intel/dpt-hybrid-midas (or a smaller geometry; `write_depth_folder` puts
+one on disk) from a `torch.Generator`, on its device, with maps that are
 neither constant nor saturated; and `pose_maps`, crafted stride-8 OpenPose
 maps of two people, which no seeded network gives. `chip_smoke.py` and the
 parity tests drive the annotators with them.
@@ -13,13 +15,20 @@ parity tests drive the annotators with them.
 
 from __future__ import annotations
 
+import json
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import depth as dp
 from . import mlsd
 from . import normalbae as nb
+from ...weights import ingest
+from .dpt import DPT_LARGE, DPTConfig, DPTDepth, REASSEMBLE_FACTORS
+from .dpt_hybrid import (DPT_HYBRID_MIDAS, DPTHybridConfig, DPTHybridDepth, WSConv,
+                         standardize_weights_)
 from .edge_nets import LineartGenerator
 from .lineart_anime import UnetGenerator
 from .openpose import LIMB_SEQ, MAP_IDX, BodyPoseNet
@@ -349,3 +358,141 @@ def pose_maps(H: int, W: int, h8: int, w8: int,
             paf[..., cb - 19][on] = u[1]
     heat[..., 18] = 1.0 - heat[..., :18].max(-1)
     return heat.astype(np.float32), paf.astype(np.float32)
+
+
+def dpt_config(cfg: DPTConfig = DPT_LARGE, size: int = dp.NET_SIZE) -> dict:
+    """A plain DPT's transformers `config.json` (the Intel/dpt-large layout)
+    for `size` x `size` inputs."""
+    return {"model_type": "dpt", "is_hybrid": False, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.heads,
+            "intermediate_size": cfg.mlp_dim, "patch_size": cfg.patch, "image_size": size,
+            "backbone_out_indices": list(cfg.taps), "neck_hidden_sizes": list(cfg.neck_hidden),
+            "fusion_hidden_size": cfg.fusion_hidden,
+            "reassemble_factors": list(REASSEMBLE_FACTORS), **dp.JAX_CONSTANTS}
+
+
+def dpt_hybrid_config(cfg: DPTHybridConfig = DPT_HYBRID_MIDAS, size: int = dp.NET_SIZE) -> dict:
+    """DPT-hybrid's transformers `config.json` (the Intel/dpt-hybrid-midas
+    layout, BiT backbone config included) for `size` x `size` inputs; its
+    stored position grid is size / patch a side."""
+    b = cfg.bit
+    return {"model_type": "dpt", "is_hybrid": True, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.heads,
+            "intermediate_size": cfg.mlp_dim, "patch_size": cfg.patch, "image_size": size,
+            "backbone_out_indices": list(cfg.taps), "neck_hidden_sizes": list(cfg.neck_hidden),
+            "reassemble_factors": list(cfg.reassemble_factors),
+            "fusion_hidden_size": cfg.fusion_hidden, "neck_ignore_stages": [0, 1],
+            "backbone_featmap_shape": [1, b.hidden_sizes[-1], size // 16, size // 16],
+            "backbone_config": {"model_type": "bit", "layer_type": "bottleneck",
+                                "global_padding": "SAME", "embedding_dynamic_padding": True,
+                                "embedding_size": b.embedding_size,
+                                "hidden_sizes": list(b.hidden_sizes), "depths": list(b.depths),
+                                "num_groups": b.num_groups,
+                                "out_features": ["stage1", "stage2", "stage3"]},
+            **dp.JAX_CONSTANTS}
+
+
+# the depth head's outputs on the calibration frames, each channel's (mean,
+# std): conv1 at unit scale, conv2 mostly positive before its ReLU, the
+# depth mostly positive before the last ReLU
+DEPTH_HEAD_TARGETS = ((0.0, 1.0), (0.5, 1.0), (1.0, 0.5))
+
+
+@torch.no_grad()
+def _seeded_depth(model: torch.nn.Module, cfg: dict, gen: torch.Generator,
+                  frames: torch.Tensor, size: int) -> dict:
+    """The transformers state dict of `model` (built on the meta device):
+    Linear and conv weights N(0, 1/fan_in) (a transposed conv's fan-in its
+    input channels: each output pixel takes one tap), the ViT layers'
+    attention and MLP output weights times 1/sqrt(2 L), so that the
+    residual stream stays near unit scale through the L layers; biases N(0,
+    0.05^2), norms' gains 1 and shifts 0, the class token N(0, 0.5^2), the
+    position table N(0, 0.2^2); the BiT convs N(0, 1) (they are
+    standardised). Then the head is calibrated on the (F, H, W, 3) uint8
+    `frames` at `size` x `size` (`DEPTH_HEAD_TARGETS`), so that the maps are
+    neither constant nor set by the biases. The unused residual_layer1 of
+    the deepest fusion layer, which upstream files hold, is drawn too."""
+    dev = gen.device
+    branch = 1.0 / math.sqrt(2 * cfg["num_hidden_layers"])
+    sd = {}
+    for mname, m in model.named_modules():
+        for pname, p in m.named_parameters(recurse=False):
+            key = f"{mname}.{pname}"
+            if isinstance(m, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+                sd[key] = torch.full(p.shape, float(pname == "weight"), device=dev)
+                continue
+            if pname == "bias":
+                std = 0.05
+            elif pname in ("cls_token", "position_embeddings"):
+                std = 0.5 if pname == "cls_token" else 0.2
+            elif isinstance(m, WSConv):
+                std = 1.0
+            else:
+                fan_in = p.shape[0] if isinstance(m, torch.nn.ConvTranspose2d) else p[0].numel()
+                std = 1.0 / math.sqrt(fan_in)
+                if key.startswith("dpt.encoder.") and key.endswith("output.dense.weight"):
+                    std *= branch
+            sd[key] = torch.randn(p.shape, generator=gen, device=dev) * std
+    model.load_state_dict({k: v.clone() for k, v in sd.items()}, assign=True)
+    model = standardize_weights_(model.eval())
+    head = model.head.head
+    calibrated = []
+
+    def calibrate(conv, inputs, out, target):
+        mean, std = target
+        gain = std / out.std((0, 2, 3))
+        shift = mean - out.mean((0, 2, 3)) * gain
+        conv.weight.mul_(gain.reshape(-1, 1, 1, 1))
+        conv.bias.mul_(gain).add_(shift)
+        calibrated.append(conv)
+        return out * gain.reshape(1, -1, 1, 1) + shift.reshape(1, -1, 1, 1)
+
+    hooks = [head[j].register_forward_hook(
+        lambda c, i, o, t=t: calibrate(c, i, o, t)) for j, t in zip((0, 2, 4), DEPTH_HEAD_TARGETS)]
+    with fp32_convs():
+        model(dp.network_input(frames.to(dev), size))
+    for h in hooks:
+        h.remove()
+    for j in (0, 2, 4):
+        sd[f"head.head.{j}.weight"] = head[j].weight.detach().clone()
+        sd[f"head.head.{j}.bias"] = head[j].bias.detach().clone()
+    c = cfg["fusion_hidden_size"]
+    unused = "neck.fusion_stage.layers.0.residual_layer1.convolution"
+    for n in (1, 2):
+        sd[f"{unused}{n}.weight"] = torch.randn((c, c, 3, 3), generator=gen,
+                                                device=dev) / math.sqrt(9 * c)
+        sd[f"{unused}{n}.bias"] = torch.randn((c,), generator=gen, device=dev) * 0.05
+    return sd
+
+
+def dpt_checkpoint(gen: torch.Generator, frames: torch.Tensor, cfg: DPTConfig = DPT_LARGE,
+                   size: int = dp.NET_SIZE) -> tuple[dict, dict]:
+    """A seeded plain DPT (`dpt_config`, transformers keys, its position
+    table for `size` x `size`, its head calibrated on `frames` at that
+    size) on the generator's device: (config.json, state dict)."""
+    config = dpt_config(cfg, size)
+    with torch.device("meta"):
+        model = DPTDepth(cfg, (size // cfg.patch) ** 2 + 1)
+    return config, _seeded_depth(model, config, gen, frames, size)
+
+
+def dpt_hybrid_checkpoint(gen: torch.Generator, frames: torch.Tensor,
+                          cfg: DPTHybridConfig = DPT_HYBRID_MIDAS,
+                          size: int = dp.NET_SIZE) -> tuple[dict, dict]:
+    """A seeded DPT-hybrid (`dpt_hybrid_config`; the BiT convs as a file
+    holds them, unstandardised; its position table of (size / patch)^2 + 1
+    rows, so another patch than 16 stores another grid than the /16 map's)
+    on the generator's device: (config.json, state dict)."""
+    config = dpt_hybrid_config(cfg, size)
+    with torch.device("meta"):
+        model = DPTHybridDepth(cfg, (size // cfg.patch) ** 2 + 1)
+    return config, _seeded_depth(model, config, gen, frames, size)
+
+
+def write_depth_folder(path, config: dict, sd: dict) -> int:
+    """A transformers folder as the depth annotator reads it: `config.json`
+    and `model.safetensors`; returns the weights' bytes."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(config))
+    return ingest.save_safetensors(path / "model.safetensors", sd)

@@ -19,13 +19,17 @@ convs the port's `MLSDLarge` holds under the same names,
 `models/annotators/normalbae_net.py` `nnet_params_from_torch` (the
 BatchNorms unfolded, as `scannet.pt` holds them), and the OpenPose
 `body_params_from_torch`, `hand_params_from_torch` and
-`face_params_from_torch`, `clip_weights.py` `vision_params_from_torch` and
-the IP-Adapter projections of `pipelines/ip_adapter.py` `build_projection`),
-copied here so the port never imports that package. Kinds: "conv" HWIO ->
-OIHW, "dense" (in, out) -> (out, in), "raw" as is, "nchw" (1, H, W, C) ->
-(1, C, H, W), "lead1" with a leading axis of 1 (a modulated conv's weight),
-"chan" (C,) -> (1, C, 1, 1), "vec1" () -> (1,), "conv1d" a 1x1 conv's
-(1, 1, I, O) -> a Conv1d's (O, I, 1).
+`face_params_from_torch`, `clip_weights.py` `vision_params_from_torch`,
+the IP-Adapter projections of `pipelines/ip_adapter.py` `build_projection`,
+and `models/annotators/dpt.py` `dpt_params_from_torch` and
+`dpt_hybrid.py` `dpt_hybrid_params_from_torch` (the hybrid's weight-
+standardised convs unstandardised, as the file holds them)), copied here so
+the port never imports that package. Kinds: "conv" HWIO -> OIHW, "deconv"
+a transposed conv's (kh, kw, O, I) -> (I, O, kh, kw), "dense" (in, out) ->
+(out, in), "raw" as is, "nchw" (1, H, W, C) -> (1, C, H, W), "lead1" with a
+leading axis of 1 (a modulated conv's weight), "chan" (C,) -> (1, C, 1, 1),
+"vec1" () -> (1,), "conv1d" a 1x1 conv's (1, 1, I, O) -> a Conv1d's (O, I,
+1).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..models.annotators.dpt import REASSEMBLE_FACTORS
+from ..models.annotators.dpt_hybrid import DPTHybridConfig
 from ..models.annotators.edge_nets import LINEART_RES_BLOCKS
 from ..models.annotators.mlsd import IR_SPEC
 from ..models.annotators.normalbae import B5, NNETConfig
@@ -309,6 +315,76 @@ def normalbae_mapping(cfg: NNETConfig = B5) -> Iterator[Entry]:
             yield f"decoder.{h}.{j}.bias", f"decoder/{h}/c{j}/bias", "raw"
 
 
+def _vit_layer(t: str, f: str) -> Iterator[Entry]:
+    yield from _norm(f"{t}.layernorm_before", f"{f}/layernorm_before")
+    yield from _norm(f"{t}.layernorm_after", f"{f}/layernorm_after")
+    for tname, fname in (("attention.attention.query", "query"),
+                         ("attention.attention.key", "key"),
+                         ("attention.attention.value", "value"),
+                         ("attention.output.dense", "attn_out"),
+                         ("intermediate.dense", "intermediate"), ("output.dense", "output")):
+        yield from _dense(f"{t}.{tname}", f"{f}/{fname}")
+
+
+def _dpt_vit(num_layers: int) -> Iterator[Entry]:
+    yield "dpt.embeddings.cls_token", "cls_token", "raw"
+    yield "dpt.embeddings.position_embeddings", "position_embeddings", "raw"
+    for i in range(num_layers):
+        yield from _vit_layer(f"dpt.encoder.layer.{i}", f"layer_{i}")
+
+
+def _dpt_neck_head(factors, levels) -> Iterator[Entry]:
+    """The readout and reassemble of `levels`, the neck convs, the fusion
+    layers (JAX's `fusion_{li}` is `fusion_stage.layers.{3 - li}`; the
+    deepest one's residual_layer1, which upstream files hold and neither
+    network runs, included) and the head."""
+    for li in levels:
+        rp = f"neck.reassemble_stage.layers.{li}"
+        yield from _dense(f"neck.reassemble_stage.readout_projects.{li}.0", f"readout_{li}")
+        yield from _conv(f"{rp}.projection", f"reassemble_proj_{li}")
+        if factors[li] != 1:
+            yield f"{rp}.resize.weight", f"resize_{li}/kernel", (
+                "deconv" if factors[li] > 1 else "conv")
+            yield f"{rp}.resize.bias", f"resize_{li}/bias", "raw"
+    for li in range(4):
+        yield f"neck.convs.{li}.weight", f"neck_conv_{li}/kernel", "conv"
+        t, f = f"neck.fusion_stage.layers.{3 - li}", f"fusion_{li}"
+        yield from _conv(f"{t}.projection", f"{f}/projection")
+        for r in ("residual_layer1", "residual_layer2"):
+            yield from _conv(f"{t}.{r}.convolution1", f"{f}/{r}/conv1")
+            yield from _conv(f"{t}.{r}.convolution2", f"{f}/{r}/conv2")
+    for j, name in ((0, "head_conv1"), (2, "head_conv2"), (4, "head_conv3")):
+        yield from _conv(f"head.head.{j}", name)
+
+
+def dpt_mapping(num_layers: int) -> Iterator[Entry]:
+    """The plain DPT's transformers keys (`dpt.` prefix)."""
+    yield from _conv("dpt.embeddings.patch_embeddings.projection", "patch_embeddings")
+    yield from _dpt_vit(num_layers)
+    yield from _dpt_neck_head(REASSEMBLE_FACTORS, range(4))
+
+
+def dpt_hybrid_mapping(cfg: DPTHybridConfig) -> Iterator[Entry]:
+    """DPT-hybrid's transformers keys; the BiT convs as the file holds them
+    (unstandardised)."""
+    t, f = "dpt.embeddings.backbone.bit", "backbone"
+    yield f"{t}.embedder.convolution.weight", f"{f}/stem_conv/kernel", "conv"
+    yield from _norm(f"{t}.embedder.norm", f"{f}/stem_norm")
+    for s, depth in enumerate(cfg.bit.depths):
+        for i in range(depth):
+            tl, fl = f"{t}.encoder.stages.{s}.layers.{i}", f"{f}/stage_{s}_layer_{i}"
+            parts = [(f"conv{n}", f"norm{n}", f"conv{n}", f"norm{n}") for n in (1, 2, 3)]
+            if i == 0:
+                parts.append(("downsample.conv", "downsample.norm", "downsample_conv",
+                              "downsample_norm"))
+            for conv, norm, fconv, fnorm in parts:
+                yield f"{tl}.{conv}.weight", f"{fl}/{fconv}/kernel", "conv"
+                yield from _norm(f"{tl}.{norm}", f"{fl}/{fnorm}")
+    yield from _conv("dpt.embeddings.projection", "projection")
+    yield from _dpt_vit(cfg.num_layers)
+    yield from _dpt_neck_head(cfg.reassemble_factors, (2, 3))
+
+
 def openpose_mapping(make) -> Iterator[Entry]:
     """An OpenPose network's convs: the port's `a.b` (or `b`) is the JAX
     package's flat `a_b` (or `b`)."""
@@ -509,7 +585,7 @@ def _state_dict(params: dict, mapping: Iterator[Entry]) -> dict[str, torch.Tenso
     out = {}
     for tkey, fpath, kind in mapping:
         arr = np.asarray(_get(params, fpath))
-        if kind == "conv":
+        if kind in ("conv", "deconv"):  # (kh, kw, a, b) -> (b, a, kh, kw)
             arr = np.transpose(arr, (3, 2, 0, 1))
         elif kind == "dense":
             arr = arr.T
@@ -602,3 +678,11 @@ def openpose_hand_state_dict(params: dict) -> dict[str, torch.Tensor]:
 
 def openpose_face_state_dict(params: dict) -> dict[str, torch.Tensor]:
     return _state_dict(params, openpose_mapping(FaceNet))
+
+
+def dpt_state_dict(params: dict, num_layers: int) -> dict[str, torch.Tensor]:
+    return _state_dict(params, dpt_mapping(num_layers))
+
+
+def dpt_hybrid_state_dict(params: dict, cfg: DPTHybridConfig) -> dict[str, torch.Tensor]:
+    return _state_dict(params, dpt_hybrid_mapping(cfg))

@@ -75,6 +75,29 @@ def load_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
     return out
 
 
+def save_safetensors(path: str | Path, sd: dict[str, torch.Tensor]) -> int:
+    """Write `sd` in the safetensors format (an 8-byte little-endian header
+    length, the JSON header padded to 8 bytes, then each tensor's bytes),
+    which `load_safetensors` reads; returns the bytes written."""
+    names = {torch.from_numpy(np.zeros(0, d)).dtype: n for n, d in _SAFETENSORS_DTYPES.items()
+             if n != "BF16"}
+    names[torch.bfloat16] = "BF16"
+    header, offset = {}, 0
+    for key, t in sd.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in sd.values():
+            f.write(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy())
+    return 8 + len(blob) + offset
+
+
 def load_torch_pickle(path: str | Path) -> dict[str, torch.Tensor]:
     """torch.load a .ckpt/.bin/.pt state dict on the CPU: LDM-style
     {'state_dict': ...} nesting unwrapped, nested dicts flattened to dotted

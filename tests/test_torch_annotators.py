@@ -10,11 +10,11 @@ drawing of JAX's own tpMaps (the network's, seeded and crafted ones) bit for
 bit against the JAX `decode_lines` + `cv2.line`, the whole annotator against
 `mlsd_net.run` (a stated share of pixels may differ), and its resizes and
 line drawing bit for bit against `cv2.resize` and `cv2.line`; and the
-annotator dispatch by substring, with the annotator of M13c-3 (depth)
+annotator dispatch by substring, with a GLPN depth folder (M13c-4)
 raising and a missing weights file raising FileNotFoundError (OpenPose's
 own parity tests are `test_torch_openpose.py`, softedge's and
 lineart_anime's `test_torch_softedge_anime.py`, NormalBae's
-`test_torch_normalbae.py`)."""
+`test_torch_normalbae.py`, depth's `test_torch_depth.py`)."""
 
 import cv2
 import jax
@@ -177,19 +177,23 @@ def test_hed_upsample_is_jax_resize(src, dst):
     ("lllyasviel/control_v11p_sd15_softedge", "softedge"), ("my_pidi_net", "softedge"),
     ("lllyasviel/control_v11p_sd15s2_lineart_anime", "lineart_anime"),
     ("lllyasviel/control_v11p_sd15_normalbae", "normalbae"),
+    ("lllyasviel/control_v11f1p_sd15_depth", "depth"),
 ])
 def test_dispatch_by_substring(name, key):
     assert annotators.annotator_name(name) == key
 
 
 @pytest.mark.parametrize("name", ["lllyasviel/control_v11f1p_sd15_depth"])
-def test_m13_annotators_raise(name):
-    """The annotator of the zoo left (depth) raises NotImplementedError
-    naming M13 when the configuration is checked."""
-    with pytest.raises(NotImplementedError, match="M13"):
-        annotators.annotator_name(name)
-    with pytest.raises(NotImplementedError, match="M13"):
-        require_ported(RunConfig(controlnets=("lllyasviel/sd-controlnet-canny", name)))
+def test_m13_annotators_raise(name, tmp_path, monkeypatch):
+    """The depth name passes the configuration check (names only); a GLPN
+    depth folder (M13c-4, not ported) raises NotImplementedError naming it
+    when the pipeline reads the folder, and nothing falls back."""
+    assert annotators.annotator_name(name) == "depth"
+    require_ported(RunConfig(controlnets=("lllyasviel/sd-controlnet-canny", name)))
+    (tmp_path / "config.json").write_text('{"model_type": "glpn"}')
+    monkeypatch.setenv("CONTROLANIMATE_DEPTH_MODEL", str(tmp_path))
+    with pytest.raises(NotImplementedError, match="M13c-4"):
+        annotators.resolve_annotator(name, "cpu")
 
 
 def test_unknown_controlnet_name_raises():

@@ -95,9 +95,11 @@ def test_default_noise_is_seeded(pipelines):
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
-def test_unported_facade_paths_raise():
-    """M13c annotators (depth here) raise NotImplementedError (IP-Adapter is ported:
-    tests/test_torch_ip_adapter.py). A run without `use_lcm` is ported; a `scheduler` that names no sampler raises
+def test_unported_facade_paths_raise(tmp_path, monkeypatch):
+    """A GLPN depth folder (M13c-4) raises NotImplementedError when the
+    pipeline reads it (the DPT depth nets and IP-Adapter are ported:
+    tests/test_torch_depth.py, tests/test_torch_ip_adapter.py). A run
+    without `use_lcm` is ported; a `scheduler` that names no sampler raises
     KeyError when the pipeline is built, before the disk build reads a file
     (JAX raises it at the first window)."""
     with pytest.raises(KeyError, match="EulerDiscreteScheduler"):
@@ -108,9 +110,13 @@ def test_unported_facade_paths_raise():
     _, _, tclip = clip_pair()
     models = tengine.EngineModels(unet=tunet, vae=tvae)
     text = tfacade.TextStack(CLIPTokenizer.tiny(), tclip)
-    for bad, what in (({"controlnets": ("lllyasviel/control_v11f1p_sd15_depth",)}, "M13"),):
+    (tmp_path / "config.json").write_text('{"model_type": "glpn"}')
+    monkeypatch.setenv("CONTROLANIMATE_DEPTH_MODEL", str(tmp_path))
+    # a stand-in for the depth ControlNet: the build raises before using it
+    depth_models = dataclasses.replace(models, controlnets=[torch.nn.Identity()])
+    for bad, what in (({"controlnets": ("lllyasviel/control_v11f1p_sd15_depth",)}, "M13c-4"),):
         with pytest.raises(NotImplementedError, match=what):
-            tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, **bad}), models=models,
+            tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, **bad}), models=depth_models,
                                            text_stack=text, device="cpu")
     pipe = tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, "use_lcm": False}), models=models,
                                           text_stack=text, device="cpu")

@@ -23,10 +23,11 @@ from controlanimate_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 
-# the JAX kernel test's shapes, plus the UNet's D = 80 / 160 and a VAE-like
-# (1, 64, 1, 512) case; tolerance is the JAX test's own
+# the JAX kernel test's shapes, plus the UNet's D = 80 / 160, a VAE-like
+# (1, 64, 1, 512) case and the depth ViTs' 577 tokens at D = 64 (a 24 x 24
+# grid and the class token); tolerance is the JAX test's own
 SHAPES = [(2, 256, 2, 40), (1, 512, 4, 64), (2, 256, 2, 128), (2, 128, 2, 80),
-          (1, 64, 2, 160), (1, 64, 1, 512)]
+          (1, 64, 2, 160), (1, 64, 1, 512), (1, 577, 2, 64)]
 ATOL, RTOL = 2e-5, 1e-4
 
 
@@ -74,7 +75,7 @@ def test_wrapper_argument_checks():
         flash_attention(q, k[:, :, :1], v[:, :, :1])
     with pytest.raises(ValueError):
         flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
-    for d in (8, 64, 128, 513):
+    for d in (8, 96, 128, 513):
         qd = torch.zeros(1, 16, 2, d)
         with pytest.raises(ValueError, match="head dim"):
             check_kernel_args(qd, qd, qd)
@@ -188,7 +189,7 @@ def emulate_bf16_kernel(q, k, v, bk: int):
 EMULATED_SHAPES = list(chip_smoke.ODD_SHAPES) + [
     (2, 256, 256, 2, 40), (2, 77, 77, 2, 80), (1, 100, 100, 3, 160), (1, 130, 130, 1, 512),
     (2, 64, 200, 2, 40), (1, 1, 1, 1, 80), (1, 200, 333, 2, 80), (2, 77, 300, 2, 160),
-    (1, 64, 129, 1, 512), (3, 129, 77, 2, 40),
+    (1, 64, 129, 1, 512), (3, 129, 77, 2, 40), (2, 577, 577, 2, 64),
 ]
 
 

@@ -6,8 +6,9 @@ on K4) on the card against the CPU, the face step (RetinaFace, the
 aligned crop, GFPGAN, the paste, and the OpenCV stand-ins under them) on
 the card against the CPU, the ControlNet slice: canny and HED on the
 card against the CPU, and a small pipeline with two ControlNets; softedge
-(PidiNet), lineart_anime and NormalBae on the card against the CPU, each
-call on the card equal to the one before; and the
+(PidiNet), lineart_anime, NormalBae, lineart at 48x96 and the full-depth
+DPT and DPT-hybrid depth networks on the card against the CPU, each call on
+the card equal to the one before; and the
 multi-step samplers: small windows under classifier-free guidance (Euler
 with a ControlNet, the LCM-LoRA tail, DPM-Solver) on the card against the
 CPU; the IP-Adapter's image encoder: K1 at its (1, 257, 16, 80) shape, and a
@@ -54,7 +55,9 @@ def _qkv(shape, device, dtype, nk=None, seed=0):
                                       ((1, 100, 3, 160), None), ((1, 130, 1, 512), None),
                                       ((2, 64, 2, 40), 200), ((1, 1, 1, 80), None),
                                       ((3, 129, 2, 40), 77), ((1, 200, 2, 80), 333),
-                                      ((2, 77, 2, 160), 300), ((1, 64, 1, 512), 129)])
+                                      ((2, 77, 2, 160), 300), ((1, 64, 1, 512), 129),
+                                      ((2, 577, 12, 64), None), ((1, 77, 2, 64), 300),
+                                      ((3, 129, 1, 64), None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda, shape, nk, dtype):
     """The gates of `chip_smoke.k1_mismatch`: fp32 at 1e-4 (TF32 off in the
@@ -509,7 +512,7 @@ def test_small_multistep_windows_card_match_cpu(cuda, case):
 
 
 @pytest.mark.parametrize("name,hw", [("softedge", (64, 80)), ("softedge", (45, 61)),
-                                     ("lineart_anime", (256, 256)),
+                                     ("softedge", (48, 96)), ("lineart_anime", (256, 256)),
                                      ("lineart_anime", (200, 120))])
 def test_softedge_and_lineart_anime_card_match_cpu(cuda, name, hw):
     """The seeded full-width PidiNet and lineart_anime in fp32 on the card
@@ -573,3 +576,59 @@ def test_normalbae_card_matches_cpu(cuda, hw):
     q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
     assert int((q(want) - q(first.cpu())).abs().max()) <= 1
     assert float(want.reshape(-1, 3).std(0).min()) > 0.02
+
+
+def test_lineart_card_matches_cpu_at_48x96(cuda):
+    """The seeded lineart generator in fp32 on the card against the CPU at
+    48x96 (chip_smoke.py's reference holds 64x80): within 1 LSB after the
+    facade's uint8 quantisation, not saturated, and a second call on the
+    card equal to the first."""
+    import copy
+
+    import numpy as np
+
+    import chip_smoke
+    from controlanimate_tpu_torch.models.annotators import seeded
+    from controlanimate_tpu_torch.models.annotators.edge_nets import (LineartAnnotator,
+                                                                     LineartGenerator)
+
+    frames = torch.from_numpy(chip_smoke.edge_rich(np, chip_smoke.synthetic_video(
+        np, 2, 48, 96, chip_smoke.SEED)))
+    net = seeded.seed_lineart_(LineartGenerator(), torch.Generator().manual_seed(chip_smoke.SEED))
+    want = LineartAnnotator(net)(frames)
+    card = LineartAnnotator(copy.deepcopy(net).cuda())
+    first = card(frames.cuda())
+    assert torch.equal(card(frames.cuda()), first)
+    q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+    assert int((q(want) - q(first.cpu())).abs().max()) <= 1
+    assert float(want.std()) > 0.02
+
+
+@pytest.mark.parametrize("kind", ["plain", "hybrid"])
+def test_depth_card_matches_cpu(cuda, kind):
+    """The full-depth seeded DPT (Intel/dpt-large geometry) or DPT-hybrid
+    (dpt-hybrid-midas), its head calibrated on the frames, in fp32 on the
+    card (K1's fp32 plan at head dim 64) against the CPU at 64x80: within
+    1e-4 and 1 LSB after the facade's uint8 quantisation, not constant, and
+    a second call on the card equal to the first."""
+    import numpy as np
+
+    import chip_smoke
+    from controlanimate_tpu_torch.models.annotators import seeded
+    from controlanimate_tpu_torch.models.annotators.depth import DepthAnnotator, depth_network
+
+    frames = torch.from_numpy(chip_smoke.edge_rich(np, chip_smoke.synthetic_video(
+        np, 2, 64, 80, chip_smoke.SEED)))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(chip_smoke.SEED)
+    make = seeded.dpt_checkpoint if kind == "plain" else seeded.dpt_hybrid_checkpoint
+    config, sd = make(gen, frames)
+    want = DepthAnnotator(depth_network(config, sd, "cpu"))(frames)
+    card = DepthAnnotator(depth_network(config, sd, "cuda"))
+    first = card(frames.cuda())
+    assert first.shape == want.shape == (2, 64, 80, 3)
+    assert torch.equal(card(frames.cuda()), first)
+    assert float((first.cpu() - want).abs().max()) <= 1e-4
+    q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+    assert int((q(want) - q(first.cpu())).abs().max()) <= 1
+    assert float(want.std()) > 0.05
