@@ -41,7 +41,8 @@ Phases, each printed as one JSON line with its seconds:
              detector's outputs within 1e-3 of their largest value, the
              aligned crops equal, the restored crops and the frame pasted
              at 2x within 1 LSB; then canny on the card against canny on
-             the CPU on 2 synthetic frames at 512x512 and at 512x768, as
+             the CPU on 2 synthetic frames at 512x768 (the cfg and
+             controlnet phases run it at 512x512 on the card), as
              they are and with a hard-edged checkerboard added (`edge_rich`):
              equal maps; the full HED network (seeded by `init_hed_`) on 2
              frames of 64x80, card against CPU in fp32: within 1 LSB after
@@ -56,7 +57,10 @@ Phases, each printed as one JSON line with its seconds:
              saturated; `small_depth_reference`, a step of its own: the
              full-width DPT (4 ViT layers) and DPT-hybrid (2), position
              tables for 128x128, on one frame in fp32 (K1's fp32 plan at
-             head dim 64), within 1e-4 of the largest value; MLSD's
+             head dim 64), and GLPN at the MiT-b0 widths on one
+             GLPN_REF_HW frame (K1's fp32 plan at head dim 32 on every
+             stage, its launches by shape checked), within 1e-4 of the
+             largest value; MLSD's
              tpMaps within 1e-3 of each channel's RMS,
              and the map the card decodes and draws from its own tpMap equal
              to the CPU's decode and drawing of it; INTER_AREA at 768x512
@@ -150,15 +154,20 @@ Phases, each printed as one JSON line with its seconds:
              (`normalbae_checkpoint`, its statistics from that window) and
              the full-depth DPT and DPT-hybrid depth networks
              (`dpt_checkpoint`, `dpt_hybrid_checkpoint`, their heads set
-             on that window) that the disk phase writes (all but the
-             plain DPT), each timed by CUDA events on one 16-frame window
+             on that window) and GLPN at the published MiT-b4 widths
+             (`glpn_checkpoint`, its head set on that window at 512x512)
+             that the disk phase writes (all but the
+             DPTs), each timed by CUDA events on one 16-frame window
              at the shipped 512x768 (its second call), with its peak memory
              above what was allocated before it and the maps' mean and
              std, each channel's too (a constant map fails, but the seeded
              OpenPose's, which finds no one, and so does a depth map whose
              std is 0.05 or less, a map that differs on a second call, and
              K1's launches in the depth networks' second calls other than
-             their 24 and 12 ViT layers at (16, 577, 577, 16 or 12, 64));
+             their 24 and 12 ViT layers at (16, 577, 577, 16 or 12, 64)
+             and GLPN's 41 layers at (16, 24576, 384, 1, 64), (16, 6144,
+             384, 2, 64), (16, 1536, 384, 5, 64) and (16, 384, 384, 8,
+             64), 3, 8, 27 and 3 of them);
              then OpenPose's decode,
              hand and face crops and drawing timed again on crafted maps of
              two people in each frame (`pose_maps`), with the people, hands
@@ -216,7 +225,7 @@ Phases, each printed as one JSON line with its seconds:
              released nesting: `state_dict`, `module.` keys, unfolded PDC
              kernels), netG.pth and normalbae/scannet.pt (the released
              nesting: `model`, `module.` keys, BatchNorms unfolded), and
-             the DPT-hybrid as models/annotators/depth/ (config.json and
+             GLPN as models/annotators/glpn/ (config.json and
              model.safetensors, transformers keys), and the next runs
              start from the
              snapshot root, which finds them there. First the
@@ -230,13 +239,14 @@ Phases, each printed as one JSON line with its seconds:
              `lllyasviel/control_v11p_sd15_normalbae` and
              `lllyasviel/control_v11f1p_sd15_depth` (their folders link
              to the canny, HED, MLSD and lineart nets': the name selects
-             the annotator, PidiNet, lineart_anime, NormalBae and
-             DPT-hybrid read from the files), one window: its frames must
-             equal the injected pipeline's with the same nets and the
-             controlnet phase's seeded annotators, and its K1 launches by
-             shape those that one window with four ControlNets implies
-             plus the hybrid's 12 ViT layers at (16, 577, 577, 12, 64).
-             Then the LCM-LoRA
+             the annotator, PidiNet, lineart_anime, NormalBae and GLPN
+             (b4) read from the files, GLPN from models/annotators/glpn/,
+             which CONTROLANIMATE_DEPTH_MODEL names), one window: its
+             frames must equal the injected pipeline's with the same nets
+             and the controlnet phase's seeded annotators, and its K1
+             launches by shape those that one window with four
+             ControlNets implies plus GLPN's 41 layers at 512x512. Then
+             the LCM-LoRA
              profile's files (SampleConfigLCMLoRA.yaml: openpose at 1.0,
              lineart at 0.35, MLSD at 1.0 and HED at 0.4; 512x768,
              `upscale` 2 and the face enhancer with `upscale_first` 1, on
@@ -327,7 +337,7 @@ Phases, each printed as one JSON line with its seconds:
              257, 16, 80) among them, its plain version timed; the plain
              version on slices of the batch where its scores would pass
              PLAIN_SCORE_BYTES), plus odd
-             lengths, in bf16, and in fp32 (the reference phase's dtype,
+             lengths (D = 32 among them), in bf16, and in fp32 (the reference phase's dtype,
              which runs it at small shapes) at the odd lengths
              (`k1_mismatch` states the gates), with its achieved TFLOP/s
              and share of the bound in bf16; K2
@@ -340,18 +350,22 @@ Phases, each printed as one JSON line with its seconds:
              memory at the largest input it folds, beside the same
              statistics taken from full fp32 copies. Then each kernel's
              time, its plain version's (over PLAIN_ITERS calls, at the main
-             path's 512x512 shapes, and for K1 at the odd ones), one
+             path's 512x512 shapes), one
              PyTorch call's (SDPA for K1, `F.conv2d` on the activated input
              for K2: yardsticks the port never calls) and the bound, and
              their sums over a window at both geometries, and K1's over the
              vid2vid, controlnet and cfg phases' and the IP-Adapter and
              segment runs' launches, and the image encoder's alone. Then
-             K1 at the depth networks' shapes (16, 577, 577, 16 and 12, 64)
-             in fp32 (their dtype) and bf16 against its plain version, each
-             dtype's time, SDPA's and the bound (fp32 operations at the
-             CUDA cores' 67 TFLOP/s), the fp32 plain version's time (a
-             `k1_depth` line a shape), and their sums over the depth
-             networks' timed launches (`depth_path`).
+             K1 at the depth networks' shapes (16, 577, 577, 16 and 12, 64),
+             GLPN's four b4 shapes at 512x768 and 512x512 (the disk
+             phase's CLI run) and the reference's b0 GLPN shapes (D = 32)
+             in fp32 (their dtype) and bf16 against its plain version,
+             and but at the 512x512 shapes each dtype's time, SDPA's and the
+             bound (fp32 operations at the CUDA cores' 67 TFLOP/s), the
+             fp32 plain version's time (a `k1_depth` line a shape), and
+             their sums
+             over the DPTs' and GLPN's timed launches (`depth_path`,
+             `glpn_path`).
   kernels_k3 K3 against its plain version at every shape the
              window_motion_kernel phase and the disk phase's segment run
              (v1, B = 4; its plain version checked, not timed) launched it
@@ -404,6 +418,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import chdir, contextmanager, redirect_stdout
 from pathlib import Path
@@ -432,9 +447,25 @@ M13C_CN_NAMES = ("lllyasviel/control_v11p_sd15_softedge",
                  "lllyasviel/control_v11p_sd15_normalbae",
                  "lllyasviel/control_v11f1p_sd15_depth")
 M13C_CN_SCALES = (1.0, 0.5, 0.8, 0.7)
-# K1's launches of the depth annotator's DPT-hybrid on one 16-frame window:
-# its 12 ViT layers at 577 tokens (a 24 x 24 grid and the class token), fp32
-HYBRID_K1 = {(16, 577, 577, 12, 64): 12}
+# the disk phase's GLPN folder under the snapshot (CONTROLANIMATE_DEPTH_MODEL
+# names it for the run that reads it)
+GLPN_FOLDER = "models/annotators/glpn"
+# the reference phase's GLPN at the MiT-b0 widths (head dim 32 on every
+# stage): one frame of this size
+GLPN_REF_HW = (128, 192)
+
+
+def glpn_k1_launches(cfg, frames_n: int, hw: tuple[int, int]) -> dict:
+    """K1's launches of one GLPN call on `frames_n` frames of `hw` (a
+    multiple of 32), by (B, Nq, Nk, H, D): each stage's layers at its patch
+    grid, its keys on that grid cut by sr a side."""
+    h, w = hw
+    out = {}
+    for c, heads, sr, p, s, depth in zip(cfg.hidden_sizes, cfg.heads, cfg.sr_ratios,
+                                         cfg.patch_sizes, cfg.strides, cfg.depths):
+        h, w = ((n + 2 * (p // 2) - p) // s + 1 for n in (h, w))
+        out[(frames_n, h * w, (h // sr) * (w // sr), heads, c // heads)] = depth
+    return out
 # the disk phase's LCM-LoRA run: SampleConfigLCMLoRA.yaml's ControlNets and
 # scales
 LORA_CN_NAMES = ("lllyasviel/control_v11p_sd15_openpose", "lllyasviel/control_v11p_sd15_lineart",
@@ -450,7 +481,8 @@ def unet_k1_shapes(frames_n: int, latent: tuple[int, int]) -> dict:
 
 
 ODD_SHAPES = [(2, 77, 77, 8, 40), (3, 333, 333, 2, 80), (1, 129, 129, 8, 160),
-              (2, 77, 77, 1, 512), (1, 77, 300, 2, 64), (3, 129, 129, 1, 64)]
+              (2, 77, 77, 1, 512), (1, 77, 300, 2, 64), (3, 129, 129, 1, 64),
+              (3, 97, 50, 2, 32)]
 # odd K2 shapes (B, H, W, Cin, Cout): H and W not multiples of the 16 x 16
 # tile, H = 7, H = 1 with W = 16, and Cin = 80, whose last 32-channel chunk
 # is a short one of 16
@@ -1233,20 +1265,26 @@ def expected_k3_launches(unet, latent: int, frames_n: int, steps: int, windows: 
 
 
 @contextmanager
+def env_set(name: str, value: str):
+    """The environment variable `name` set to `value` inside, restored
+    after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = old
+
+
 def motion_env(on: bool):
     """CONTROLANIMATE_PALLAS_MOTION, which the facade reads when a pipeline
     is built, set to 1 or 0 for the pipelines built inside, restored after."""
     from controlanimate_tpu_torch.pipelines.facade import MOTION_ENV
 
-    old = os.environ.get(MOTION_ENV)
-    os.environ[MOTION_ENV] = "1" if on else "0"
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop(MOTION_ENV)
-        else:
-            os.environ[MOTION_ENV] = old
+    return env_set(MOTION_ENV, "1" if on else "0")
 
 
 def vae_k2_calls(vae, hw: tuple[int, int]) -> tuple:
@@ -1864,9 +1902,11 @@ def small_depth_reference(torch) -> dict:
     """The full-width plain DPT (4 of its 24 ViT layers) and DPT-hybrid (2
     of 12), seeded on the card (`seeded.dpt_checkpoint`,
     `dpt_hybrid_checkpoint`: position tables for a 128x128 input, heads
-    calibrated on the frame), each on one 128x128 frame in fp32 on the card
-    against the CPU: the largest difference over the largest value (must
-    be within 1e-4), and each map's std."""
+    calibrated on the frame), each on one 128x128 frame, and GLPN at the
+    MiT-b0 widths (`seeded.glpn_checkpoint`, every stage's attention on K1
+    at head dim 32) on one GLPN_REF_HW frame, in fp32 on the card against
+    the CPU: the largest difference over the largest value (must be within
+    1e-4), each map's std, and GLPN's K1 launches on the card by shape."""
     import dataclasses
 
     import numpy as np
@@ -1874,6 +1914,8 @@ def small_depth_reference(torch) -> dict:
     from controlanimate_tpu_torch.models.annotators import depth, seeded
     from controlanimate_tpu_torch.models.annotators.dpt import DPT_LARGE
     from controlanimate_tpu_torch.models.annotators.dpt_hybrid import DPT_HYBRID_MIDAS
+    from controlanimate_tpu_torch.models.annotators.glpn import GLPN_B0
+    from controlanimate_tpu_torch.ops import flash_attention as fa
     from controlanimate_tpu_torch.ops.warp import fp32_convs
 
     size = DEPTH_REF_SIZE
@@ -1895,6 +1937,22 @@ def small_depth_reference(torch) -> dict:
         out[kind] = {"err_over_largest": float((maps["cuda"] - maps["cpu"]).abs().max()) / largest,
                      "largest": largest, "std": float(maps["cpu"].std()),
                      "params": sum(v.numel() for v in sd.values())}
+    frames = torch.from_numpy(edge_rich(np, synthetic_video(np, 1, *GLPN_REF_HW, SEED)))
+    config, sd = seeded.glpn_checkpoint(gen, frames, GLPN_B0)
+    x = depth.glpn_input(frames)
+    maps = {}
+    for device in ("cpu", "cuda"):
+        net = depth.depth_network(config, sd, device)
+        before = Counter(fa.flash_attention.launches_by_shape)
+        with torch.no_grad(), fp32_convs():
+            maps[device] = net(x.to(device)).cpu()
+    k1 = Counter(fa.flash_attention.launches_by_shape) - before
+    largest = float(maps["cpu"].abs().max())
+    out["glpn"] = {"err_over_largest": float((maps["cuda"] - maps["cpu"]).abs().max()) / largest,
+                   "largest": largest, "std": float(maps["cpu"].std()),
+                   "params": sum(v.numel() for k, v in sd.items()
+                                 if not k.endswith("num_batches_tracked")),
+                   "k1_launches": {str(k): n for k, n in sorted(k1.items())}}
     return out
 
 
@@ -2314,6 +2372,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from controlanimate_tpu_torch import _build
     from controlanimate_tpu_torch.config import RunConfig
+    from controlanimate_tpu_torch.models.annotators.depth import MODEL_ENV as DEPTH_MODEL_ENV
+    from controlanimate_tpu_torch.models.annotators.glpn import GLPN_B0, GLPN_B4
     from controlanimate_tpu_torch.models.clip import CLIPTextConfig
     from controlanimate_tpu_torch.models.tokenizer import CLIPTokenizer
     from controlanimate_tpu_torch.models.transformer import BasicTransformerBlock
@@ -2375,9 +2435,11 @@ def main() -> int:
     ref_up2 = step("upscale2", lambda: small_upscaler_reference(torch, 2.0))
     k4_ref_launches = uk.upconv3x3.launches
     ref_face = step("face", lambda: small_face_reference(torch))
+    # at 512x768 only: the cfg and controlnet phases run canny at 512x512 on
+    # the card
     ref_canny = step("canny", lambda: [
-        canny_reference(torch, np, f(synthetic_video(np, 2, h, 512, SEED)))
-        for h in (512, 768) for f in (lambda v: v, lambda v: edge_rich(np, v))])
+        canny_reference(torch, np, f(synthetic_video(np, 2, 768, 512, SEED)))
+        for f in (lambda v: v, lambda v: edge_rich(np, v))])
     ref_hed = step("hed", lambda: small_hed_reference(torch))
     ref_annotators = step("annotators", lambda: small_annotator_reference(torch))
     ref_normalbae = step("normalbae", lambda: small_normalbae_reference(torch))
@@ -2449,6 +2511,11 @@ def main() -> int:
     if any(r["err_over_largest"] > 1e-4 or r["std"] <= 0 for r in ref_depth.values()):
         raise AssertionError(f"a depth network on the card differs from the CPU by more than "
                              f"1e-4 of its largest value, or its map is constant: {ref_depth}")
+    # the b0 GLPN's layers on K1 at head dim 32, fp32
+    glpn_ref_k1 = glpn_k1_launches(GLPN_B0, 1, GLPN_REF_HW)
+    if ref_depth["glpn"]["k1_launches"] != {str(k): n for k, n in sorted(glpn_ref_k1.items())}:
+        raise AssertionError(f"the reference's GLPN launched K1 {ref_depth['glpn']}, expected "
+                             f"{glpn_ref_k1}")
     rp = ref_openpose
     if (max(rp["net_err_over_rms"].values()) > 1e-3 or not rp["body_equal"]
             or rp["people"] != 2 or min(rp["hands_faces_drawn"]) < 1 or rp["canvas_diff"]
@@ -2799,9 +2866,9 @@ def main() -> int:
     from controlanimate_tpu_torch.models.annotators.openpose import body_input_size
     from controlanimate_tpu_torch.models.annotators.pidinet import PidiNetAnnotator
     from controlanimate_tpu_torch.models.annotators.seeded import (
-        dpt_checkpoint, dpt_hybrid_checkpoint, mlsd_checkpoint, mlsd_model, normalbae_checkpoint,
-        normalbae_model, openpose_checkpoints, pidinet_checkpoint, pidinet_model, pose_maps,
-        seed_lineart_, seed_lineart_anime_, write_depth_folder)
+        dpt_checkpoint, dpt_hybrid_checkpoint, glpn_checkpoint, mlsd_checkpoint, mlsd_model,
+        normalbae_checkpoint, normalbae_model, openpose_checkpoints, pidinet_checkpoint,
+        pidinet_model, pose_maps, seed_lineart_, seed_lineart_anime_, write_depth_folder)
 
     video_768 = synthetic_video(np, 2 * frames_n - overlap, 768, size, SEED)
     frames_768 = torch.from_numpy(video_768[:frames_n]).cuda()
@@ -2827,18 +2894,23 @@ def main() -> int:
     nb_ckpt = {"model": {k: v.cpu() for k, v in nb_ckpt["model"].items()}}
     normalbae = NormalBaeAnnotator(normalbae_model(nb_ckpt, "cuda"))
     # and the two full-depth depth networks (Intel/dpt-large and
-    # dpt-hybrid-midas geometry), their heads calibrated on this window; the
-    # disk phase writes the hybrid as models/annotators/depth/
+    # dpt-hybrid-midas geometry), their heads calibrated on this window
     dpt_config, dpt_sd = dpt_checkpoint(agen, window_frames)
     depth_dpt = DepthAnnotator(depth_network(dpt_config, dpt_sd, "cuda"))
-    del dpt_sd
     hybrid_config, hybrid_sd = dpt_hybrid_checkpoint(agen, window_frames)
-    hybrid_sd = {k: v.cpu() for k, v in hybrid_sd.items()}
     depth_hybrid = DepthAnnotator(depth_network(hybrid_config, hybrid_sd, "cuda"))
+    del dpt_sd, hybrid_sd
+    # and GLPN at the published b4 widths (vinvino02/glpn-nyu), its head
+    # calibrated on this window at 512x512, the size the disk phase's CLI
+    # run reads it at from models/annotators/glpn/
+    glpn_config, glpn_sd = glpn_checkpoint(agen, window_frames, GLPN_B4)
+    glpn_sd = {k: v.cpu() for k, v in glpn_sd.items()}
+    depth_glpn = DepthAnnotator(depth_network(glpn_config, glpn_sd, "cuda"))
     annotators_768 = {"canny": canny, "hed": hed, "lineart": lineart, "mlsd": mlsd_ann,
                       "openpose": openpose_ann, "softedge": softedge,
                       "lineart_anime": lineart_anime, "normalbae": normalbae,
-                      "depth_dpt": depth_dpt, "depth_hybrid": depth_hybrid}
+                      "depth_dpt": depth_dpt, "depth_hybrid": depth_hybrid,
+                      "depth_glpn": depth_glpn}
     # the first call warms each annotator up; the second, timed, must agree;
     # its peak memory above what was allocated before it
     maps_768 = {name: a(frames_768) for name, a in annotators_768.items()}
@@ -2853,10 +2925,13 @@ def main() -> int:
         annotator_peak[name] = torch.cuda.max_memory_allocated() - resident
         repeatable[name] = torch.equal(again[0], maps_768[name])
         del again
-    # K1's launches in those second calls: the depth networks' ViTs (fp32)
+    # K1's launches in those second calls: the depth networks' ViTs and
+    # GLPN's 41 layers (fp32)
     depth_k1 = dict(fa.flash_attention.launches_by_shape)
+    glpn_768_k1 = glpn_k1_launches(GLPN_B4, frames_n, (768, size))
     depth_k1_expected = {(frames_n, 577, 577, 16, 64): DPT_LARGE.num_layers,
-                         (frames_n, 577, 577, 12, 64): DPT_HYBRID_MIDAS.num_layers}
+                         (frames_n, 577, 577, 12, 64): DPT_HYBRID_MIDAS.num_layers,
+                         **glpn_768_k1}
     seeded_stats = dict(openpose_ann.stats)
     # a seeded body network finds no one: openpose's decode, crops and
     # drawing timed again on crafted maps of two people in every frame
@@ -2882,7 +2957,8 @@ def main() -> int:
         "lineart_anime_params": sum(p.numel() for p in anime_net.parameters()),
         "normalbae_params": sum(p.numel() for p in normalbae.model.parameters()),
         "depth_params": {"dpt": sum(p.numel() for p in depth_dpt.model.parameters()),
-                         "hybrid": sum(p.numel() for p in depth_hybrid.model.parameters())},
+                         "hybrid": sum(p.numel() for p in depth_hybrid.model.parameters()),
+                         "glpn": sum(p.numel() for p in depth_glpn.model.parameters())},
         "depth_k1_launches": {str(k): n for k, n in sorted(depth_k1.items())},
         "map_channel_std": {k: [float(v) for v in m.reshape(-1, 3).std(0)]
                             for k, m in maps_768.items()},
@@ -2899,7 +2975,8 @@ def main() -> int:
     # the seeded openpose map is black; the others must not be constant, and
     # the depth maps' std must pass 0.05
     if (not all(float(m.std()) > 0 for k, m in maps_768.items() if k != "openpose")
-            or not all(float(maps_768[k].std()) > 0.05 for k in ("depth_dpt", "depth_hybrid"))
+            or not all(float(maps_768[k].std()) > 0.05
+                       for k in ("depth_dpt", "depth_hybrid", "depth_glpn"))
             or not all(repeatable.values()) or not pose_repeatable):
         raise AssertionError(f"an annotator's 512x768 maps are constant, a depth map's std is "
                              f"0.05 or less, or a map differs from one call to the next: "
@@ -2912,7 +2989,8 @@ def main() -> int:
         raise AssertionError(f"openpose drew {pose_stats} on the crafted maps of two people "
                              f"in {frames_n} frames")
     del window_frames, cond, lat, frames_768, maps_768, heat8, paf8, pose_map
-    del annotators_768, depth_dpt  # the plain DPT's 1.37 GB (the disk phase keeps the hybrid)
+    # the DPTs go (the plain one's 1.37 GB); the disk phase keeps GLPN
+    del annotators_768, depth_dpt, depth_hybrid
     phase("controlnet", t0, build_seconds=round(t_cn_build, 4), nets=list(CN_NAMES),
           cond_scale=list(CN_SCALES),
           controlnet_params=sum(p.numel() for p in cn_nets[0].parameters()),
@@ -3219,11 +3297,10 @@ def main() -> int:
         net.to(torch.bfloat16)  # the run dtype, as the controlnet phase left its nets
         for net in seeded_controlnets(torch, models.unet.config, 3, "cuda", lgen)]
         + [cn_nets[1]]))
-    # the controlnet phase's DPT-hybrid as a transformers folder, on a thread
+    # the controlnet phase's GLPN as a transformers folder, on a thread
     # beside the other files
     with ThreadPoolExecutor(max_workers=1) as pool:
-        depth_job = pool.submit(write_depth_folder, SNAPSHOT / "models" / "annotators" / "depth",
-                                hybrid_config, hybrid_sd)
+        glpn_job = pool.submit(write_depth_folder, SNAPSHOT / GLPN_FOLDER, glpn_config, glpn_sd)
         snapshot_bytes.update(write_controlnets(
             torch, SNAPSHOT, {**dict(zip(CN_NAMES, cn_nets)), **lora_nets},
             {"ControlNetHED.pth": hed_net.state_dict(), "sk_model.pth": lineart_net.state_dict(),
@@ -3231,7 +3308,7 @@ def main() -> int:
              "table5_pidinet.pth": {"state_dict": {k: v.cpu()
                                                    for k, v in pidi_ckpt["state_dict"].items()}},
              "netG.pth": anime_net.state_dict(), "normalbae/scannet.pt": nb_ckpt}))
-        snapshot_bytes["models/annotators/depth/model.safetensors"] = depth_job.result()
+        snapshot_bytes[f"{GLPN_FOLDER}/model.safetensors"] = glpn_job.result()
     # the softedge, lineart_anime, normalbae and depth ControlNets are the
     # canny, HED, MLSD and lineart nets' folders: the name selects the
     # annotator
@@ -3286,11 +3363,11 @@ def main() -> int:
     # the same profile naming the softedge, lineart_anime, normalbae and
     # depth ControlNets (the canny, HED, MLSD and lineart nets' folders), its
     # annotators read from table5_pidinet.pth, netG.pth,
-    # normalbae/scannet.pt and the depth/ folder (DPT-hybrid), one window,
-    # against the injected pipeline with the same nets and the controlnet
-    # phase's annotators
+    # normalbae/scannet.pt and GLPN (b4) from the folder
+    # CONTROLANIMATE_DEPTH_MODEL names, one window, against the injected
+    # pipeline with the same nets and the controlnet phase's annotators
     se_settings = {"controlnets": M13C_CN_NAMES, "cond_scale": M13C_CN_SCALES}
-    with chdir(SNAPSHOT):
+    with chdir(SNAPSHOT), env_set(DEPTH_MODEL_ENV, str(SNAPSHOT / GLPN_FOLDER)):
         summary, disk_se_frames, seconds, counts, peak = run_cli(
             "disk_m13c", ["--max-windows", "1"],
             input_video_path=str(SNAPSHOT / "frames_512x512"), width=size, height=size,
@@ -3300,15 +3377,16 @@ def main() -> int:
         raise AssertionError(f"the softedge/lineart_anime/normalbae/depth CLI run wrote "
                              f"{len(disk_se_frames)} frames in {summary['windows']} windows, "
                              f"not {n_cli} in 1")
-    se_k1_expected = expected_k1_launches(1, 0, steps, frames_n, overlap,
-                                          controlnets=len(M13C_CN_NAMES))
-    se_k1_expected.update(HYBRID_K1)  # the depth annotator's ViT, fp32
+    # the depth annotator's GLPN layers, fp32
+    glpn_cli_k1 = glpn_k1_launches(GLPN_B4, frames_n, (size, size))
+    se_k1_expected = dict(Counter(expected_k1_launches(
+        1, 0, steps, frames_n, overlap, controlnets=len(M13C_CN_NAMES))) + Counter(glpn_cli_k1))
     if counts["k1_by_shape"] != se_k1_expected or counts["k2_by_shape"] or counts["k3"]:
         raise AssertionError(f"softedge/lineart_anime/normalbae/depth CLI K1 launches "
                              f"{counts['k1_by_shape']}, expected {se_k1_expected}, or K2 or K3 "
                              f"launched")
     se_models = EngineModels(unet=models.unet, vae=models.vae, controlnets=list(m13c_nets),
-                             annotators=[softedge, lineart_anime, normalbae, depth_hybrid])
+                             annotators=[softedge, lineart_anime, normalbae, depth_glpn])
     _, se_injected, _, _, _, _ = run_vid2vid(False, "m13c", engine_models=se_models,
                                              max_windows=1, **se_settings)
     diff = np.abs(np.stack(disk_se_frames).astype(np.int16)
@@ -3318,7 +3396,7 @@ def main() -> int:
                  "uint8_diff_vs_injected_mean": float(diff.mean()),
                  "k1_launches": sum(counts["k1_by_shape"].values()),
                  "depth_k1_launches": {str(k): counts["k1_by_shape"].get(k, 0)
-                                       for k in HYBRID_K1}}
+                                       for k in sorted(glpn_cli_k1)}}
     if diff.max():
         _, again, _, _, _, _ = run_vid2vid(False, "m13c_again", engine_models=se_models,
                                            max_windows=1, **se_settings)
@@ -3330,8 +3408,8 @@ def main() -> int:
                                  f"differ from the injected pipeline's by {int(diff.max())}, two "
                                  f"injected runs by {int(rerun.max())}")
     fields_se.update(loop_fields(summary, seconds, peak), timers=summary["timers"])
-    depth_cli_k1 = {k: counts["k1_by_shape"][k] for k in HYBRID_K1}
-    del disk_se_frames, se_injected, diff
+    depth_cli_k1 = {k: counts["k1_by_shape"][k] for k in glpn_cli_k1}
+    del disk_se_frames, se_injected, diff, se_models, depth_glpn
 
     # the LCM-LoRA profile's files (SampleConfigLCMLoRA.yaml: a LoRA from
     # `lora_model_paths`, its four ControlNets: openpose at 1.0, lineart at
@@ -3812,10 +3890,10 @@ def main() -> int:
     gen.manual_seed(SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    # the plain version is timed on the main path's shapes and the odd ones
-    # (the 512x768 and CFG shapes are checked against it above)
+    # the plain version is timed on the main path's shapes and the image
+    # encoder's (the 512x768, CFG and odd shapes are checked against it)
     launched = set(by_shape) | set(k1_768) | set(cfg_k1) | set(ip_k1) | set(seg_k1)
-    untimed_k1 = launched - set(by_shape) - {VISION_K1_SHAPE}
+    untimed_k1 = (launched | set(ODD_SHAPES)) - set(by_shape) - {VISION_K1_SHAPE}
     # fp32 K1 runs in the reference phase alone, at small shapes: the
     # launched shapes are checked in bf16, the odd ones in both
     check_seconds = 0.0  # of the phase's seconds, those of the checks
@@ -3852,18 +3930,26 @@ def main() -> int:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     by_row = {tuple(r["shape"]): r for r in rows}
-    # K1 at the depth annotators' shapes, checked in fp32 (their path: the
-    # controlnet phase's timed calls of both networks, the disk phase's CLI
-    # run of the hybrid) and in bf16; each dtype's time, SDPA's in that
-    # dtype and the bound, and the fp32 plain version's time
+    # K1 at the depth annotators' shapes (the DPTs' and GLPN's at b4 and
+    # 512x768, GLPN's at 512x512 in the disk phase's CLI run), and at the
+    # reference's b0 GLPN shapes (D = 32), checked in fp32 (their path: the
+    # controlnet phase's timed calls of the three networks, the CLI run) and
+    # in bf16; but at the CLI run's own shapes, each dtype's time, SDPA's in
+    # that dtype and the bound, and the fp32 plain version's time
     depth_rows = []
-    for shape in sorted(depth_k1):
+    cli_only = sorted(set(depth_cli_k1) - set(depth_k1))
+    for shape in sorted(depth_k1) + cli_only + sorted(glpn_ref_k1):
         t1 = time.perf_counter()
-        row = {"shape": list(shape), "launches_annotators_512x768": depth_k1[shape],
-               "launches_cli": depth_cli_k1.get(shape, 0)}
+        row = {"shape": list(shape), "launches_annotators_512x768": depth_k1.get(shape, 0),
+               "launches_cli": depth_cli_k1.get(shape, 0),
+               "launches_reference": glpn_ref_k1.get(shape, 0)}
         for dtype in (torch.float32, torch.bfloat16):
             row[f"max_abs_err_{str(dtype)[6:]}"] = check_kernel(torch, fa, shape, dtype, gen)
         check_seconds += time.perf_counter() - t1
+        if shape in cli_only:
+            depth_rows.append(row)
+            print(json.dumps({"k1_depth": row}), flush=True)
+            continue
         B, Nq, Nk, H, D = shape
         for dtype in (torch.float32, torch.bfloat16):
             tag = str(dtype)[6:]
@@ -3882,9 +3968,17 @@ def main() -> int:
         depth_rows.append(row)
         print(json.dumps({"k1_depth": row}), flush=True)
         torch.cuda.empty_cache()
-    depth_path = {"launches": sum(depth_k1.values()), **{
-        key: sum(r[key] * r["launches_annotators_512x768"] for r in depth_rows)
-        for key in ("ms_float32", "plain_ms_float32", "library_ms_float32", "bound_ms_float32")}}
+    def depth_sums(shapes):
+        """The fp32 times summed over the annotators step's launches of
+        `shapes`."""
+        return {"launches": sum(depth_k1[k] for k in shapes), **{
+            key: sum(r[key] * r["launches_annotators_512x768"] for r in depth_rows
+                     if tuple(r["shape"]) in shapes)
+            for key in ("ms_float32", "plain_ms_float32", "library_ms_float32",
+                        "bound_ms_float32")}}
+
+    depth_path = depth_sums(set(depth_k1) - set(glpn_768_k1))
+    glpn_path = depth_sums(set(glpn_768_k1))
 
     def window_sums(full, overlapped, lat=(size // 8, size // 8),
                     keys=("ms", "plain_ms", "library_ms", "bound_ms")):
@@ -3912,7 +4006,7 @@ def main() -> int:
                          **{k: by_row[VISION_K1_SHAPE][k] for k in (
                              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                              "max_abs_err_bf16", "tflops", "share_of_bound")}},
-          depth_path=depth_path,
+          depth_path=depth_path, glpn_path=glpn_path,
           per_overlap_window=window_sums(0, 1),
           per_full_window_512x768=window_sums(1, 0, latent, UNTIMED_PLAIN),
           per_overlap_window_512x768=window_sums(0, 1, latent, UNTIMED_PLAIN))
@@ -4082,7 +4176,7 @@ def main() -> int:
             "unpacked_ms": cuda_ms(torch, lambda: uk.upconv3x3(x, w, bias, upsample=upsample,
                                                                act="lrelu"), 10),
             # the plain version is timed on the main path's shapes only
-            "plain_ms": None if key in launched_768 else cuda_ms(
+            "plain_ms": None if key not in k4_by_shape else cuda_ms(
                 torch, lambda: uk.upconv3x3_plain(x, w, bias, upsample=upsample, act="lrelu"),
                 iters),
             "library_ms": cuda_ms(torch, library, iters),

@@ -273,8 +273,8 @@ def require_ported(cfg: RunConfig) -> None:
     """Raise NotImplementedError, naming the key, for any setting whose
     behaviour the port lacks (the facade and the vid2vid loop both call
     this); KeyError for a ControlNet name that selects no annotator. Names
-    are checked only: a depth folder's network (GLPN is M13c-4) is checked
-    when the pipeline reads it."""
+    are checked only: a depth folder's network (DPT, DPT-hybrid or GLPN)
+    is checked when the pipeline reads it."""
     from .models.annotators import annotator_name
 
     for name in cfg.controlnets:

@@ -20,7 +20,9 @@
 // and the loads must hide behind them. The depth annotators' ViTs (DPT and
 // DPT-hybrid, fp32) run it at D = 64 over 577 tokens (a 24 x 24 grid and
 // the class token), which is no multiple of any tile: the last K/V tile
-// and the last query block are ragged on every launch.
+// and the last query block are ragged on every launch. GLPN's efficient
+// attention (fp32) runs it with fewer keys than queries (Nk = Nq / sr^2),
+// at D = 64 at the published MiT-b4 widths and D = 32 at the b0 ones.
 //
 // bf16 (dtype 1), the main path. What the design does about that bound:
 //   - Both products are mma.sync m16n8k16 bf16 with fp32 sums (D = 40 adds
@@ -37,7 +39,7 @@
 //     roundings differ from the one-pass ones, and at the main path's 4096
 //     keys the output then leaves the bf16 gate that holds this kernel to
 //     the plain version (chip_smoke.py `k1_mismatch`).
-//   - D <= 160 (`attn_bf16_rows_kernel`): each warp owns 32 (D = 40, 64, 80) or
+//   - D <= 160 (`attn_bf16_rows_kernel`): each warp owns 32 (D = 32, 40, 64, 80) or
 //     16 (D = 160) query rows, two m16 tiles or one. Its Q fragments stay in registers for both
 //     passes; its S tile stays in registers, and the row max and sums run
 //     there with quad shuffles (the 4 lanes that hold one row). The m16n8
@@ -61,7 +63,7 @@
 //     scores set to -inf before the row max; query rows past Nq are zero and
 //     never stored.
 //   - Shared rows have a pitch of an odd number of 16-byte units (40 bf16 as
-//     they are, 64, 80, 160 and 512 padded by 8), so the 8 rows of every ldmatrix
+//     they are, 32, 64, 80, 160 and 512 padded by 8), so the 8 rows of every ldmatrix
 //     8x8 matrix fall in 8 different bank groups: ldmatrix is conflict-free.
 //   - log2(e) is folded into the scale and the exponentials are exp2f of one
 //     fmaf (S * scale * log2(e) - max). That differs from the plain version's
@@ -304,11 +306,14 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, in
 
 // Tile plan per head dim: (BQ, BK, TC) keep the fp32 output tile in registers
 // (RPT * CPT values a thread) and shared memory at or under ~100 KB, so two
-// blocks fit on an SM.
+// blocks fit on an SM. The grid is (query blocks, B * H), so a launch with
+// few heads and a long query (GLPN's first stage: B * H = 16, 24576 rows at
+// 512x768) still spreads over every SM.
 cudaError_t dispatch_fp32(const void* q, const void* k, const void* v, void* o, int B, int H,
                           int Nq, int Nk, int D, const int* st, float scale,
                           cudaStream_t stream) {
   switch (D) {
+    case 32: return launch_fp32<32, 64, 64, 8>(q, k, v, o, B, H, Nq, Nk, st, scale, stream);
     case 40: return launch_fp32<40, 64, 64, 8>(q, k, v, o, B, H, Nq, Nk, st, scale, stream);
     case 64: return launch_fp32<64, 64, 64, 16>(q, k, v, o, B, H, Nq, Nk, st, scale, stream);
     case 80: return launch_fp32<80, 64, 64, 16>(q, k, v, o, B, H, Nq, Nk, st, scale, stream);
@@ -400,7 +405,8 @@ __device__ __forceinline__ void mma_bf16_k8(float* c, const uint32_t* a, uint32_
 // Row pitch in bf16 of a shared tile of `cols` columns: an odd number of
 // 16-byte units, so that the 8 rows of every ldmatrix 8x8 matrix fall in 8
 // different bank groups (conflict-free). 40 columns (5 units) need no pad,
-// 64, 80, 160 and 512 get 8 more.
+// 32, 64, 80, 160 and 512 get 8 more (32 columns: a 64-byte row in an
+// 80-byte pitch).
 __host__ __device__ constexpr int padded_pitch(int cols) {
   return (cols / 8) % 2 == 1 ? cols : cols + 8;
 }
@@ -906,9 +912,13 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // query rows (168 and 243 registers a thread, 20 and 45 KB of shared
 // memory). D = 64 (the depth annotators' ViTs, which run in fp32; this
 // plan keeps one set of head dims for both dtypes): D = 80's shape, 64
-// output and 32 Q registers a lane, 36 KB (not tuned). D = 160: 8 warps of
+// output and 32 Q registers a lane, 36 KB (not tuned). D = 32 (GLPN at the
+// b0 widths, fp32; kept for the same reason): the same shape, 32 output and
+// 16 Q registers a lane, 64-byte rows in 80-byte pitches, 20 KB (not
+// tuned). D = 160: 8 warps of
 // 16 rows (BQ = 128; 80 output and 40 Q registers a lane, 214 a thread, 86
 // KB). D = 512: WidePlan.
+using Rows32 = RowsPlan<32, 4, 2, 64>;
 using Rows40 = RowsPlan<40, 4, 2, 64>;
 using Rows64 = RowsPlan<64, 4, 2, 64>;
 using Rows80 = RowsPlan<80, 4, 2, 64>;
@@ -926,6 +936,7 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, 
     if (sizes[i] > 1 && st[i] % 8 != 0) return cudaErrorMisalignedAddress;
   const float sl = scale * kLog2e;
   switch (D) {
+    case 32: return launch_rows<Rows32>(q, k, v, o, B, H, Nq, Nk, st, sl, stream);
     case 40: return launch_rows<Rows40>(q, k, v, o, B, H, Nq, Nk, st, sl, stream);
     case 64: return launch_rows<Rows64>(q, k, v, o, B, H, Nq, Nk, st, sl, stream);
     case 80: return launch_rows<Rows80>(q, k, v, o, B, H, Nq, Nk, st, sl, stream);
@@ -958,6 +969,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
 // for an unsupported D); nothing is launched.
 int flash_attention_bf16_smem_bytes(int D) {
   switch (D) {
+    case 32: return (int)Rows32::bytes;
     case 40: return (int)Rows40::bytes;
     case 64: return (int)Rows64::bytes;
     case 80: return (int)Rows80::bytes;

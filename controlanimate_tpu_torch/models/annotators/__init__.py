@@ -10,16 +10,15 @@ face (`openpose.py`), `softedge` (PidiNet, `pidinet.py`) and
 `lineart_anime` (`lineart_anime.py`), the networks read from `WEIGHT_FILES`
 in CONTROLANIMATE_ANNOTATOR_DIR (default `models/annotators`), `normalbae`
 (`normalbae.py`), read from the file that CONTROLANIMATE_NORMALBAE_MODEL
-names (default `models/annotators/normalbae/scannet.pt`), and `depth` (DPT
-or DPT-hybrid, `depth.py`), read from the transformers folder that
+names (default `models/annotators/normalbae/scannet.pt`), and `depth` (DPT,
+DPT-hybrid or GLPN, `depth.py`), read from the transformers folder that
 CONTROLANIMATE_DEPTH_MODEL names (default `models/annotators/depth`), as in
 JAX. A missing file or folder raises FileNotFoundError (where the JAX
 package falls back to `cv2.HoughLinesP` for MLSD, to HED for softedge, to
 depth or luminance normals for normalbae, to a host `transformers` model
-for depth, and skips OpenPose's hands or faces). A GLPN depth folder
-(M13c-4) raises NotImplementedError when the pipeline is built, where the
-folder is read. A name that matches no annotator raises KeyError, as in JAX
-(there at the first window, here at the build).
+for depth, and skips OpenPose's hands or faces). A name that matches no
+annotator raises KeyError, as in JAX (there at the first window, here at
+the build).
 """
 
 from __future__ import annotations
@@ -71,7 +70,8 @@ Annotator = Callable[[torch.Tensor], torch.Tensor]
 
 def annotator_name(controlnet_name: str) -> str:
     """The annotator a ControlNet's name selects (every one of the JAX
-    package's is ported); KeyError for a name that selects none."""
+    package's is ported, `depth` with DPT, DPT-hybrid and GLPN); KeyError
+    for a name that selects none."""
     n = controlnet_name.lower()
     for sub, key in ANNOTATOR_ORDER:
         if sub in n:

@@ -44,9 +44,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import dot_product_attention
+from ...ops.resize import resize_cubic
 from .edge_nets import up_by_stride
 
 LAYER_NORM_EPS = 1e-12
+NET_SIZE = 384  # every frame goes in at 384x384, whatever the config says (as JAX)
 # the plain net's resize of each neck level (JAX `dpt.py:136-149`)
 REASSEMBLE_FACTORS = (4, 2, 1, 0.5)
 # keys an upstream checkpoint may hold that no module here reads: the
@@ -346,9 +348,18 @@ def with_class_token(embeddings: nn.Module, tokens: torch.Tensor, pos: torch.Ten
     return torch.cat([cls, tokens], 1) + pos
 
 
+def network_input(frames: torch.Tensor, size: int = NET_SIZE) -> torch.Tensor:
+    """A DPT's input: (F, H, W, 3) uint8 -> (F, 3, size, size) float32,
+    INTER_CUBIC, then (x / 255 - 0.5) / 0.5."""
+    x = resize_cubic(frames, size, size).to(torch.float32)
+    return ((x / 255.0 - 0.5) / 0.5).permute(0, 3, 1, 2).contiguous()
+
+
 class DPTDepth(nn.Module):
     """x: (B, 3, H, W) normalised RGB -> (B, H, W) relative depth, its
     position table of `positions` rows (577: a 384x384 input at patch 16)."""
+
+    network_input = staticmethod(network_input)  # frames -> x, the annotator's
 
     def __init__(self, cfg: DPTConfig = DPT_LARGE, positions: int = 577):
         super().__init__()
@@ -387,11 +398,13 @@ def dpt_keys(sd: dict) -> dict:
 
 def load_depth_model(make, sd: dict) -> nn.Module:
     """`make()` with the fp32 weights of `sd` (this module's keys) on the
-    host: a missing weight raises KeyError naming it; an unexpected one, or
-    a shape off the config, RuntimeError."""
+    host: a missing weight raises KeyError naming it (a BatchNorm's
+    `num_batches_tracked`, which no network reads, may be absent); an
+    unexpected one, or a shape off the config, RuntimeError."""
     with torch.device("meta"):
         model = make()
-    missing = [k for k in model.state_dict() if k not in sd]
+    missing = [k for k in model.state_dict()
+               if k not in sd and not k.endswith(".num_batches_tracked")]
     if missing:
         raise KeyError(f"the depth checkpoint lacks {missing[0]!r} ({len(missing)} missing)")
     model.load_state_dict({k: v.to(device="cpu", dtype=torch.float32) for k, v in sd.items()},

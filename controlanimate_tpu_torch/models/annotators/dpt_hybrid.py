@@ -42,7 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .dpt import DepthHead, DPTNeck, ViTEncoder, resize_half_pixel, with_class_token
+from .dpt import (DepthHead, DPTNeck, ViTEncoder, network_input, resize_half_pixel,
+                  with_class_token)
 from .same_padding import Conv2dSame, same_pads
 
 WS_EPS = 1e-8
@@ -256,6 +257,8 @@ def resize_position_table(pos: torch.Tensor, grid: tuple[int, int]) -> torch.Ten
 class DPTHybridDepth(nn.Module):
     """x: (B, 3, H, W) normalised RGB -> (B, H, W) relative depth, its
     position table of `positions` rows (577 in Intel/dpt-hybrid-midas)."""
+
+    network_input = staticmethod(network_input)  # frames -> x, the annotator's
 
     def __init__(self, cfg: DPTHybridConfig = DPT_HYBRID_MIDAS, positions: int = 577):
         super().__init__()

@@ -1,13 +1,14 @@
 """Seeded stand-ins for the lineart, lineart_anime, PidiNet, MLSD, OpenPose,
-NormalBae and depth (DPT, DPT-hybrid) checkpoints.
+NormalBae and depth (DPT, DPT-hybrid, GLPN) checkpoints.
 
 The repo ships no annotator weights. These make a `LineartGenerator`, a
 lineart_anime `UnetGenerator`, a `table5_pidinet.pth` state dict, an
 `mlsd_large_512_fp32.pth` state dict (controlnet_aux's key layout,
 BatchNorm statistics included), the three OpenPose files, a `scannet.pt`
-and the transformers state dicts and `config.json`s of Intel/dpt-large and
-Intel/dpt-hybrid-midas (or a smaller geometry; `write_depth_folder` puts
-one on disk) from a `torch.Generator`, on its device, with maps that are
+and the transformers state dicts and `config.json`s of Intel/dpt-large,
+Intel/dpt-hybrid-midas and vinvino02/glpn-nyu (or a smaller geometry;
+`write_depth_folder` puts one on disk) from a `torch.Generator`, on its
+device, with maps that are
 neither constant nor saturated; and `pose_maps`, crafted stride-8 OpenPose
 maps of two people, which no seeded network gives. `chip_smoke.py` and the
 parity tests drive the annotators with them.
@@ -30,6 +31,7 @@ from .dpt import DPT_LARGE, DPTConfig, DPTDepth, REASSEMBLE_FACTORS
 from .dpt_hybrid import (DPT_HYBRID_MIDAS, DPTHybridConfig, DPTHybridDepth, WSConv,
                          standardize_weights_)
 from .edge_nets import LineartGenerator
+from .glpn import GLPN_B4, GLPNConfig, GLPNDepth
 from .lineart_anime import UnetGenerator
 from .openpose import LIMB_SEQ, MAP_IDX, BodyPoseNet
 from .openpose_face import FaceNet
@@ -399,6 +401,34 @@ DEPTH_HEAD_TARGETS = ((0.0, 1.0), (0.5, 1.0), (1.0, 0.5))
 
 
 @torch.no_grad()
+def _calibrate_head_(model: torch.nn.Module, sd: dict, layers: tuple, targets: tuple,
+                     x: torch.Tensor) -> None:
+    """Scale and shift each conv `model.head.head[j]` of `layers` so that on
+    the input `x` each of its output channels has the (mean, std) of
+    `targets` (the later convs see the earlier ones calibrated), and put
+    the convs' new weights into the state dict `sd`."""
+    head = model.head.head
+
+    def calibrate(conv, out, target):
+        mean, std = target
+        gain = std / out.std((0, 2, 3))
+        shift = mean - out.mean((0, 2, 3)) * gain
+        conv.weight.mul_(gain.reshape(-1, 1, 1, 1))
+        conv.bias.mul_(gain).add_(shift)
+        return out * gain.reshape(1, -1, 1, 1) + shift.reshape(1, -1, 1, 1)
+
+    hooks = [head[j].register_forward_hook(lambda c, i, o, t=t: calibrate(c, o, t))
+             for j, t in zip(layers, targets)]
+    with fp32_convs():
+        model(x)
+    for h in hooks:
+        h.remove()
+    for j in layers:
+        sd[f"head.head.{j}.weight"] = head[j].weight.detach().clone()
+        sd[f"head.head.{j}.bias"] = head[j].bias.detach().clone()
+
+
+@torch.no_grad()
 def _seeded_depth(model: torch.nn.Module, cfg: dict, gen: torch.Generator,
                   frames: torch.Tensor, size: int) -> dict:
     """The transformers state dict of `model` (built on the meta device):
@@ -435,27 +465,8 @@ def _seeded_depth(model: torch.nn.Module, cfg: dict, gen: torch.Generator,
             sd[key] = torch.randn(p.shape, generator=gen, device=dev) * std
     model.load_state_dict({k: v.clone() for k, v in sd.items()}, assign=True)
     model = standardize_weights_(model.eval())
-    head = model.head.head
-    calibrated = []
-
-    def calibrate(conv, inputs, out, target):
-        mean, std = target
-        gain = std / out.std((0, 2, 3))
-        shift = mean - out.mean((0, 2, 3)) * gain
-        conv.weight.mul_(gain.reshape(-1, 1, 1, 1))
-        conv.bias.mul_(gain).add_(shift)
-        calibrated.append(conv)
-        return out * gain.reshape(1, -1, 1, 1) + shift.reshape(1, -1, 1, 1)
-
-    hooks = [head[j].register_forward_hook(
-        lambda c, i, o, t=t: calibrate(c, i, o, t)) for j, t in zip((0, 2, 4), DEPTH_HEAD_TARGETS)]
-    with fp32_convs():
-        model(dp.network_input(frames.to(dev), size))
-    for h in hooks:
-        h.remove()
-    for j in (0, 2, 4):
-        sd[f"head.head.{j}.weight"] = head[j].weight.detach().clone()
-        sd[f"head.head.{j}.bias"] = head[j].bias.detach().clone()
+    _calibrate_head_(model, sd, (0, 2, 4), DEPTH_HEAD_TARGETS,
+                     dp.network_input(frames.to(dev), size))
     c = cfg["fusion_hidden_size"]
     unused = "neck.fusion_stage.layers.0.residual_layer1.convolution"
     for n in (1, 2):
@@ -487,6 +498,69 @@ def dpt_hybrid_checkpoint(gen: torch.Generator, frames: torch.Tensor,
     with torch.device("meta"):
         model = DPTHybridDepth(cfg, (size // cfg.patch) ** 2 + 1)
     return config, _seeded_depth(model, config, gen, frames, size)
+
+
+def glpn_config(cfg: GLPNConfig = GLPN_B4) -> dict:
+    """GLPN's transformers `config.json` (vinvino02/glpn-nyu's layout at
+    the b4 widths), with the keys JAX never reads at the values it
+    assumes."""
+    return {"model_type": "glpn", "hidden_sizes": list(cfg.hidden_sizes),
+            "depths": list(cfg.depths), "sr_ratios": list(cfg.sr_ratios),
+            "num_attention_heads": list(cfg.heads), "patch_sizes": list(cfg.patch_sizes),
+            "strides": list(cfg.strides), "mlp_ratios": list(cfg.mlp_ratios),
+            "decoder_hidden_size": cfg.decoder_hidden, "max_depth": cfg.max_depth,
+            "layer_norm_eps": cfg.ln_eps, "num_encoder_blocks": len(cfg.hidden_sizes),
+            **dp.GLPN_CONSTANTS}
+
+
+# GLPN's head on the calibration frames, each conv's output (mean, std):
+# the first at unit scale before its ReLU, the second (before the sigmoid)
+# at unit scale about 0, off the sigmoid's flat ends
+GLPN_HEAD_TARGETS = ((0.0, 1.0), (0.0, 1.0))
+
+
+@torch.no_grad()
+def glpn_checkpoint(gen: torch.Generator, frames: torch.Tensor,
+                    cfg: GLPNConfig = GLPN_B4) -> tuple[dict, dict]:
+    """A seeded GLPN (`glpn_config`, transformers keys, BatchNorms unfolded
+    with their `num_batches_tracked`) on the generator's device: (config.json,
+    state dict). Linear and conv weights N(0, 1/fan_in) (a depthwise conv's
+    fan-in its 9 taps), each layer's attention output and second MixFFN
+    dense times 1/sqrt(2 depth) of its stage, so that the residual stream
+    stays near unit scale; biases N(0, 0.05^2), LayerNorm gains 1 and shifts
+    0; BatchNorm gains 1 + N(0, 0.1^2), shifts N(0, 0.1^2), means N(0,
+    0.05^2) and variances U(0.75, 1.25) (JAX's transformers test seeds them
+    so). Then the head is calibrated on the (F, H, W, 3) uint8 `frames` at
+    the annotator's input (`GLPN_HEAD_TARGETS`), so that the maps are
+    neither constant nor saturated."""
+    dev = gen.device
+    with torch.device("meta"):
+        model = GLPNDepth(cfg)
+    sd = {}
+    for mname, m in model.named_modules():
+        for pname, p in m.named_parameters(recurse=False):
+            key = f"{mname}.{pname}"
+            if isinstance(m, torch.nn.LayerNorm):
+                sd[key] = torch.full(p.shape, float(pname == "weight"), device=dev)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                base = float(pname == "weight")
+                sd[key] = base + 0.1 * torch.randn(p.shape, generator=gen, device=dev)
+            elif pname == "bias":
+                sd[key] = 0.05 * torch.randn(p.shape, generator=gen, device=dev)
+            else:
+                std = 1.0 / math.sqrt(p[0].numel())
+                if key.endswith(("attention.output.dense.weight", "mlp.dense2.weight")):
+                    std /= math.sqrt(2 * cfg.depths[int(key.split(".")[3])])
+                sd[key] = torch.randn(p.shape, generator=gen, device=dev) * std
+        if isinstance(m, torch.nn.BatchNorm2d):
+            c = m.num_features
+            sd[f"{mname}.running_mean"] = 0.05 * torch.randn(c, generator=gen, device=dev)
+            sd[f"{mname}.running_var"] = 0.75 + 0.5 * torch.rand(c, generator=gen, device=dev)
+            sd[f"{mname}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64, device=dev)
+    model.load_state_dict({k: v.clone() for k, v in sd.items()}, assign=True)
+    _calibrate_head_(model.eval(), sd, (0, 2), GLPN_HEAD_TARGETS,
+                     dp.glpn_input(frames.to(dev)))
+    return glpn_config(cfg), sd
 
 
 def write_depth_folder(path, config: dict, sd: dict) -> int:

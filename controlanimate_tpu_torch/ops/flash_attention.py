@@ -33,7 +33,7 @@ from collections import Counter
 
 import torch
 
-SUPPORTED_HEAD_DIMS = (40, 64, 80, 160, 512)
+SUPPORTED_HEAD_DIMS = (32, 40, 64, 80, 160, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -77,8 +77,8 @@ CONTROLANIMATE_PALLAS_MOTION=1 (the JAX package's opt-in, read when the
 pipeline is built) puts the UNet's motion modules on K3.
 `RunConfig.use_pallas_attention` has no effect: K1 runs every unmasked
 self-attention whatever it says, and the build warns so. Every setting
-`config.require_ported` rejects (meshes, M14's options, ...) raises,
-and so does a GLPN depth folder (M13c-4) when it is read.
+`config.require_ported` rejects (meshes, M14's options, ...) raises; a
+depth folder's network is checked when it is read.
 """
 
 from __future__ import annotations

@@ -23,7 +23,9 @@ BatchNorms unfolded, as `scannet.pt` holds them), and the OpenPose
 the IP-Adapter projections of `pipelines/ip_adapter.py` `build_projection`,
 and `models/annotators/dpt.py` `dpt_params_from_torch` and
 `dpt_hybrid.py` `dpt_hybrid_params_from_torch` (the hybrid's weight-
-standardised convs unstandardised, as the file holds them)), copied here so
+standardised convs unstandardised, as the file holds them), and
+`models/annotators/glpn.py` `glpn_params_from_torch` (the decoder's
+BatchNorms unfolded, as the file holds them)), copied here so
 the port never imports that package. Kinds: "conv" HWIO -> OIHW, "deconv"
 a transposed conv's (kh, kw, O, I) -> (I, O, kh, kw), "dense" (in, out) ->
 (out, in), "raw" as is, "nchw" (1, H, W, C) -> (1, C, H, W), "lead1" with a
@@ -43,6 +45,7 @@ import torch
 from ..models.annotators.dpt import REASSEMBLE_FACTORS
 from ..models.annotators.dpt_hybrid import DPTHybridConfig
 from ..models.annotators.edge_nets import LINEART_RES_BLOCKS
+from ..models.annotators.glpn import GLPNConfig
 from ..models.annotators.mlsd import IR_SPEC
 from ..models.annotators.normalbae import B5, NNETConfig
 from ..models.annotators.openpose import BodyPoseNet
@@ -385,6 +388,43 @@ def dpt_hybrid_mapping(cfg: DPTHybridConfig) -> Iterator[Entry]:
     yield from _dpt_neck_head(cfg.reassemble_factors, (2, 3))
 
 
+def glpn_mapping(cfg: GLPNConfig) -> Iterator[Entry]:
+    """transformers GLPNForDepthEstimation's keys; a depthwise conv's (kh,
+    kw, 1, C) kernel goes back to (C, 1, kh, kw) by the "conv"
+    transposition, the decoder's BatchNorms unfolded, `dec_conv_{si}` only
+    where a stage's width differs from the decoder's."""
+    e = "glpn.encoder"
+    for i, depth in enumerate(cfg.depths):
+        yield from _conv(f"{e}.patch_embeddings.{i}.proj", f"patch_embed_{i}")
+        yield from _norm(f"{e}.patch_embeddings.{i}.layer_norm", f"patch_norm_{i}")
+        yield from _norm(f"{e}.layer_norm.{i}", f"stage_norm_{i}")
+        for j in range(depth):
+            t, f = f"{e}.block.{i}.{j}", f"block_{i}_{j}"
+            yield from _norm(f"{t}.layer_norm_1", f"{f}/layer_norm_1")
+            yield from _norm(f"{t}.layer_norm_2", f"{f}/layer_norm_2")
+            for name in ("query", "key", "value"):
+                yield from _dense(f"{t}.attention.self.{name}", f"{f}/attention/{name}")
+            yield from _dense(f"{t}.attention.output.dense", f"{f}/attention/out")
+            if cfg.sr_ratios[i] > 1:
+                yield from _conv(f"{t}.attention.self.sr", f"{f}/attention/sr")
+                yield from _norm(f"{t}.attention.self.layer_norm", f"{f}/attention/sr_norm")
+            yield from _dense(f"{t}.mlp.dense1", f"{f}/mlp/dense1")
+            yield from _dense(f"{t}.mlp.dense2", f"{f}/mlp/dense2")
+            yield from _conv(f"{t}.mlp.dwconv.dwconv", f"{f}/mlp/dwconv")
+    for si, c in enumerate(cfg.hidden_sizes[::-1]):
+        t, f = f"decoder.stages.{si}", f"dec_fusion_{si}"
+        if c != cfg.decoder_hidden:
+            yield from _conv(f"{t}.convolution", f"dec_conv_{si}")
+        if si > 0:
+            yield from _conv(f"{t}.fusion.convolutional_layer1.0", f"{f}/conv1")
+            yield from _bn(f"{t}.fusion.convolutional_layer1.1", f"{f}/bn1")
+            yield from _conv(f"{t}.fusion.convolutional_layer2.0", f"{f}/conv2")
+            yield from _bn(f"{t}.fusion.convolutional_layer2.1", f"{f}/bn2")
+            yield from _conv(f"{t}.fusion.convolutional_layer3", f"{f}/conv3")
+    yield from _conv("head.head.0", "head_conv1")
+    yield from _conv("head.head.2", "head_conv2")
+
+
 def openpose_mapping(make) -> Iterator[Entry]:
     """An OpenPose network's convs: the port's `a.b` (or `b`) is the JAX
     package's flat `a_b` (or `b`)."""
@@ -686,3 +726,7 @@ def dpt_state_dict(params: dict, num_layers: int) -> dict[str, torch.Tensor]:
 
 def dpt_hybrid_state_dict(params: dict, cfg: DPTHybridConfig) -> dict[str, torch.Tensor]:
     return _state_dict(params, dpt_hybrid_mapping(cfg))
+
+
+def glpn_state_dict(params: dict, cfg: GLPNConfig) -> dict[str, torch.Tensor]:
+    return _state_dict(params, glpn_mapping(cfg))

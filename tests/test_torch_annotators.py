@@ -10,11 +10,11 @@ drawing of JAX's own tpMaps (the network's, seeded and crafted ones) bit for
 bit against the JAX `decode_lines` + `cv2.line`, the whole annotator against
 `mlsd_net.run` (a stated share of pixels may differ), and its resizes and
 line drawing bit for bit against `cv2.resize` and `cv2.line`; and the
-annotator dispatch by substring, with a GLPN depth folder (M13c-4)
-raising and a missing weights file raising FileNotFoundError (OpenPose's
-own parity tests are `test_torch_openpose.py`, softedge's and
-lineart_anime's `test_torch_softedge_anime.py`, NormalBae's
-`test_torch_normalbae.py`, depth's `test_torch_depth.py`)."""
+annotator dispatch by substring, with a GLPN depth folder read as GLPN
+and a missing weights file raising FileNotFoundError (OpenPose's own
+parity tests are `test_torch_openpose.py`, softedge's and lineart_anime's
+`test_torch_softedge_anime.py`, NormalBae's `test_torch_normalbae.py`,
+depth's `test_torch_depth.py` and `test_torch_glpn.py`)."""
 
 import cv2
 import jax
@@ -186,14 +186,30 @@ def test_dispatch_by_substring(name, key):
 @pytest.mark.parametrize("name", ["lllyasviel/control_v11f1p_sd15_depth"])
 def test_m13_annotators_raise(name, tmp_path, monkeypatch):
     """The depth name passes the configuration check (names only); a GLPN
-    depth folder (M13c-4, not ported) raises NotImplementedError naming it
-    when the pipeline reads the folder, and nothing falls back."""
+    depth folder is read as GLPN when the pipeline reads it (the network
+    GLPN, tests/test_torch_glpn.py), and a GLPN config without weights
+    raises FileNotFoundError: nothing falls back."""
+    from controlanimate_tpu_torch.models.annotators.glpn import GLPNConfig, GLPNDepth
+    from controlanimate_tpu_torch.models.annotators.seeded import (glpn_checkpoint,
+                                                                   write_depth_folder)
+
     assert annotators.annotator_name(name) == "depth"
     require_ported(RunConfig(controlnets=("lllyasviel/sd-controlnet-canny", name)))
-    (tmp_path / "config.json").write_text('{"model_type": "glpn"}')
-    monkeypatch.setenv("CONTROLANIMATE_DEPTH_MODEL", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="M13c-4"):
+    (tmp_path / "bare").mkdir()
+    (tmp_path / "bare" / "config.json").write_text('{"model_type": "glpn"}')
+    monkeypatch.setenv("CONTROLANIMATE_DEPTH_MODEL", str(tmp_path / "bare"))
+    with pytest.raises(FileNotFoundError, match="no weight files"):
         annotators.resolve_annotator(name, "cpu")
+    tiny = GLPNConfig(hidden_sizes=(8, 16, 24, 32), depths=(1, 1, 1, 1), heads=(1, 2, 3, 4),
+                      mlp_ratios=(2, 2, 2, 2), decoder_hidden=16)
+    frames = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, 64, 64, 3),
+                                                               dtype=np.uint8))
+    write_depth_folder(tmp_path / "glpn", *glpn_checkpoint(torch.Generator().manual_seed(0),
+                                                          frames, tiny))
+    monkeypatch.setenv("CONTROLANIMATE_DEPTH_MODEL", str(tmp_path / "glpn"))
+    ann = annotators.resolve_annotator(name, "cpu")
+    assert isinstance(ann.model, GLPNDepth)
+    assert ann(frames).shape == (1, 64, 64, 3)
 
 
 def test_unknown_controlnet_name_raises():

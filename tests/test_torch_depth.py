@@ -13,9 +13,11 @@ value, and a hybrid whose stored position grid is larger and smaller than
 its /16 map's. The key tables round-trip the seeded checkpoints exactly.
 The annotator against JAX `depth.run` on the same seeded folders (plain
 and hybrid) at 64x80 and 45x61: within 1e-4 and 1 LSB, not constant. The
-refusals (a missing folder, GLPN, an unknown model_type, a config value JAX
+refusals (a missing folder, an unknown model_type, a config value JAX
 never reads off its constant, a missing weight, a plain position table off
-the 384 grid). And the path: a depth ControlNet read from disk, its window
+the 384 grid; a DPT folder whose config names GLPN is read as GLPN, and
+nothing falls back to the DPT in it; GLPN's own tests are in
+tests/test_torch_glpn.py). And the path: a depth ControlNet read from disk, its window
 against the JAX facade's (the hybrid), its CLI run against the injected
 pipeline, a segment run's S*F stack. JAX resizes with cv2's IPP off. The
 port runs on one torch thread; each JAX network compiles once per shape,
@@ -268,14 +270,16 @@ def test_missing_folder_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    ({"model_type": "glpn"}, NotImplementedError, "M13c-4"),
+    ({"model_type": "glpn"}, ValueError, "GLPN config's num_attention_heads is 2"),
     ({"model_type": "vit"}, ValueError, "'vit'"),
     ({"readout_type": "add"}, ValueError, "readout_type"),
     ({"hidden_act": "relu"}, ValueError, "hidden_act"),
     ({"layer_norm_eps": 1e-6}, ValueError, "layer_norm_eps"),
 ])
 def test_config_refusals(folders, change, error, match, tmp_path, monkeypatch):
-    """A GLPN folder raises NotImplementedError (M13c-4), another model_type
+    """A config naming GLPN is read as GLPN's (the hybrid's one head count
+    is not GLPN's list of one a stage: ValueError naming it), another
+    model_type raises
     ValueError, and a value of a key JAX never reads that is not the
     constant its networks assume ValueError naming the key; nothing falls
     to another network."""

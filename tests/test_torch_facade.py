@@ -96,9 +96,10 @@ def test_default_noise_is_seeded(pipelines):
 
 
 def test_unported_facade_paths_raise(tmp_path, monkeypatch):
-    """A GLPN depth folder (M13c-4) raises NotImplementedError when the
-    pipeline reads it (the DPT depth nets and IP-Adapter are ported:
-    tests/test_torch_depth.py, tests/test_torch_ip_adapter.py). A run
+    """A GLPN depth folder is read when the pipeline is built: one without
+    weights raises FileNotFoundError there (the depth nets and IP-Adapter
+    are ported: tests/test_torch_depth.py, tests/test_torch_glpn.py,
+    tests/test_torch_ip_adapter.py). A run
     without `use_lcm` is ported; a `scheduler` that names no sampler raises
     KeyError when the pipeline is built, before the disk build reads a file
     (JAX raises it at the first window)."""
@@ -114,8 +115,9 @@ def test_unported_facade_paths_raise(tmp_path, monkeypatch):
     monkeypatch.setenv("CONTROLANIMATE_DEPTH_MODEL", str(tmp_path))
     # a stand-in for the depth ControlNet: the build raises before using it
     depth_models = dataclasses.replace(models, controlnets=[torch.nn.Identity()])
-    for bad, what in (({"controlnets": ("lllyasviel/control_v11f1p_sd15_depth",)}, "M13c-4"),):
-        with pytest.raises(NotImplementedError, match=what):
+    for bad, what in (({"controlnets": ("lllyasviel/control_v11f1p_sd15_depth",)},
+                       "no weight files"),):
+        with pytest.raises(FileNotFoundError, match=what):
             tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, **bad}), models=depth_models,
                                            text_stack=text, device="cpu")
     pipe = tfacade.ControlAnimatePipeline(RunConfig(**{**CFG, "use_lcm": False}), models=models,

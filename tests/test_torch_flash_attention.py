@@ -24,10 +24,11 @@ from controlanimate_tpu_torch.ops.flash_attention import (
 )
 
 # the JAX kernel test's shapes, plus the UNet's D = 80 / 160, a VAE-like
-# (1, 64, 1, 512) case and the depth ViTs' 577 tokens at D = 64 (a 24 x 24
-# grid and the class token); tolerance is the JAX test's own
+# (1, 64, 1, 512) case, the depth ViTs' 577 tokens at D = 64 (a 24 x 24
+# grid and the class token) and GLPN's D = 32 (its b0 widths); tolerance is
+# the JAX test's own
 SHAPES = [(2, 256, 2, 40), (1, 512, 4, 64), (2, 256, 2, 128), (2, 128, 2, 80),
-          (1, 64, 2, 160), (1, 64, 1, 512), (1, 577, 2, 64)]
+          (1, 64, 2, 160), (1, 64, 1, 512), (1, 577, 2, 64), (2, 96, 5, 32)]
 ATOL, RTOL = 2e-5, 1e-4
 
 
@@ -190,6 +191,7 @@ EMULATED_SHAPES = list(chip_smoke.ODD_SHAPES) + [
     (2, 256, 256, 2, 40), (2, 77, 77, 2, 80), (1, 100, 100, 3, 160), (1, 130, 130, 1, 512),
     (2, 64, 200, 2, 40), (1, 1, 1, 1, 80), (1, 200, 333, 2, 80), (2, 77, 300, 2, 160),
     (1, 64, 129, 1, 512), (3, 129, 77, 2, 40), (2, 577, 577, 2, 64),
+    (2, 384, 24, 1, 32), (1, 96, 96, 8, 32),
 ]
 
 

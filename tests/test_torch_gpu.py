@@ -6,9 +6,10 @@ on K4) on the card against the CPU, the face step (RetinaFace, the
 aligned crop, GFPGAN, the paste, and the OpenCV stand-ins under them) on
 the card against the CPU, the ControlNet slice: canny and HED on the
 card against the CPU, and a small pipeline with two ControlNets; softedge
-(PidiNet), lineart_anime, NormalBae, lineart at 48x96 and the full-depth
-DPT and DPT-hybrid depth networks on the card against the CPU, each call on
-the card equal to the one before; and the
+(PidiNet), lineart_anime, NormalBae, lineart at 48x96, the full-depth
+DPT and DPT-hybrid depth networks and GLPN at the b0 widths (K1 at head
+dim 32) on the card against the CPU, each call on the card equal to the
+one before, and K1 at GLPN's b4 shapes; and the
 multi-step samplers: small windows under classifier-free guidance (Euler
 with a ControlNet, the LCM-LoRA tail, DPM-Solver) on the card against the
 CPU; the IP-Adapter's image encoder: K1 at its (1, 257, 16, 80) shape, and a
@@ -57,7 +58,9 @@ def _qkv(shape, device, dtype, nk=None, seed=0):
                                       ((3, 129, 2, 40), 77), ((1, 200, 2, 80), 333),
                                       ((2, 77, 2, 160), 300), ((1, 64, 1, 512), 129),
                                       ((2, 577, 12, 64), None), ((1, 77, 2, 64), 300),
-                                      ((3, 129, 1, 64), None)])
+                                      ((3, 129, 1, 64), None), ((1, 1536, 1, 32), 24),
+                                      ((1, 384, 2, 32), 24), ((1, 96, 5, 32), 24),
+                                      ((1, 24, 8, 32), None), ((3, 97, 2, 32), 50)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda, shape, nk, dtype):
     """The gates of `chip_smoke.k1_mismatch`: fp32 at 1e-4 (TF32 off in the
@@ -65,7 +68,8 @@ def test_kernel_matches_plain(cuda, shape, nk, dtype):
     query and key lengths may differ and need not be tile multiples. In bf16
     every tile plan (D = 40, 80, 160, 512) runs with ragged Nq and Nk, with
     Nq != Nk, and with more than two K/V tiles, so the two-stage ring wraps
-    (BK = 64, 64, 64 and 32 keys)."""
+    (BK = 64, 64, 64 and 32 keys). D = 32 at GLPN's b0 shapes at 128x192
+    (24 keys: one ragged tile) and an odd one."""
     import chip_smoke
 
     q, k, v = _qkv(shape, cuda, dtype, nk)
@@ -74,6 +78,20 @@ def test_kernel_matches_plain(cuda, shape, nk, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     bad = chip_smoke.k1_mismatch(torch, out, flash_attention_plain(q, k, v))
+    assert bad is None, bad
+
+
+@pytest.mark.parametrize("shape", [(16, 24576, 384, 1, 64), (16, 6144, 384, 2, 64),
+                                   (16, 1536, 384, 5, 64), (16, 384, 384, 8, 64)])
+def test_kernel_at_glpn_b4_shapes(cuda, shape):
+    """K1's fp32 plan at the four shapes of GLPN's b4 stages on a 16-frame
+    512x768 window (Nk = Nq / sr^2 but the last), against the plain
+    version at the fp32 gate."""
+    import chip_smoke
+
+    B, Nq, Nk, H, D = shape
+    q, k, v = _qkv((B, Nq, H, D), cuda, torch.float32, Nk)
+    bad = chip_smoke.k1_mismatch(torch, flash_attention(q, k, v), flash_attention_plain(q, k, v))
     assert bad is None, bad
 
 
@@ -148,7 +166,7 @@ def test_kernel_rejects_misaligned_bf16(cuda):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    q, k, v = _qkv((1, 16, 2, 64), cuda, torch.float32)
+    q, k, v = _qkv((1, 16, 2, 48), cuda, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, k, v)
     q, k, v = _qkv((1, 16, 2, 40), cuda, torch.float16)
@@ -627,6 +645,37 @@ def test_depth_card_matches_cpu(cuda, kind):
     card = DepthAnnotator(depth_network(config, sd, "cuda"))
     first = card(frames.cuda())
     assert first.shape == want.shape == (2, 64, 80, 3)
+    assert torch.equal(card(frames.cuda()), first)
+    assert float((first.cpu() - want).abs().max()) <= 1e-4
+    q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
+    assert int((q(want) - q(first.cpu())).abs().max()) <= 1
+    assert float(want.std()) > 0.05
+
+
+def test_glpn_card_matches_cpu(cuda):
+    """A seeded GLPN at the MiT-b0 widths (K1's fp32 plan at head dim 32 on
+    every stage), its head calibrated on the frames, on the card against
+    the CPU at 128x192: within 1e-4 and 1 LSB after the facade's uint8
+    quantisation, not flat, K1 launched once a layer, and a second call on
+    the card equal to the first."""
+    import numpy as np
+
+    import chip_smoke
+    from controlanimate_tpu_torch.models.annotators import seeded
+    from controlanimate_tpu_torch.models.annotators.depth import DepthAnnotator, depth_network
+    from controlanimate_tpu_torch.models.annotators.glpn import GLPN_B0
+
+    frames = torch.from_numpy(chip_smoke.edge_rich(np, chip_smoke.synthetic_video(
+        np, 2, 128, 192, chip_smoke.SEED)))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(chip_smoke.SEED)
+    config, sd = seeded.glpn_checkpoint(gen, frames, GLPN_B0)
+    want = DepthAnnotator(depth_network(config, sd, "cpu"))(frames)
+    card = DepthAnnotator(depth_network(config, sd, "cuda"))
+    before = flash_attention.launches
+    first = card(frames.cuda())
+    assert flash_attention.launches - before == sum(GLPN_B0.depths)
+    assert first.shape == want.shape == (2, 128, 192, 3)
     assert torch.equal(card(frames.cuda()), first)
     assert float((first.cpu() - want).abs().max()) <= 1e-4
     q = lambda m: (m.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).int()  # noqa: E731
