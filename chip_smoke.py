@@ -132,6 +132,23 @@ Phases, each printed as one JSON line with its seconds:
              the same loop with `use_pallas_conv` off (time and uint8
              difference reported, not gated); then one line with both
              phases' peak memory and their difference (reported).
+  window_variants
+             the UNet's attention variants: the window phase's UNet rebuilt
+             with the inference yaml's `unet_use_cross_frame_attention` and
+             `unet_use_temporal_attention` (every weight copied, the
+             sub-layer's `attn_temp` and `norm_temp` seeded, so that it is
+             no identity) and motion band VARIANT_BAND, driven through the
+             same loop (K2 off) with `temporal_band` VARIANT_BAND and
+             CONTROLANIMATE_PALLAS_MOTION=1 over the first 24 frames (one
+             whole and one overlap window). Checks 24 frames written that
+             are not constant and differ from vid2vid_plain_conv's, K1's
+             launches by shape (`variant_k1_launches`: sparse-causal attn1
+             at (16, N, 2N, 8, D), the sub-layer at (N, 16, 16, 8, D), the
+             VAE's), and K3 never launched (the band is active at 16
+             frames); then one window with the band at 15 (every frame
+             pair: exact dense attention), where K3 must launch 84 times.
+             Prints new frames/s, seconds a window beside
+             vid2vid_plain_conv's, peak memory and the loop's timers.
   controlnet this slice's path: the same loop (K2 off) with two full-width
              SD1.5 ControlNets (`lllyasviel/sd-controlnet-canny` at 1.0,
              `lllyasviel/sd-controlnet-hed` at 0.5; seeded by
@@ -332,12 +349,13 @@ Phases, each printed as one JSON line with its seconds:
              memory. Fails if GFPGAN's fp32 output is not finite, or a
              paste leaves its face's centre unchanged.
   kernels    K1 against its plain version at every shape the window phase,
-             the cfg phase and the disk phase's 512x768, IP-Adapter and
-             segment runs launched it with (the image encoder's (1, 257,
-             257, 16, 80) among them, its plain version timed; the plain
-             version on slices of the batch where its scores would pass
-             PLAIN_SCORE_BYTES), plus odd
-             lengths (D = 32 among them), in bf16, and in fp32 (the reference phase's dtype,
+             the window_variants and cfg phases and the disk phase's
+             512x768, IP-Adapter and segment runs launched it with (the
+             image encoder's (1, 257, 257, 16, 80) among them, its plain
+             version timed; the plain version on slices of the batch where
+             its scores would pass PLAIN_SCORE_BYTES), plus odd
+             lengths (D = 32 among them) and K1_GRID_SHAPES (B*H past the
+             grid's 65535 on y), in bf16, and in fp32 (the reference phase's dtype,
              which runs it at small shapes) at the odd lengths
              (`k1_mismatch` states the gates), with its achieved TFLOP/s
              and share of the bound in bf16; K2
@@ -354,15 +372,16 @@ Phases, each printed as one JSON line with its seconds:
              PyTorch call's (SDPA for K1, `F.conv2d` on the activated input
              for K2: yardsticks the port never calls) and the bound, and
              their sums over a window at both geometries, and K1's over the
-             vid2vid, controlnet and cfg phases' and the IP-Adapter and
-             segment runs' launches, and the image encoder's alone. Then
+             vid2vid, controlnet, window_variants and cfg phases' and the
+             IP-Adapter and segment runs' launches, and the image encoder's
+             alone. Then
              K1 at the depth networks' shapes (16, 577, 577, 16 and 12, 64),
              GLPN's four b4 shapes at 512x768 and 512x512 (the disk
              phase's CLI run) and the reference's b0 GLPN shapes (D = 32)
-             in fp32 (their dtype) and bf16 against its plain version,
-             and but at the 512x512 shapes each dtype's time, SDPA's and the
+             in fp32 (their dtype) against its plain version,
+             and but at the 512x512 and b0 shapes the time, SDPA's and the
              bound (fp32 operations at the CUDA cores' 67 TFLOP/s), the
-             fp32 plain version's time (a `k1_depth` line a shape), and
+             plain version's time (a `k1_depth` line a shape), and
              their sums
              over the DPTs' and GLPN's timed launches (`depth_path`,
              `glpn_path`).
@@ -483,6 +502,13 @@ def unet_k1_shapes(frames_n: int, latent: tuple[int, int]) -> dict:
 ODD_SHAPES = [(2, 77, 77, 8, 40), (3, 333, 333, 2, 80), (1, 129, 129, 8, 160),
               (2, 77, 77, 1, 512), (1, 77, 300, 2, 64), (3, 129, 129, 1, 64),
               (3, 97, 50, 2, 32)]
+# K1 where B*H passes 65535, the grid's y (it goes on in z): the temporal
+# sub-layer's (B*N, F, F, H, D) at the full level of a 512x512, 16-frame
+# window under CFG (B = 2) and on the segment path (B = 4)
+K1_GRID_SHAPES = [(8192, 16, 16, 8, 40), (16384, 16, 16, 8, 40)]
+# the window_variants phase's motion band (RunConfig.temporal_band): active
+# at 16 frames; a band of F - 1 is exact dense attention and leaves K3 on
+VARIANT_BAND = 4
 # odd K2 shapes (B, H, W, Cin, Cout): H and W not multiples of the 16 x 16
 # tile, H = 7, H = 1 with W = 16, and Cin = 80, whose last 32-channel chunk
 # is a short one of 16
@@ -634,7 +660,10 @@ def k1_mismatch(torch, out, ref) -> str | None:
     return None
 
 
-PLAIN_SCORE_BYTES = 20e9  # the plain version's fp32 scores a call, at most
+# the plain version's fp32 scores a call, at most (its rounded copies take
+# 1.5x that again): sparse-causal attention's (16, 4096, 8192, 8, 40) holds
+# 17.2 GB of scores, so it is checked in slices of 4
+PLAIN_SCORE_BYTES = 5e9
 
 
 def check_kernel(torch, fa, shape, dtype, gen) -> float:
@@ -2362,6 +2391,60 @@ def expected_cfg_k1_launches(window_steps: list, frames_n: int, encodes: list,
     return dict(expected)
 
 
+def variant_k1_launches(full_windows: int, overlap_windows: int, steps: int, frames_n: int,
+                        overlap: int, latent=(64, 64)) -> dict:
+    """K1 launches by shape of windows of a UNet with sparse-causal
+    self-attention and the temporal sub-layer on `latent` (h, w), as
+    `expected_k1_launches` counts them but for each spatial block's two
+    attentions: attn1 at (B*F, N, 2N, 8, D) (frame 0 and the frame before as
+    keys) and attn_temp at (N, F, F, 8, D) (the frames of each token)."""
+    expected = Counter(expected_k1_launches(full_windows, overlap_windows, steps, frames_n,
+                                            overlap, latent))
+    for (bf, n, _, heads, d), blocks in unet_k1_shapes(frames_n, latent).items():
+        k = blocks * steps * (full_windows + overlap_windows)
+        expected[(bf, n, n, heads, d)] -= k
+        expected[(bf, n, 2 * n, heads, d)] += k
+        expected[(n, frames_n, frames_n, heads, d)] += k
+    return {shape: k for shape, k in expected.items() if k}
+
+
+def variant_unet(torch, unet, band: int, gen):
+    """`unet` rebuilt with the inference yaml's two attention options
+    (sparse-causal self-attention, the temporal sub-layer) and motion band
+    `band`, in its dtype on its device: every weight copied from `unet` but
+    the sub-layer's `attn_temp` and `norm_temp`, which are seeded
+    (`init_weights_`: its out projection not zero, so the sub-layer is no
+    identity)."""
+    from controlanimate_tpu_torch.models.unet3d import UNet3DConditionModel
+
+    cfg = unet.config
+    vcfg = dataclasses.replace(cfg, cross_frame_attention=True, temporal_attention=True,
+                               motion=dataclasses.replace(cfg.motion, attention_band=band))
+    weight = next(unet.parameters())
+    with torch.device(weight.device):
+        var = UNet3DConditionModel(vcfg).to(weight.dtype)
+    missing, unexpected = var.load_state_dict(unet.state_dict(), strict=False)
+    if unexpected or not missing or any("_temp." not in k for k in missing):
+        raise AssertionError(f"the variant UNet's keys differ from the UNet's beyond the "
+                             f"sub-layer: {missing[:3]}, {unexpected[:3]}")
+    for m in var.modules():
+        if getattr(m, "attn_temp", None) is not None:
+            init_weights_(torch, m.attn_temp, gen)
+            init_weights_(torch, m.norm_temp, gen)
+    return var.eval()
+
+
+def set_motion_band(unet, band: int) -> None:
+    """`unet` as its config builds it with motion band `band`, the weights
+    kept: the band of each motion module and frame attention, and of the
+    config, which the facade holds against `temporal_band`."""
+    for m in unet.modules():
+        if hasattr(m, "band"):
+            m.band = band
+    unet.config = dataclasses.replace(
+        unet.config, motion=dataclasses.replace(unet.config.motion, attention_band=band))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2788,6 +2871,74 @@ def main() -> int:
     print(json.dumps({"peak_memory": {"vid2vid": v2v_peak, "vid2vid_plain_conv": plain_peak,
                                       "difference": v2v_peak - plain_peak}}), flush=True)
     del diff, raw, matched
+
+    # -- the UNet's attention variants: sparse-causal self-attention and the
+    # temporal sub-layer on K1, the motion modules banded with K3 off ------
+    t0 = time.perf_counter()
+    vgen = torch.Generator(device="cuda")
+    vgen.manual_seed(SEED + 2)
+    var_unet = variant_unet(torch, models.unet, VARIANT_BAND, vgen)
+    var_models = EngineModels(unet=var_unet, vae=models.vae)
+    torch.cuda.synchronize()
+    t_var_build = time.perf_counter() - t0
+    var_n = 2 * frames_n - overlap  # one whole and one overlap window
+    with motion_env(True):
+        summary_var, var_frames, var_seconds, _, counts, var_peak = run_vid2vid(
+            False, "variants", engine_models=var_models, source=video[:var_n],
+            temporal_band=VARIANT_BAND)
+    var_k1 = counts["k1_by_shape"]
+    var_k1_expected = variant_k1_launches(1, 1, steps, frames_n, overlap)
+    if summary_var["frames_written"] != var_n or len(var_frames) != var_n:
+        raise AssertionError(f"the variant loop wrote {summary_var['frames_written']} frames")
+    if any(f.shape != (size, size, 3) or f.dtype != np.uint8 for f in var_frames):
+        raise AssertionError("the variant loop's frames are not (512, 512, 3) uint8")
+    var_change = np.abs(np.stack(var_frames).astype(np.int16)
+                        - np.stack(plain_frames[:var_n]).astype(np.int16))
+    if float(np.stack(var_frames).std()) == 0.0 or not var_change.max():
+        raise AssertionError("the variant loop's frames are constant or equal "
+                             "vid2vid_plain_conv's")
+    if var_k1 != var_k1_expected:
+        raise AssertionError(f"the variant loop launched K1 {var_k1}, expected {var_k1_expected}")
+    if counts["k3"] or counts["k2"] or counts["k4"]:
+        raise AssertionError(f"the variant loop (band {VARIANT_BAND} at {frames_n} frames: "
+                             f"active) launched K3 {counts['k3']} times, or K2 or K4")
+    # a band of F - 1 covers every frame pair: exact dense attention, on K3
+    set_motion_band(var_unet, frames_n - 1)
+    with motion_env(True):
+        pipe15 = ControlAnimatePipeline(cfg.replace(temporal_band=frames_n - 1),
+                                        models=var_models, text_stack=text, device="cuda")
+    frames15 = torch.from_numpy(video[:frames_n]).cuda()
+    pipe15.animate(frames15, None, overlaps=0, seed=SEED, epoch=0)  # warm-up
+    torch.cuda.synchronize()
+    mk.reset_launch_counts()
+    t1 = time.perf_counter()
+    out15 = pipe15.animate(frames15, None, overlaps=0, seed=SEED, epoch=0)
+    torch.cuda.synchronize()
+    t15 = time.perf_counter() - t1
+    check_window(out15)
+    k3_15 = dict(mk.motion_module_fused.launches_by_shape)
+    k3_15_expected = expected_k3_launches(var_unet, size // 8, frames_n, steps, 1)
+    if k3_15 != k3_15_expected or sum(k3_15.values()) != sum(K3_SHAPES.values()) * steps:
+        raise AssertionError(f"at band {frames_n - 1} K3 launched {k3_15}, expected "
+                             f"{k3_15_expected}")
+    phase("window_variants", t0, band=VARIANT_BAND, build_seconds=round(t_var_build, 4),
+          sub_layer_params=sum(p.numel() for n, p in var_unet.named_parameters()
+                               if "_temp." in n),
+          windows=summary_var["windows"], frames_written=summary_var["frames_written"],
+          loop_seconds=round(var_seconds, 4),
+          new_frames_per_second_first_window_included=round(
+              summary_var["frames_written"] / var_seconds, 4),
+          seconds_per_window=round(var_seconds / summary_var["windows"], 4),
+          plain_conv_seconds_per_window=round(plain_seconds / summary_plain["windows"], 4),
+          uint8_diff_from_plain_mean=float(var_change.mean()),
+          uint8_diff_from_plain_max=int(var_change.max()), max_memory_allocated=var_peak,
+          k1_launches=sum(var_k1.values()), k3_launches=counts["k3"],
+          k1_launches_by_shape={str(k): n for k, n in sorted(var_k1.items())},
+          band_dense={"band": frames_n - 1, "window_seconds": round(t15, 4),
+                      "k3_launches": sum(k3_15.values())},
+          timers=summary_var["timers"])
+    del var_unet, var_models, pipe15, frames15, out15, var_frames, var_change
+    torch.cuda.empty_cache()
 
     # -- this slice's path: the loop with two ControlNets -------------------
     from controlanimate_tpu_torch.models.annotators.edge_nets import ControlNetHED, HEDAnnotator
@@ -3892,12 +4043,14 @@ def main() -> int:
     rows = []
     # the plain version is timed on the main path's shapes and the image
     # encoder's (the 512x768, CFG and odd shapes are checked against it)
-    launched = set(by_shape) | set(k1_768) | set(cfg_k1) | set(ip_k1) | set(seg_k1)
-    untimed_k1 = (launched | set(ODD_SHAPES)) - set(by_shape) - {VISION_K1_SHAPE}
+    launched = (set(by_shape) | set(k1_768) | set(cfg_k1) | set(ip_k1) | set(seg_k1)
+                | set(var_k1))
+    untimed_k1 = ((launched | set(ODD_SHAPES) | set(K1_GRID_SHAPES)) - set(by_shape)
+                  - {VISION_K1_SHAPE})
     # fp32 K1 runs in the reference phase alone, at small shapes: the
     # launched shapes are checked in bf16, the odd ones in both
     check_seconds = 0.0  # of the phase's seconds, those of the checks
-    for shape in sorted(launched) + ODD_SHAPES:
+    for shape in sorted(launched) + ODD_SHAPES + K1_GRID_SHAPES:
         t1 = time.perf_counter()
         err_bf16 = check_kernel(torch, fa, shape, torch.bfloat16, gen)
         err_fp32 = (check_kernel(torch, fa, shape, torch.float32, gen)
@@ -3914,6 +4067,7 @@ def main() -> int:
             "launches_512x768": k1_768.get(shape, 0), "launches_cfg": cfg_k1.get(shape, 0),
             "launches_segments": seg_k1.get(shape, 0),
             "launches_ip_adapter_512x768": ip_k1.get(shape, 0),
+            "launches_variants": var_k1.get(shape, 0),
             "max_abs_err_bf16": err_bf16, "max_abs_err_fp32": err_fp32,
             "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), iters),
             "plain_ms": None if shape in untimed_k1 else cuda_ms(
@@ -3932,38 +4086,32 @@ def main() -> int:
     by_row = {tuple(r["shape"]): r for r in rows}
     # K1 at the depth annotators' shapes (the DPTs' and GLPN's at b4 and
     # 512x768, GLPN's at 512x512 in the disk phase's CLI run), and at the
-    # reference's b0 GLPN shapes (D = 32), checked in fp32 (their path: the
-    # controlnet phase's timed calls of the three networks, the CLI run) and
-    # in bf16; but at the CLI run's own shapes, each dtype's time, SDPA's in
-    # that dtype and the bound, and the fp32 plain version's time
+    # reference's b0 GLPN shapes (D = 32), checked in fp32, their dtype
+    # (their path: the controlnet phase's timed calls of the three networks,
+    # the CLI run; bf16 at D = 64 and 32 is checked in tests/test_torch_gpu.py);
+    # and, but at the CLI run's and the b0 GLPN's shapes (B = 1 there,
+    # launch-bound), timed: K1, SDPA and the plain version, beside the bound
     depth_rows = []
-    cli_only = sorted(set(depth_cli_k1) - set(depth_k1))
-    for shape in sorted(depth_k1) + cli_only + sorted(glpn_ref_k1):
+    untimed_depth = sorted(set(depth_cli_k1) - set(depth_k1)) + sorted(glpn_ref_k1)
+    for shape in sorted(depth_k1) + untimed_depth:
         t1 = time.perf_counter()
         row = {"shape": list(shape), "launches_annotators_512x768": depth_k1.get(shape, 0),
                "launches_cli": depth_cli_k1.get(shape, 0),
-               "launches_reference": glpn_ref_k1.get(shape, 0)}
-        for dtype in (torch.float32, torch.bfloat16):
-            row[f"max_abs_err_{str(dtype)[6:]}"] = check_kernel(torch, fa, shape, dtype, gen)
+               "launches_reference": glpn_ref_k1.get(shape, 0),
+               "max_abs_err_float32": check_kernel(torch, fa, shape, torch.float32, gen)}
         check_seconds += time.perf_counter() - t1
-        if shape in cli_only:
-            depth_rows.append(row)
-            print(json.dumps({"k1_depth": row}), flush=True)
-            continue
-        B, Nq, Nk, H, D = shape
-        for dtype in (torch.float32, torch.bfloat16):
-            tag = str(dtype)[6:]
-            q, k, v = (torch.randn((B, n, H, D), generator=gen, device="cuda", dtype=dtype)
+        if shape not in untimed_depth:
+            B, Nq, Nk, H, D = shape
+            q, k, v = (torch.randn((B, n, H, D), generator=gen, device="cuda")
                        for n in (Nq, Nk, Nk))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            row[f"ms_{tag}"] = cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 20)
-            row[f"library_ms_{tag}"] = cuda_ms(torch, lambda: sdpa(qt, kt, vt), 20)
-            ops, nbytes = attention_bound_ms(shape, q.element_size())
-            row[f"bound_ms_{tag}"] = max(ops, nbytes)
-            row[f"bound_by_{tag}"] = "operations" if ops >= nbytes else "bytes"
-            if dtype == torch.float32:
-                row["plain_ms_float32"] = cuda_ms(
-                    torch, lambda: fa.flash_attention_plain(q, k, v), PLAIN_ITERS, warmup=0)
+            row["ms_float32"] = cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 20)
+            row["library_ms_float32"] = cuda_ms(torch, lambda: sdpa(qt, kt, vt), 20)
+            ops, nbytes = attention_bound_ms(shape, 4)
+            row["bound_ms_float32"] = max(ops, nbytes)
+            row["bound_by_float32"] = "operations" if ops >= nbytes else "bytes"
+            row["plain_ms_float32"] = cuda_ms(
+                torch, lambda: fa.flash_attention_plain(q, k, v), PLAIN_ITERS, warmup=0)
             del q, k, v, qt, kt, vt
         depth_rows.append(row)
         print(json.dumps({"k1_depth": row}), flush=True)
@@ -4000,6 +4148,10 @@ def main() -> int:
           cfg_path={"launches": sum(cfg_k1.values()), **launched_sums(cfg_k1, UNTIMED_PLAIN)},
           segments_path={"launches": sum(seg_k1.values()),
                          **launched_sums(seg_k1, UNTIMED_PLAIN)},
+          variants_path={"launches": sum(var_k1.values()),
+                         **launched_sums(var_k1, UNTIMED_PLAIN)},
+          grid_shapes={str(k): {key: by_row[k][key] for key in (
+              "ms", "library_ms", "bound_ms", "max_abs_err_bf16")} for k in K1_GRID_SHAPES},
           ip_adapter_512x768_path={"launches": sum(ip_k1.values()),
                                    **launched_sums(ip_k1, UNTIMED_PLAIN)},
           image_encoder={"launches": ip_k1.get(VISION_K1_SHAPE, 0),

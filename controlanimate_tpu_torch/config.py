@@ -47,7 +47,7 @@ class MotionModuleConfig:
     temporal_position_encoding: bool = True
     temporal_position_encoding_max_len: int = 32
     temporal_attention_dim_div: int = 1
-    attention_band: int = 0  # banded temporal attention; the port runs 0 only
+    attention_band: int = 0  # banded temporal attention: +-band frames; 0 = dense
 
 
 @dataclass(frozen=True)
@@ -281,7 +281,6 @@ def require_ported(cfg: RunConfig) -> None:
         annotator_name(name)
     unported = {
         "mesh_shape": (bool(cfg.mesh_shape), "device meshes (M15b)"),
-        "temporal_band": (bool(cfg.temporal_band), "banded motion attention (M14)"),
         "token_merge_ratio": (bool(cfg.token_merge_ratio), "token merging (M14)"),
         "encoder_reuse_every": (bool(cfg.encoder_reuse_every), "encoder reuse (M14)"),
     }

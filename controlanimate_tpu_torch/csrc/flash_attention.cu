@@ -96,6 +96,20 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kFmaThreads = 128;
 
+// The grid is (query tiles, then B * H spread over y and z): the query tiles
+// of one (batch, head) stay on x, so the blocks that run together share its
+// K/V in L2; y holds at most 65535, so B * H past that (the temporal
+// sub-layer's B * N rows under CFG) continues on z. A block past B * H (the
+// last z row's tail) returns at once.
+constexpr int kMaxGridY = 65535;
+
+inline dim3 attn_grid(int q_tiles, int BH) {
+  const int y = BH < kMaxGridY ? BH : kMaxGridY;
+  return dim3(q_tiles, y, (BH + y - 1) / y);
+}
+
+__device__ __forceinline__ int grid_bh() { return blockIdx.z * gridDim.y + blockIdx.y; }
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -132,8 +146,8 @@ struct Smem {
 template <int D, int BQ, int BK, int TC>
 __global__ void __launch_bounds__(kFmaThreads)
 attn_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H, int Nq, int Nk,
-                 int sqb, int sqn, int sqh, int skb, int skn, int skh,
+                 const float* __restrict__ v, float* __restrict__ o, int BH, int H, int Nq,
+                 int Nk, int sqb, int sqn, int sqh, int skb, int skn, int skh,
                  int svb, int svn, int svh, int sob, int son, int soh, float scale) {
   using S = Smem<D, BQ, BK>;
   constexpr int TR = kFmaThreads / TC;
@@ -160,7 +174,8 @@ attn_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  const int bh = grid_bh();
+  if (bh >= BH) return;
   const int b = bh / H;
   const int h = bh - b * H;
 
@@ -296,17 +311,17 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, in
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Nq + BQ - 1) / BQ, B * H);
+  const dim3 grid = attn_grid((Nq + BQ - 1) / BQ, B * H);
   kern<<<grid, kFmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Nq, Nk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale);
+      static_cast<float*>(o), B * H, H, Nq, Nk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], scale);
   return cudaGetLastError();
 }
 
 // Tile plan per head dim: (BQ, BK, TC) keep the fp32 output tile in registers
 // (RPT * CPT values a thread) and shared memory at or under ~100 KB, so two
-// blocks fit on an SM. The grid is (query blocks, B * H), so a launch with
+// blocks fit on an SM. The query blocks lie on the grid's x, so a launch with
 // few heads and a long query (GLPN's first stage: B * H = 16, 24576 rows at
 // 512x768) still spreads over every SM.
 cudaError_t dispatch_fp32(const void* q, const void* k, const void* v, void* o, int B, int H,
@@ -488,9 +503,9 @@ struct RowsPlan {
 template <int D, int NW, int MT, int BK>
 __global__ void __launch_bounds__(NW * 32)
 attn_bf16_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Nq, int Nk,
-                      int sqb, int sqn, int sqh, int skb, int skn, int skh, int svb, int svn,
-                      int svh, int sob, int son, int soh, float scale_log2) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o, int BH, int H, int Nq,
+                      int Nk, int sqb, int sqn, int sqh, int skb, int skn, int skh, int svb,
+                      int svn, int svh, int sob, int son, int soh, float scale_log2) {
   using P = RowsPlan<D, NW, MT, BK>;
   constexpr int NT = NW * 32;
   constexpr int KS = D / 16;           // k16 steps of QK^T
@@ -509,7 +524,8 @@ attn_bf16_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tg = lane & 3;  // column pair within an n8 tile
   const int mi = lane >> 3;  // ldmatrix: this lane addresses matrix mi of an x4,
   const int lr = lane & 7;   // row lr within it
-  const int bh = blockIdx.y;
+  const int bh = grid_bh();
+  if (bh >= BH) return;
   const int b = bh / H;
   const int h = bh - b * H;
   const bf16* qb = q + (int64_t)b * sqb + (int64_t)h * sqh;
@@ -692,11 +708,11 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, void* o, in
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((Nq + P::BQ - 1) / P::BQ, B * H);
+  const dim3 grid = attn_grid((Nq + P::BQ - 1) / P::BQ, B * H);
   kern<<<grid, P::NW * 32, P::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, Nq, Nk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale_log2);
+      static_cast<bf16*>(o), B * H, H, Nq, Nk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], scale_log2);
   return cudaGetLastError();
 }
 
@@ -722,9 +738,9 @@ struct WidePlan {
 
 __global__ void __launch_bounds__(WidePlan::NW * 32, 1)
 attn_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Nq, int Nk,
-                      int sqb, int sqn, int sqh, int skb, int skn, int skh, int svb, int svn,
-                      int svh, int sob, int son, int soh, float scale_log2) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o, int BH, int H, int Nq,
+                      int Nk, int sqb, int sqn, int sqh, int skb, int skn, int skh, int svb,
+                      int svn, int svh, int sob, int son, int soh, float scale_log2) {
   using P = WidePlan;
   constexpr int D = P::D, BQ = P::BQ, BK = P::BK, LDS = P::LDS, LDP = P::LDP;
   constexpr int NT = P::NW * 32;
@@ -743,7 +759,8 @@ attn_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int mi = lane >> 3;
   const int lr = lane & 7;
   const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  const int bh = grid_bh();
+  if (bh >= BH) return;
   const int b = bh / H;
   const int h = bh - b * H;
   const bf16* qb = q + (int64_t)b * sqb + (int64_t)h * sqh;
@@ -895,11 +912,11 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, in
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)P::bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((Nq + P::BQ - 1) / P::BQ, B * H);
+  const dim3 grid = attn_grid((Nq + P::BQ - 1) / P::BQ, B * H);
   attn_bf16_wide_kernel<<<grid, P::NW * 32, P::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, Nq, Nk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale_log2);
+      static_cast<bf16*>(o), B * H, H, Nq, Nk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], scale_log2);
   return cudaGetLastError();
 }
 
@@ -957,7 +974,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
                         int Nq, int Nk, int D, int sqb, int sqn, int sqh, int skb, int skn,
                         int skh, int svb, int svn, int svh, int sob, int son, int soh,
                         float scale, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
+  // B * H must fit the int block index and the grid's y * z
+  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || (int64_t)B * H > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   const int st[12] = {sqb, sqn, sqh, skb, skn, skh, svb, svn, svh, sob, son, soh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_fp32(q, k, v, o, B, H, Nq, Nk, D, st, scale, s);

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.flash_attention import flash_attention
 
 
 def timestep_embedding(
@@ -134,12 +135,25 @@ class LayerNorm32(nn.Module):
         return (x * a + b) * self.weight.to(x.dtype) + self.bias.to(x.dtype)
 
 
+def sparse_causal_kv(h: torch.Tensor, frames: int) -> torch.Tensor:
+    """The sparse-causal K/V source (JAX `transformer.py` `sparse_causal_kv`):
+    (B*F, N, C) per-frame tokens -> (B*F, 2N, C), frame t's tokens being
+    [frame 0, frame max(t - 1, 0)]."""
+    BF, N, C = h.shape
+    h4 = h.reshape(BF // frames, frames, N, C)
+    former = torch.cat([h4[:, :1], h4[:, :-1]], dim=1)
+    return torch.cat([h4[:, :1].expand_as(h4), former], dim=2).reshape(BF, 2 * N, C)
+
+
 class Attention(nn.Module):
     """Multi-head attention over (B, N, C) tokens; self-attention when no
     context is given. With `ip_tokens` > 0 (the IP-Adapter's dual stream,
     the cross-attention only) the context's trailing `ip_tokens` tokens are
     image tokens: `to_k_ip` / `to_v_ip` project them, and `ip_scale` times
-    the attention of the queries over them is added before `to_out`."""
+    the attention of the queries over them is added before `to_out`. With
+    `frames` (self-attention only) it is sparse-causal over (B*F, N, C)
+    tokens of `frames` frames: K and V are projected, then gathered by
+    `sparse_causal_kv` (Nk = 2N), and K1 takes them directly."""
 
     def __init__(
         self,
@@ -169,7 +183,12 @@ class Attention(nn.Module):
         return x.reshape(x.shape[0], x.shape[1], self.heads, self.dim_head)
 
     def forward(self, hidden_states, encoder_hidden_states=None, mask=None,
-                ip_scale: float = 1.0):
+                ip_scale: float = 1.0, frames: Optional[int] = None):
+        if frames is not None:
+            q = self._heads(linear(hidden_states, self.to_q))
+            k = self._heads(sparse_causal_kv(linear(hidden_states, self.to_k), frames))
+            v = self._heads(sparse_causal_kv(linear(hidden_states, self.to_v), frames))
+            return self._out(flash_attention(q, k, v))
         ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
         ip_ctx = None
         if self.ip_tokens and encoder_hidden_states is not None:
@@ -186,6 +205,9 @@ class Attention(nn.Module):
             v_ip = self._heads(linear(ip_ctx, self.to_v_ip))
             out = out + ip_scale * dot_product_attention(q, k_ip, v_ip,
                                                          upcast=self.upcast_attention)
+        return self._out(out)
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
         B, N = out.shape[:2]
         return self.to_out[0](out.reshape(B, N, self.heads * self.dim_head))
 

@@ -7,8 +7,13 @@ positional encoding over the frame axis. Two paths compute it: the dense
 path of PyTorch ops, and K3 (`ops/motion_kernel.py`), the whole transformer
 as one fused call, taken when `MotionModule.use_motion_kernel` is set
 (`UNet3DConditionModel.set_motion_kernel`) and the module has the shape K3
-computes, as the JAX package's `MotionModule` dispatches. Banded attention
-and ToMe are not ported yet and raise.
+computes, as the JAX package's `MotionModule` dispatches. With a band
+(`MotionModule(band=...)`, `RunConfig.temporal_band` or the inference yaml's
+`attention_band`), each frame attends only to the frames within +-band of it
+where the band is active (0 < band < F - 1, held per call, as F varies with
+the window); K3 computes dense frame attention, so an active band takes the
+dense path (JAX `motion_module.py:367-371`), and a band >= F - 1, exact dense
+attention, stays on K3. ToMe is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -35,12 +40,25 @@ def temporal_positional_encoding(max_len: int, dim: int) -> np.ndarray:
     return pe.astype(np.float32)
 
 
-class TemporalEinsumAttention(nn.Module):
-    """Frame-axis multi-head attention on (B, F, N, C)."""
+def band_active(band: int, frames: int) -> bool:
+    """Whether a band restricts a window of `frames` frames: a band >= F - 1
+    covers every frame pair (exact dense attention), and 0 means none."""
+    return bool(band) and band < frames - 1
 
-    def __init__(self, dim: int, heads: int):
+
+class TemporalEinsumAttention(nn.Module):
+    """Frame-axis multi-head attention on (B, F, N, C). Where `band` is
+    active (0 < band < F - 1) the logits of key frames farther than `band`
+    from the query frame are set to -inf before the fp32 softmax. JAX
+    (`_banded_frame_attention`) sums the 2 * band + 1 shifted diagonals
+    instead of masking the dense (F, F) logits; the two agree up to
+    summation order. F <= 32 (the PE table), so the masked dense form is
+    small."""
+
+    def __init__(self, dim: int, heads: int, band: int = 0):
         super().__init__()
         self.heads = heads
+        self.band = band
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(dim, dim, bias=False)
         self.to_v = nn.Linear(dim, dim, bias=False)
@@ -52,8 +70,12 @@ class TemporalEinsumAttention(nn.Module):
         q = linear(h, self.to_q).reshape(B, F_, N, H, D)
         k = linear(h, self.to_k).reshape(B, F_, N, H, D)
         v = linear(h, self.to_v).reshape(B, F_, N, H, D)
-        logits = torch.einsum("bfnhd,bgnhd->bnhfg", q, k) * (D**-0.5)
-        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        logits = (torch.einsum("bfnhd,bgnhd->bnhfg", q, k) * (D**-0.5)).float()
+        if band_active(self.band, F_):
+            f = torch.arange(F_, device=h.device)
+            logits = logits.masked_fill((f[:, None] - f[None, :]).abs() > self.band,
+                                        float("-inf"))
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
         out = torch.einsum("bnhfg,bgnhd->bfnhd", probs, v).reshape(B, F_, N, C)
         return self.to_out[0](out)
 
@@ -63,13 +85,14 @@ class TemporalTransformerBlock(nn.Module):
     residual), then LayerNorm -> GEGLU feed-forward -> residual."""
 
     def __init__(self, dim: int, heads: int, attention_block_types: Sequence[str],
-                 max_len: int, use_pos_encoding: bool):
+                 max_len: int, use_pos_encoding: bool, band: int = 0):
         super().__init__()
         for block_type in attention_block_types:
             if block_type != "Temporal_Self":
                 raise NotImplementedError(f"attention block type {block_type!r}")
         n = len(attention_block_types)
-        self.attention_blocks = nn.ModuleList(TemporalEinsumAttention(dim, heads) for _ in range(n))
+        self.attention_blocks = nn.ModuleList(TemporalEinsumAttention(dim, heads, band)
+                                              for _ in range(n))
         self.norms = nn.ModuleList(LayerNorm32(dim) for _ in range(n))
         self.ff_norm = LayerNorm32(dim)
         self.ff = FeedForward(dim)
@@ -90,14 +113,14 @@ class TemporalTransformerBlock(nn.Module):
 class TemporalTransformer3D(nn.Module):
     def __init__(self, channels: int, heads: int, num_transformer_block: int,
                  attention_block_types: Sequence[str], max_len: int,
-                 use_pos_encoding: bool, groups: int):
+                 use_pos_encoding: bool, groups: int, band: int = 0):
         super().__init__()
         self.heads = heads
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList(
             TemporalTransformerBlock(channels, heads, attention_block_types, max_len,
-                                     use_pos_encoding)
+                                     use_pos_encoding, band)
             for _ in range(num_transformer_block)
         )
         self.proj_out = nn.Linear(channels, channels)
@@ -168,9 +191,13 @@ class MotionModule(nn.Module):
                  max_len: int = 32, use_pos_encoding: bool = True, groups: int = 32,
                  band: int = 0, tome_ratio: float = 0.0):
         super().__init__()
-        if band or tome_ratio:
-            raise NotImplementedError("banded temporal attention and ToMe are not ported yet")
+        if tome_ratio:
+            raise NotImplementedError("ToMe on the motion modules is not ported yet")
+        if band < 0:
+            # JAX fails inside jnp.stack for it (2 * band + 1 diagonals)
+            raise ValueError(f"attention band {band} is negative; 0 means dense attention")
         self.channels = channels
+        self.band = band
         self.heads = heads
         self.max_len = max_len
         self.use_pos_encoding = use_pos_encoding
@@ -180,7 +207,7 @@ class MotionModule(nn.Module):
                         and channels % heads == 0)
         self.temporal_transformer = TemporalTransformer3D(
             channels, heads, num_transformer_block, attention_block_types, max_len,
-            use_pos_encoding, groups,
+            use_pos_encoding, groups, band,
         )
 
     def forward(self, x):
@@ -191,7 +218,8 @@ class MotionModule(nn.Module):
                 f"table (max_len={self.max_len})"
             )
         h4 = x.reshape(B, F_, H * W, C)
-        if self.use_motion_kernel and self.fusable:
+        # K3 computes dense frame attention: an active band takes the dense path
+        if self.use_motion_kernel and self.fusable and not band_active(self.band, F_):
             delta = self.temporal_transformer.forward_fused(h4)
         else:
             delta = self.temporal_transformer(h4)

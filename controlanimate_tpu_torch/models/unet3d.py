@@ -10,8 +10,11 @@ under CONTROLANIMATE_PALLAS_MOTION=1). ControlNet residuals (`models/controlnet.
 enter as in the JAX model: each down residual is added to its skip in the
 skip's dtype, the mid residual after the mid block. With `ip_tokens` every
 cross-attention takes the IP-Adapter's image tokens from the context's tail
-(`models/layers.py` `Attention`), scaled by `ip_scale`. Encoder reuse is not
-in this slice.
+(`models/layers.py` `Attention`), scaled by `ip_scale`. The inference yaml's
+`unet_use_cross_frame_attention` and `unet_use_temporal_attention` (sparse-
+causal self-attention, the frame-axis sub-layer: `models/transformer.py`) and
+the motion modules' `attention_band` (`models/motion_module.py`) build the
+UNet they describe. Encoder reuse is not in this slice.
 """
 
 from __future__ import annotations

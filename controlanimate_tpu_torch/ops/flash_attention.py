@@ -74,16 +74,16 @@ def _check_args(q, k, v) -> None:
 
 def check_kernel_args(q, k, v) -> None:
     """What the CUDA kernel takes beyond `_check_args`: a supported head dim,
-    B*H within the grid, CUDA tensors, and in bf16 16-byte alignment: the
+    fewer than 2**31 elements a tensor (its int strides; this also keeps
+    B*H within the grid, whose y and z hold 65535 * 65535 (B, H) pairs),
+    CUDA tensors, and in bf16 16-byte alignment: the
     bf16 kernels copy 16 bytes at a time (cp.async), so every base pointer
     and every (B, N, H) stride of a dimension longer than one must be a
     multiple of 16 bytes. A misaligned input raises, naming the tensor; no
     copy is made and nothing falls back."""
-    B, _, H, D = q.shape
+    D = q.shape[-1]
     if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {D} not supported by the kernel {SUPPORTED_HEAD_DIMS}")
-    if B * H > 65535:
-        raise ValueError(f"B*H = {B * H} exceeds the kernel's grid (65535)")
     if max(t.numel() for t in (q, k, v)) >= 2**31:
         raise ValueError("tensors of 2**31 elements or more overflow the kernel's int strides")
     for name, t in (("q", q), ("k", k), ("v", v)) if q.dtype == torch.bfloat16 else ():

@@ -74,7 +74,10 @@ The run dtype comes from `RunConfig.dtype` ("float16"/"fp16" mean bf16, as
 in the JAX package); models are moved to `device` in that dtype.
 `RunConfig.use_pallas_conv` turns K2 on or off on the VAE, and
 CONTROLANIMATE_PALLAS_MOTION=1 (the JAX package's opt-in, read when the
-pipeline is built) puts the UNet's motion modules on K3.
+pipeline is built) puts the UNet's motion modules on K3 (those without an
+active band). `RunConfig.temporal_band`, where set, overrides the inference
+yaml's `attention_band` in a disk build; an injected UNet built with
+another band raises ValueError (JAX's rules).
 `RunConfig.use_pallas_attention` has no effect: K1 runs every unmasked
 self-attention whatever it says, and the build warns so. Every setting
 `config.require_ported` rejects (meshes, M14's options, ...) raises; a
@@ -162,14 +165,25 @@ class ControlAnimatePipeline:
                     f"IP-Adapter checkpoint {config.ipadapter_ckpt_path} is the SDXL-family "
                     f"{ip_adapter.variant!r} variant; it needs an SDXL UNet, which is outside "
                     "the SD1.5 path. Use an sd15 checkpoint (base, plus or full)")
+        band = int(config.temporal_band)
         if models is None:
             if arch is None:
                 arch = ArchConfig.from_yaml(
                     _existing(config.inference_config_path, "inference_config_path"))
+            if band:  # the run's band overrides the inference yaml's (JAX's rule)
+                arch = dataclasses.replace(arch, motion_module=dataclasses.replace(
+                    arch.motion_module, attention_band=band))
             models, text_stack = build_from_disk(config, arch, device, torch_dtype(config.dtype),
                                                  ip_adapter)
-        elif adapter_from_disk:
-            ip_adapter.inject(models.unet)
+        else:
+            got = models.unet.config.motion.attention_band
+            if band and got != band:
+                raise ValueError(
+                    f"RunConfig.temporal_band={band} but the injected UNet was built with "
+                    f"attention_band={got}; build it with that band in its "
+                    "MotionModuleConfig (a disk build does)")
+            if adapter_from_disk:
+                ip_adapter.inject(models.unet)
         self.config = config
         self.arch = arch if arch is not None else ArchConfig()
         self.device = torch.device(device)

@@ -61,8 +61,7 @@ frames or with `overlap_length` >= `frame_count`), and a stop request ends
 the run with nothing written (`canceled`).
 
 Not ported yet, and rejected by `config.require_ported`: device meshes
-(M15b), and M14's `temporal_band`,
-`token_merge_ratio` and `encoder_reuse_every`. The C++
+(M15b), and M14's `token_merge_ratio` and `encoder_reuse_every`. The C++
 ring buffer frame pipe (`use_native_framepipe`) is not ported: the loop
 takes the Python ffmpeg pipe, as the JAX loop does where that pipe cannot
 be built. JAX behaviours not copied: a missing RealESRGAN file raises FileNotFoundError

@@ -104,7 +104,7 @@ def _ff(t: str, f: str) -> Iterator[Entry]:
     yield from _dense(f"{t}.net.2", f"{f}/net_2")
 
 
-def _spatial(t: str, f: str, ip: bool = False) -> Iterator[Entry]:
+def _spatial(t: str, f: str, ip: bool = False, temporal: bool = False) -> Iterator[Entry]:
     yield from _norm(f"{t}.norm", f"{f}/norm")
     yield from _conv(f"{t}.proj_in", f"{f}/proj_in")
     tb, fb = f"{t}.transformer_blocks.0", f"{f}/transformer_blocks_0"
@@ -116,6 +116,9 @@ def _spatial(t: str, f: str, ip: bool = False) -> Iterator[Entry]:
     for n in ("norm1", "norm2", "norm3"):
         yield from _norm(f"{tb}.{n}", f"{fb}/{n}")
     yield from _ff(f"{tb}.ff", f"{fb}/ff")
+    if temporal:  # the unet_use_temporal_attention sub-layer
+        yield from _attn(f"{tb}.attn_temp", f"{fb}/attn_temp")
+        yield from _norm(f"{tb}.norm_temp", f"{fb}/norm_temp")
     yield from _conv(f"{t}.proj_out", f"{f}/proj_out")
 
 
@@ -134,7 +137,7 @@ def _motion(t: str, f: str, cfg: UNet3DConfig) -> Iterator[Entry]:
 
 
 def unet_mapping(cfg: UNet3DConfig) -> Iterator[Entry]:
-    ip = bool(cfg.ip_tokens)
+    ip, temporal = bool(cfg.ip_tokens), cfg.temporal_attention
     yield from _conv("conv_in", "conv_in/conv")
     yield from _dense("time_embedding.linear_1", "time_embedding/linear_1")
     yield from _dense("time_embedding.linear_2", "time_embedding/linear_2")
@@ -152,14 +155,14 @@ def unet_mapping(cfg: UNet3DConfig) -> Iterator[Entry]:
             t, f = f"down_blocks.{i}", f"down_blocks_{i}"
             yield from _resnet(f"{t}.resnets.{j}", f"{f}_resnets_{j}", j == 0 and in_ch != out_ch)
             if bt == "CrossAttnDownBlock3D":
-                yield from _spatial(f"{t}.attentions.{j}", f"{f}_attentions_{j}", ip)
+                yield from _spatial(f"{t}.attentions.{j}", f"{f}_attentions_{j}", ip, temporal)
             if use_motion:
                 yield from _motion(f"{t}.motion_modules.{j}", f"{f}_motion_modules_{j}", cfg)
         if i < n_down - 1:
             yield from _conv(f"down_blocks.{i}.downsamplers.0.conv",
                              f"down_blocks_{i}_downsamplers_0/conv/conv")
     yield from _resnet("mid_block.resnets.0", "mid_block_resnets_0", False)
-    yield from _spatial("mid_block.attentions.0", "mid_block_attentions_0", ip)
+    yield from _spatial("mid_block.attentions.0", "mid_block_attentions_0", ip, temporal)
     if cfg.use_motion_module and cfg.motion_module_mid_block:
         yield from _motion("mid_block.motion_modules.0", "mid_block_motion_modules_0", cfg)
     yield from _resnet("mid_block.resnets.1", "mid_block_resnets_1", False)
@@ -170,7 +173,7 @@ def unet_mapping(cfg: UNet3DConfig) -> Iterator[Entry]:
             t, f = f"up_blocks.{i}", f"up_blocks_{i}"
             yield from _resnet(f"{t}.resnets.{j}", f"{f}_resnets_{j}", True)
             if bt == "CrossAttnUpBlock3D":
-                yield from _spatial(f"{t}.attentions.{j}", f"{f}_attentions_{j}", ip)
+                yield from _spatial(f"{t}.attentions.{j}", f"{f}_attentions_{j}", ip, temporal)
             if use_motion:
                 yield from _motion(f"{t}.motion_modules.{j}", f"{f}_motion_modules_{j}", cfg)
         if i < n_up - 1:

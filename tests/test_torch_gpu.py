@@ -15,7 +15,10 @@ with a ControlNet, the LCM-LoRA tail, DPM-Solver) on the card against the
 CPU; the IP-Adapter's image encoder: K1 at its (1, 257, 16, 80) shape, and a
 narrow tower of its token count and head width in bf16 (on K1) against the
 same tower in fp32 through the plain attention; and the segment-parallel
-loop on the card against the CPU and against the sequential loop.
+loop on the card against the CPU and against the sequential loop; the
+UNet's attention variants: K1 at the temporal sub-layer's shapes past the
+grid's 65535 on y and at sparse-causal attention's 2N keys, and a banded
+motion module (K3 off where the band is active) against the CPU.
 
 Every test here is marked `gpu` and skips without a card. The file imports
 neither jax nor the other test modules, so on the card's machine (which has
@@ -139,6 +142,54 @@ def test_image_encoder_bf16_on_k1_matches_fp32_plain(cuda, monkeypatch):
         ref = want[key].float()
         err = float((got[key].float() - ref).abs().max())
         assert err <= 5e-2 * float(ref.abs().max()), (key, err)
+
+
+@pytest.mark.parametrize("shape", [(8192, 16, 16, 8, 40), (16384, 16, 16, 8, 40),
+                                   (2, 4096, 8192, 8, 40)])
+def test_kernel_at_the_attention_variants_shapes(cuda, shape):
+    """K1 in bf16 where the UNet's attention variants run it: the temporal
+    sub-layer's (B*N, F, F, 8, 40) at the full level of a 512x512, 16-frame
+    window under CFG (B*H = 65536) and on the segment path (B*H = 131072),
+    past the grid's 65535 on y; and sparse-causal attention's 8192 keys for
+    4096 queries, at B = 2 (at B = 16 the plain version holds 17 GB of
+    scores). One launch a call."""
+    import chip_smoke
+
+    B, Nq, Nk, H, D = shape
+    q, k, v = _qkv((B, Nq, H, D), cuda, torch.bfloat16, Nk)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    bad = chip_smoke.k1_mismatch(torch, out, flash_attention_plain(q, k, v))
+    assert bad is None, bad
+
+
+def test_banded_motion_module_card_matches_cpu(cuda):
+    """A motion module with K3 switched on and a band of 2: at 8 frames the
+    band is active, so the card takes the dense path (K3 launches nothing)
+    and matches the CPU in fp32 within 1e-4 of the largest value; at 3
+    frames the band covers every pair and K3 runs."""
+    import copy
+
+    from controlanimate_tpu_torch.models.motion_module import MotionModule
+
+    torch.manual_seed(0)
+    cpu = MotionModule(64, heads=8, max_len=32, groups=32, band=2).eval()
+    card = copy.deepcopy(cpu).to(cuda)
+    card.use_motion_kernel = True
+    x = torch.randn(1, 8, 4, 4, 64)
+    mk.reset_launch_counts()
+    with torch.no_grad():
+        got = card(x.to(cuda))
+        torch.cuda.synchronize()
+        assert mk.motion_module_fused.launches == 0
+        want = cpu(x)
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+        card(x[:, :3].to(cuda))
+        torch.cuda.synchronize()
+    assert mk.motion_module_fused.launches == 1
 
 
 def test_kernel_reads_strided_inputs(cuda):

@@ -55,7 +55,7 @@ from test_ip_adapter import _sd_numpy, _torch_image_proj, _torch_mlp_proj, _torc
 from test_torch_common import LCM_MOTION, LCM_UNET, JaxDraws, clip_pair, random_params, unet_pair
 from test_torch_common import vae_pair
 from test_torch_controlnet import LCM_CN, controlnet_pair
-from test_torch_vid2vid import StubPipeline, _video, assert_frames_close
+from torch_loop_helpers import StubPipeline, _video, assert_frames_close
 
 # the tiny tower of tests/test_ip_adapter.py `test_embed_images_matches_per_frame_loop`
 VISION = dict(hidden_size=16, num_layers=2, num_heads=2, intermediate_size=32, image_size=224,

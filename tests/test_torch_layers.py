@@ -141,7 +141,12 @@ def test_motion_module_rejects_long_window_and_unported_paths():
     tm = tmm.MotionModule(32, heads=4, max_len=8, groups=8)
     with pytest.raises(ValueError, match="max_len"):
         tm(torch.zeros(1, 9, 2, 2, 32))
-    with pytest.raises(NotImplementedError):
-        tmm.MotionModule(32, heads=4, band=2)
-    with pytest.raises(NotImplementedError):
-        tt.SpatialTransformer(32, 4, 8, cross_frame=True)
+    # a band and the UNet's two attention variants are ported
+    # (tests/test_torch_attention_variants.py); ToMe is not, and a negative
+    # band has no meaning (JAX fails inside jnp.stack for it)
+    with pytest.raises(ValueError, match="negative"):
+        tmm.MotionModule(32, heads=4, band=-1)
+    with pytest.raises(NotImplementedError, match="ToMe"):
+        tmm.MotionModule(32, heads=4, tome_ratio=0.5)
+    with pytest.raises(NotImplementedError, match="ToMe"):
+        tt.SpatialTransformer(32, 4, 8, cross_frame=True, tome_ratio=0.5)

@@ -11,7 +11,7 @@ against JAX's `_run_segments` for each of the JAX package's segment tests
 parity with the sequential loop, pad and trim, `max_windows`), plus
 loop-back, the IP-Adapter's initial double pass and the upscale. Windows
 agree within 1 LSB; the frames the loops write within the stitch's color
-match gate (`test_torch_vid2vid.assert_frames_close`). Where a window's
+match gate (`torch_loop_helpers.assert_frames_close`). Where a window's
 output feeds the next (loop-back, the double pass) the JAX windows are
 held one by one first, then replayed through the port's loop, as
 `test_torch_ip_adapter.py` does. Each JAX pipeline is built once for the
@@ -45,7 +45,7 @@ from test_torch_common import (LCM_MOTION, LCM_UNET, JaxDraws, clip_pair, unet_p
                                upscaler_pair, vae_pair)
 from test_torch_controlnet import LCM_CN, controlnet_pair
 from test_torch_ip_adapter import IP_UNET, adapter_pair, no_ipp  # noqa: F401 (a fixture)
-from test_torch_vid2vid import _video, assert_frames_close
+from torch_loop_helpers import _video, assert_frames_close
 
 SIZE = 64
 BASE = dict(width=SIZE, height=SIZE, frame_count=4, overlap_length=2, use_lcm=True, steps=2,

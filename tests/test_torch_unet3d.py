@@ -1,6 +1,8 @@
 """The port's UNet3DConditionModel against the JAX model on the same random
 weights: the tiny LCM UNet of tests/test_engine.py (with the w-embedding
-input) and the tiny UNet of tests/test_unet3d.py, at that file's 1e-4 gate."""
+input) and the tiny UNet of tests/test_unet3d.py, the latter also with the
+temporal sub-layer, with sparse-causal attention and with a motion band of
+1 at 3 frames (active), at that file's 1e-4 gate."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,9 @@ from test_torch_common import LCM_MOTION, LCM_UNET, TINY_MOTION, TINY_UNET, unet
 @pytest.mark.parametrize("kw,motion,frames", [
     (LCM_UNET, LCM_MOTION, 4),
     (TINY_UNET, TINY_MOTION, 3),
+    ({**TINY_UNET, "temporal_attention": True}, TINY_MOTION, 3),
+    ({**TINY_UNET, "cross_frame_attention": True}, TINY_MOTION, 3),
+    (TINY_UNET, {**TINY_MOTION, "attention_band": 1}, 3),
 ])
 def test_unet_matches_jax(kw, motion, frames):
     jmodel, params, tmodel = unet_pair(kw, motion)
